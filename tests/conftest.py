@@ -38,3 +38,6 @@ jax_driver.SMALL_WORKLOAD_EVALS = 0
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end captures (bench runs)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the PyTorch port's kernels); "
+        "skips elsewhere")
