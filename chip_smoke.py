@@ -1,23 +1,26 @@
 """Drive gatekeeper_tpu_torch on one CUDA card and hold every kernel
 against its plain PyTorch version.
 
-    python3 chip_smoke.py [--resources N] [--library-rows N]
+    python3 chip_smoke.py [--resources N]
 
 Phases (each prints one line of its numbers):
   1. card   — nvidia-smi name/power limit, torch and CUDA versions, TF32 off
   2. build  — nvcc builds K2 (csrc/topk.cu) and K3 (csrc/dfa.cu)
   3. kernels against their plain versions, bit for bit:
-       K2 on random [128, 131072] masks and at a ragged r_pad < k;
+       K2 on random [128, 131072] masks at cap 20 and at a cap of 300
+       (several passes), and at a ragged r_pad < k;
        K1 and K3 on a synthetic program that uses every IR op;
-       the library set (48 device-lowered templates) over make_mixed
-       rows through TorchDriver on the card — K1 on every program, K3
-       on the regex template — with the sweep's launch counts
+       the library set (48 device-lowered templates) over 2,000
+       make_mixed rows through TorchDriver on the card — K1 on every
+       program, K3 on the regex template — with the sweep's launch counts
   4. main path — TorchDriver() with the north-star set (3 templates x 67
      constraints = 201) over --resources pods, cap 20: a cold sweep and
      the best of 3 steady sweeps; K1/K2 launch counts; K1 and K2 at the
      sweep's own shapes against their plain versions; the results
      against TorchDriver(device="cpu") on the same store and against
-     LocalDriver on a 300-pod subsample
+     LocalDriver on a 300-pod subsample; K3 at the store's size: the
+     library's regex template (K8sImageDigests) swept over the same pods,
+     its string table against the plain scan
   5. the kernels JSON line, the card line, and the final JSON line.
 Any mismatch or exception exits nonzero before the final line.
 """
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 import subprocess
 import sys
@@ -36,6 +40,8 @@ import torch
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # non-tensor-core fp32 peak (ALU proxy)
 TARGET = "admission.k8s.gatekeeper.sh"
+CAP = 20                        # Gatekeeper's default audit cap
+LIBRARY_ROWS = 2000
 
 
 def fail(msg: str) -> None:
@@ -86,6 +92,26 @@ def norm(results) -> list:
             for r in results]
 
 
+def dfa_inputs(arrays, nm: str) -> tuple:
+    return (arrays[nm + ".trans"], arrays[nm + ".accept"],
+            arrays["__strbytes__"], arrays["__strdfaok__"],
+            arrays[nm + ".xv"], 3)
+
+
+def k3_numbers(dfa, ins) -> dict:
+    """K3 and its plain scan timed on ``ins``, with the bound: each id's
+    byte row, the transition table and the flags read once, one table
+    step per byte after the prefix plus the TERM step."""
+    u, w = ins[2].shape
+    trans = ins[0]
+    nbytes = u * w + trans.numel() * trans.element_size() \
+        + trans.shape[0] + 3 * u
+    b, by = bound(nbytes, u * (w - 3 + 1))
+    return {"ms": cuda_ms(lambda: dfa.dfa_table(*ins)),
+            "plain_ms": cuda_ms(lambda: dfa.dfa_table_plain(*ins), iters=5),
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
 def k1_element_ops(executor_mod, program, arrays) -> int:
     """Lattice element operations of one evaluation: the size of every
     node's value block plus the epilogue (products count L*2 per output
@@ -110,8 +136,6 @@ def k1_element_ops(executor_mod, program, arrays) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
-    ap.add_argument("--library-rows", type=int, default=2000)
-    ap.add_argument("--cap", type=int, default=20)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -132,6 +156,9 @@ def main() -> int:
     from gatekeeper_tpu_torch.library import all_docs, make_mixed
     from gatekeeper_tpu_torch.library.north_star import (make_resources,
                                                          setup_north_star)
+    from gatekeeper_tpu_torch.library.templates import (LIBRARY,
+                                                        constraint_doc,
+                                                        template_doc)
     from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
 
     # ---- 1. card
@@ -146,7 +173,10 @@ def main() -> int:
           f"x{torch.cuda.device_count()} | matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
 
-    # ---- 2. build
+    # ---- 2. build (Triton's compile cache too stays in the checkout)
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "gatekeeper_tpu_torch",
+        "_build", "triton_cache"))
     t0 = time.perf_counter()
     secs = build.build()
     import triton
@@ -157,18 +187,25 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rec: dict[str, dict] = {}
 
-    # ---- 3a. K2 on random masks, full and ragged
+    # ---- 3a. K2 on random masks, full and ragged, at the default cap
+    # and at one that takes several passes
     g = torch.Generator(device="cpu").manual_seed(7)
     for c_pad, r_pad, dens in ((128, 131072, 0.3), (128, 131072, 1e-4),
                                (4, 8, 0.5)):
         viol = (torch.rand((c_pad, r_pad), generator=g) < dens).to(dev)
         rank = torch.randperm(r_pad, generator=g).to(torch.int32).to(dev)
-        got = topk.topk_packed(viol, rank, args.cap)
-        want = topk.topk_packed_plain(viol, rank, args.cap)
-        if packed_err(got, want, args.cap):
-            fail(f"K2 mismatch at [{c_pad}, {r_pad}] density {dens}")
-    print(f"phase K2 random: [128,131072] x2 densities and ragged [4,8] k="
-          f"{args.cap} equal to plain", flush=True)
+        for k in (CAP, 300):
+            got = topk.topk_packed(viol, rank, k)
+            want = topk.topk_packed_plain(viol, rank, k)
+            if packed_err(got, want, k):
+                fail(f"K2 mismatch at [{c_pad}, {r_pad}] density {dens} "
+                     f"k {k}")
+        if dens == 0.3:
+            k2_caps = {k: round(cuda_ms(lambda: topk.topk_packed(
+                viol, rank, k)), 4) for k in (CAP, 300)}
+    print(f"phase K2 random: [128,131072] x2 densities and ragged [4,8], k "
+          f"{CAP} and 300, equal to plain; ms per launch at density 0.3 by "
+          f"cap {k2_caps}", flush=True)
 
     # ---- 3b. K1 and K3 on a program using every IR op (the library
     # lowers to a subset: no and/any_e/all_e/count_e/+ - *), random
@@ -194,10 +231,10 @@ def main() -> int:
     for t, con in all_docs():
         lib.add_template(t)
         lib.add_constraint(con)
-    lib.add_data_batch(make_mixed(random.Random(0), args.library_rows))
+    lib.add_data_batch(make_mixed(random.Random(0), LIBRARY_ROWS))
     reset_counts(ir_eval, topk, dfa)
     t0 = time.perf_counter()
-    lib_res, _ = lib_drv.query_audit(TARGET, QueryOpts(limit_per_constraint=args.cap))
+    lib_res, _ = lib_drv.query_audit(TARGET, QueryOpts(limit_per_constraint=CAP))
     lib_s = time.perf_counter() - t0
     lib_counts = {"K1": ir_eval.eval_mask.launches,
                   "K2": topk.topk_packed.launches,
@@ -221,9 +258,7 @@ def main() -> int:
         k1_err = max(k1_err, int((got.int() - want.int()).abs().max()))
         n_k1 += 1
         for nm in ex.dfa_names(prog):
-            ins = (arrays[nm + ".trans"], arrays[nm + ".accept"],
-                   arrays["__strbytes__"], arrays["__strdfaok__"],
-                   arrays[nm + ".xv"], 3)
+            ins = dfa_inputs(arrays, nm)
             g3, w3 = dfa.dfa_table(*ins), dfa.dfa_table_plain(*ins)
             if not torch.equal(g3, w3):
                 fail(f"K3 mismatch on {kind}/{nm}")
@@ -232,20 +267,14 @@ def main() -> int:
     if n_k1 != 48 or k3 is None:
         fail(f"library phase checked {n_k1} programs, regex {k3 is not None}")
     u, w = k3[1][2].shape
-    s_states = k3[1][0].shape[0]
-    k3_bytes = u * w + k3[1][0].numel() * k3[1][0].element_size() \
-        + s_states + 3 * u
-    k3_ms = cuda_ms(lambda: dfa.dfa_table(*k3[1]))
-    k3_plain = cuda_ms(lambda: dfa.dfa_table_plain(*k3[1]), iters=5)
-    k3_bound, k3_by = bound(k3_bytes, u * (w - 3 + 1))
-    rec["K3"] = {"launches": lib_counts["K3"], "max_abs_err": k3_err,
-                 "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": k3_bound,
-                 "bound_by": k3_by, "library_ms": None}
-    print(f"phase library: {len(st.templates)} templates x {args.library_rows}"
+    k3_lib = k3_numbers(dfa, k3[1])
+    print(f"phase library: {len(st.templates)} templates x {LIBRARY_ROWS}"
           f" rows, capped sweep {lib_s:.3f}s, {len(lib_res)} results, "
           f"launches {lib_counts}; K1 == plain on {n_k1} programs; K3 == "
-          f"plain on {k3[0]} ([{u}, {w}] bytes, {s_states} states): "
-          f"{k3_ms:.4f} ms vs plain {k3_plain:.4f} ms", flush=True)
+          f"plain on {k3[0]} ([{u}, {w}] bytes, {k3[1][0].shape[0]} "
+          f"states, launch-scale): {k3_lib['ms']:.4f} ms vs plain "
+          f"{k3_lib['plain_ms']:.4f} ms, bound {k3_lib['bound_ms']:.6f}",
+          flush=True)
     del lib_drv, lib, st
 
     # ---- 4. main path: north star on the card
@@ -255,7 +284,7 @@ def main() -> int:
     drv = TorchDriver()
     setup_north_star(drv, resources, random.Random(2))
     ingest_s = time.perf_counter() - t0
-    opts = QueryOpts(limit_per_constraint=args.cap)
+    opts = QueryOpts(limit_per_constraint=CAP)
     reset_counts(ir_eval, topk, dfa)
     t0 = time.perf_counter()
     cold, _ = drv.query_audit(TARGET, opts)
@@ -274,7 +303,7 @@ def main() -> int:
         fail(f"main path did not launch K1 and K2: {counts}")
     evals = args.resources * 201
     print(f"phase main: north star {args.resources} pods x 201 constraints "
-          f"cap {args.cap}: ingest {ingest_s:.3f}s, cold {cold_s:.4f}s, "
+          f"cap {CAP}: ingest {ingest_s:.3f}s, cold {cold_s:.4f}s, "
           f"steady best {min(steady):.4f}s (all {[round(s, 4) for s in steady]}), "
           f"{evals / min(steady):.4g} constraint-evals/s steady, "
           f"{len(cold)} results, launches {counts}", flush=True)
@@ -323,9 +352,9 @@ def main() -> int:
         k1_plain += cuda_ms(lambda: ex._eval_mask(prog, arrays),
                             iters=5) / len(kinds)
         rank = arrays["__rank__"]
-        g2 = topk.topk_packed(got, rank, args.cap)
-        w2 = topk.topk_packed_plain(got, rank, args.cap)
-        k = args.cap
+        g2 = topk.topk_packed(got, rank, CAP)
+        w2 = topk.topk_packed_plain(got, rank, CAP)
+        k = CAP
         k2_err = max(k2_err, packed_err(g2, w2, k))
         if k2_err:
             fail(f"K2 mismatch on north-star template {kind}")
@@ -373,6 +402,45 @@ def main() -> int:
     print(f"phase check: {len(cold)} capped results equal TorchDriver(cpu) "
           f"on the same store ({cpu_s:.1f}s incl. ingest); 300-pod "
           f"subsample {len(a)} uncapped results equal LocalDriver", flush=True)
+
+    # K3 at the store's size: the library's regex template over the same
+    # pods (one string table entry per interned value its bindings read)
+    torch_driver.SMALL_WORKLOAD_EVALS = 0
+    dig = TorchDriver()
+    dc = Backend(dig).new_client([K8sValidationTarget()])
+    rego, params = LIBRARY["K8sImageDigests"]
+    dc.add_template(template_doc("K8sImageDigests", rego))
+    dc.add_constraint(constraint_doc("K8sImageDigests", "digests", params))
+    dc.add_data_batch(resources)
+    reset_counts(ir_eval, topk, dfa)
+    dig_res, _ = dig.query_audit(TARGET, opts)
+    dig_counts = {"K1": ir_eval.eval_mask.launches,
+                  "K2": topk.topk_packed.launches,
+                  "K3": dfa.dfa_table.launches}
+    if min(dig_counts.values()) <= 0:
+        fail(f"K8sImageDigests sweep did not launch every kernel: "
+             f"{dig_counts}")
+    st = dig._state(TARGET)
+    prog = st.templates["K8sImageDigests"].vectorized.program
+    arrays = dig.executor._arrays(st.bindings_cache["K8sImageDigests"][1],
+                                  None)
+    (nm,) = ex.dfa_names(prog)
+    ins = dfa_inputs(arrays, nm)
+    g3, w3 = dfa.dfa_table(*ins), dfa.dfa_table_plain(*ins)
+    if not torch.equal(g3, w3):
+        fail("K3 mismatch on the K8sImageDigests store table")
+    k3_err = max(k3_err, int((g3.int() - w3.int()).abs().max()))
+    n_ids = int(arrays["__strdfaok__"].sum())
+    rec["K3"] = {"launches": dig_counts["K3"], "max_abs_err": k3_err,
+                 **k3_numbers(dfa, ins)}
+    print(f"phase K3 store: K8sImageDigests over {args.resources} pods, "
+          f"{len(dig_res)} capped results, launches {dig_counts}; string "
+          f"table {list(ins[2].shape)} bytes ({n_ids} scannable ids), "
+          f"{ins[0].shape[0]} states: K3 {rec['K3']['ms']:.4f} ms vs plain "
+          f"{rec['K3']['plain_ms']:.4f} ms, bound "
+          f"{rec['K3']['bound_ms']:.6f} ms ({rec['K3']['bound_by']}); equal "
+          f"to plain", flush=True)
+    del dig, dc, st, arrays
 
     # ---- 5. kernels line, card line, final line
     meta = {

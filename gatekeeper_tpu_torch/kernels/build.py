@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
-library with a plain C interface under ``gatekeeper_tpu_torch/_build/``,
+library with a plain C interface under :func:`build_dir`,
 named by a hash of the source so an edited kernel rebuilds and an
 unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing
 library, all at once, and waits for them; :func:`load` builds on first
@@ -21,7 +21,6 @@ import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("topk", "dfa")
 GENCODE = "arch=compute_90a,code=sm_90a"
 
@@ -41,18 +40,26 @@ def _nvcc() -> str:
                        "toolkit is installed")
 
 
+def build_dir() -> str:
+    """Where built libraries and generated kernel sources go:
+    ``$GATEKEEPER_TORCH_BUILD_DIR`` when set (for an install the process
+    cannot write to), else ``gatekeeper_tpu_torch/_build/``."""
+    return os.environ.get("GATEKEEPER_TORCH_BUILD_DIR") \
+        or os.path.join(PKG_DIR, "_build")
+
+
 def so_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    return os.path.join(build_dir(), f"lib{name}_{digest}.so")
 
 
 def build(names=KERNELS) -> dict[str, float]:
     """Compile every missing library in ``names`` in parallel; returns
     seconds per library actually built (0.0 for one already built).
     Raises RuntimeError with nvcc's output when a build fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(), exist_ok=True)
     procs = {}
     out: dict[str, float] = {}
     for name in names:

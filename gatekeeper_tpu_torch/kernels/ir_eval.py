@@ -44,6 +44,7 @@ import torch
 
 from gatekeeper_tpu_torch.ir.prep import binding_axes
 from gatekeeper_tpu_torch.ir.program import Program
+from gatekeeper_tpu_torch.kernels import build
 
 _ALWAYS = "ONE"     # the all-true [1, 1, 1] block: "always defined"
 
@@ -436,19 +437,17 @@ def emit_source(program: Program, sig: dict[str, tuple[str, tuple]]):
 
 _LOCK = threading.Lock()
 _KERNELS: dict[tuple, tuple] = {}
-_GEN_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "_build", "ir_eval")
 
 
 def _load_kernel(src: str):
-    """Import the generated source from a file (Triton's JIT reads a
-    kernel's source through inspect, which needs a real file)."""
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          os.path.join(os.path.dirname(_GEN_DIR),
-                                       "triton_cache"))
+    """Import the generated source from a file under the build directory
+    (Triton's JIT reads a kernel's source through inspect, which needs a
+    real file).  Triton's own compile cache stays wherever the process
+    points it (``TRITON_CACHE_DIR``)."""
     digest = hashlib.sha256(src.encode()).hexdigest()[:20]
-    os.makedirs(_GEN_DIR, exist_ok=True)
-    path = os.path.join(_GEN_DIR, f"k_{digest}.py")
+    gen_dir = os.path.join(build.build_dir(), "ir_eval")
+    os.makedirs(gen_dir, exist_ok=True)
+    path = os.path.join(gen_dir, f"k_{digest}.py")
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "w") as f:

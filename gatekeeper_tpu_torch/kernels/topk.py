@@ -18,11 +18,6 @@ import torch
 
 from gatekeeper_tpu_torch.kernels import build
 
-K_MAX = 128
-"""Largest cap the CUDA kernel takes (its per-thread candidate list is
-a compile-time array); a larger cap on a CUDA tensor raises."""
-
-
 def topk_reduce(viol: torch.Tensor, k: int,
                 rank: torch.Tensor | None = None,
                 score_base: int | None = None,
@@ -78,8 +73,8 @@ def topk_packed(viol: torch.Tensor, rank: torch.Tensor | None,
         raise TypeError("topk_packed: viol must be a contiguous 2-d bool "
                         f"tensor, got {viol.dim()}-d {viol.dtype}")
     c_pad, r_pad = viol.shape
-    if not 0 < k <= K_MAX:
-        raise ValueError(f"topk_packed: k={k} outside 1..{K_MAX}")
+    if k <= 0:
+        raise ValueError(f"topk_packed: k={k} must be positive")
     if rank is not None:
         if rank.device != viol.device or rank.dtype != torch.int32 \
                 or tuple(rank.shape) != (r_pad,) or not rank.is_contiguous():

@@ -169,6 +169,20 @@ def test_full_sweep_and_tracing_match_reference():
             assert b.trace_dump() == a.trace_dump()
 
 
+def test_large_caps_match_reference():
+    """Caps past 128 (a user sets the audit cap freely): K2 fills them in
+    several passes on the card; here the plain top-k must still give
+    the reference's rows, also where the cap exceeds the violations."""
+    resources = make_resources(300, random.Random(5))
+    jd, td = JaxDriver(), TorchDriver(device="cpu")
+    jc = _jax_north_star(jd, resources, random.Random(6), 2)
+    tc = setup_north_star(td, resources, random.Random(6), c_per_kind=2)
+    for limit in (129, 250, 1000):
+        a = [_key(r) for r in jc.audit(limit_per_constraint=limit).results()]
+        b = [_key(r) for r in tc.audit(limit_per_constraint=limit).results()]
+        assert b == a and b, limit
+
+
 @pytest.mark.parametrize("seed", range(16))
 def test_fuzz_driver_parity(seed):
     """The randomized templates and churn rounds of test_fuzz_parity.py

@@ -159,7 +159,10 @@ def test_k3_narrow_transition_table_on_card(card):
     (128, 1 << 17, 20, 1e-4, True),
     (4, 8, 20, 0.5, True),                # r_pad < k: padded slots
     (16, 1000, 20, 0.01, False),          # no rank, unaligned rows
-    (8, 64, 100, 0.9, True),              # the k <= 128 instance
+    (8, 64, 100, 0.9, True),
+    (8, 4096, 300, 0.5, True),            # k past one pass: three passes
+    (16, 1000, 129, 0.3, False),          # one slot into the second pass
+    (4, 512, 400, 0.3, True),             # under-filled in the second pass
     (4, 16, 5, 0.0, True),
 ])
 def test_k2_matches_plain_on_card(card, c_pad, r_pad, k, density, ranked):
@@ -182,7 +185,7 @@ def test_driver_on_card_matches_cpu(card, monkeypatch):
     clients = [setup_north_star(d, resources, random.Random(2), c_per_kind=4)
                for d in (gpu, cpu)]
     k1, k2 = ir_eval.eval_mask.launches, ttopk.topk_packed.launches
-    for limit in (None, 20, 2):
+    for limit in (None, 20, 2, 300):
         a, b = ([(r.constraint["metadata"]["name"], r.msg,
                   r.resource["metadata"]["name"])
                  for r in c.audit(limit_per_constraint=limit).results()]
