@@ -5,11 +5,14 @@ against its plain PyTorch version.
 
 Phases (each prints one line of its numbers):
   1. card   — nvidia-smi name/power limit, torch and CUDA versions, TF32 off
-  2. build  — nvcc builds K2 (csrc/topk.cu) and K3 (csrc/dfa.cu)
+  2. build  — nvcc builds K2 (csrc/topk.cu), K3 (csrc/dfa.cu) and K4
+     (csrc/scatter.cu), all at once
   3. kernels against their plain versions, bit for bit:
        K2 on random [128, 131072] masks at cap 20 and at a cap of 300
        (several passes), and at a ragged r_pad < k;
        K1 and K3 on a synthetic program that uses every IR op;
+       K4 on random columns of every dtype and axis layout, with
+       duplicate padding rows; K5 on the every-op programs at random rows;
        the library set (48 device-lowered templates) over 2,000
        make_mixed rows through TorchDriver on the card — K1 on every
        program, K3 on the regex template — with the sweep's launch counts
@@ -21,13 +24,20 @@ Phases (each prints one line of its numbers):
      LocalDriver on a 300-pod subsample; K3 at the store's size: the
      library's regex template (K8sImageDigests) swept over the same pods,
      its string table against the plain scan
-  5. the kernels JSON line, the card line, and the final JSON line.
+  5. churn — on the same driver and store, 3 rounds that each upsert 1%
+     of the pods (new labels on existing names) and run a capped sweep:
+     each sweep's results against TorchDriver(device="cpu") on the same
+     churned store, 3 K5 launches and no full K1 launch per sweep, K4
+     and K5 against their plain versions on the churn's own inputs, their
+     times at the churn's shapes, and device memory that stops growing
+  6. the kernels JSON line, the card line, and the final JSON line.
 Any mismatch or exception exits nonzero before the final line.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import random
@@ -35,6 +45,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
@@ -79,10 +90,22 @@ def packed_err(got, want, k: int) -> int:
                int((got[:, 1:1 + k] * gv - want[:, 1:1 + k] * wv).abs().max()))
 
 
-def reset_counts(ir_eval, topk, dfa) -> None:
-    for fn in (ir_eval.eval_mask, topk.topk_packed, dfa.dfa_table):
-        fn.launches = 0
-        fn.plain_calls = 0
+def kernel_fns(ir_eval, topk, dfa, scatter) -> dict:
+    """Each kernel's wrapper as (module, name): a wrapper counts on the
+    function its module's name refers to at the time of the call."""
+    return {"K1": (ir_eval, "eval_mask"), "K2": (topk, "topk_packed"),
+            "K3": (dfa, "dfa_table"), "K4": (scatter, "scatter_rows"),
+            "K5": (ir_eval, "delta_mask")}
+
+
+def reset_counts(fns: dict) -> None:
+    for mod, name in fns.values():
+        getattr(mod, name).launches = 0
+        getattr(mod, name).plain_calls = 0
+
+
+def launch_counts(fns: dict) -> dict:
+    return {k: getattr(mod, name).launches for k, (mod, name) in fns.items()}
 
 
 def norm(results) -> list:
@@ -110,6 +133,73 @@ def k3_numbers(dfa, ins) -> dict:
     return {"ms": cuda_ms(lambda: dfa.dfa_table(*ins)),
             "plain_ms": cuda_ms(lambda: dfa.dfa_table_plain(*ins), iters=5),
             "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
+def recording(fn, store: list):
+    """``fn`` that also keeps each call's arguments and result; while it
+    stands in for ``fn`` under the module's name, ``fn`` counts on it."""
+    def rec_fn(*args):
+        out = fn(*args)
+        store.append((args, out))
+        return out
+    rec_fn.launches = rec_fn.plain_calls = 0
+    return rec_fn
+
+
+def max_err(got, want) -> float:
+    return float((got.to(torch.float64) - want.to(torch.float64))
+                 .abs().max()) if got.numel() else 0.0
+
+
+def k4_numbers(scatter, calls) -> dict:
+    """K4, its plain version (index_copy_ on a clone) and one
+    ``torch.index_copy`` timed on each call (mean), with the bound: the
+    column read and the new column written once (the copy), the values
+    and the int32 rows read once."""
+    out = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+    for dev_t, rows, vals, axis in calls:
+        nbytes = 2 * dev_t.numel() * dev_t.element_size() \
+            + vals.numel() * vals.element_size() + 4 * rows.numel()
+        idx = rows.to(torch.int64)
+        out["bound_ms"] += bound(nbytes, 0)[0]
+        out["ms"] += cuda_ms(lambda: scatter.scatter_rows(dev_t, rows, vals,
+                                                          axis))
+        out["plain_ms"] += cuda_ms(lambda: scatter.scatter_rows_plain(
+            dev_t, rows, vals, axis))
+        out["library_ms"] += cuda_ms(lambda: torch.index_copy(
+            dev_t, axis, idx, vals))
+    out = {k: v / len(calls) for k, v in out.items()}
+    out["bound_by"] = "bytes"
+    return out
+
+
+def k5_numbers(ex, ir_eval, calls) -> dict:
+    """K5 and its plain version timed on each call (mean), with the
+    bound: the stored mask read and the new mask written once, each
+    array the program reads once (an r-axis array only at the distinct
+    dirty rows), the rows once; K1's element operations for the distinct
+    dirty rows."""
+    out = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    by = "bytes"
+    for prog, d, viol_old, rows in calls:
+        c_pad, r_pad = viol_old.shape
+        n_dirty = int(torch.unique(rows).numel())
+        used = ir_eval.emit_source(prog, ir_eval.array_signature(d))[1].ptrs
+        nbytes = 2 * c_pad * r_pad + 4 * rows.numel()
+        for nm in used:
+            size = d[nm].numel() * d[nm].element_size()
+            nbytes += size if ex._r_axis(nm) is None \
+                else size * n_dirty // r_pad
+        ops = k1_element_ops(ex, prog, d) * n_dirty / r_pad
+        b, by = bound(nbytes, ops)
+        out["bound_ms"] += b
+        out["ms"] += cuda_ms(lambda: ir_eval.delta_mask(prog, d, viol_old,
+                                                        rows))
+        out["plain_ms"] += cuda_ms(lambda: ex._delta_mask(prog, d, viol_old,
+                                                          rows), iters=5)
+    out = {k: v / len(calls) for k, v in out.items()}
+    out.update(bound_by=by, library_ms=None)
+    return out
 
 
 def k1_element_ops(executor_mod, program, arrays) -> int:
@@ -151,7 +241,7 @@ def main() -> int:
     from gatekeeper_tpu_torch.engine import executor as ex
     from gatekeeper_tpu_torch.engine import torch_driver
     from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-    from gatekeeper_tpu_torch.kernels import build, dfa, ir_eval, topk
+    from gatekeeper_tpu_torch.kernels import build, dfa, ir_eval, scatter, topk
     from gatekeeper_tpu_torch.kernels.op_cases import every_op_case
     from gatekeeper_tpu_torch.library import all_docs, make_mixed
     from gatekeeper_tpu_torch.library.north_star import (make_resources,
@@ -186,6 +276,10 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rec: dict[str, dict] = {}
+    fns = kernel_fns(ir_eval, topk, dfa, scatter)
+
+    def counts_of(*keys) -> dict:
+        return {k: v for k, v in launch_counts(fns).items() if k in keys}
 
     # ---- 3a. K2 on random masks, full and ragged, at the default cap
     # and at one that takes several passes
@@ -224,7 +318,74 @@ def main() -> int:
     print("phase every-op: K1 and K3 equal their plain versions on 2 "
           "every-op programs", flush=True)
 
-    # ---- 3c. library set through TorchDriver on the card
+    # ---- 3c. K4 on random columns of every dtype and axis layout, and
+    # K5 on the every-op programs at random rows; rows padded to their
+    # bucket by repeating the first row (with its values)
+    rng = np.random.default_rng(11)
+    for shape, axis, dtype in (
+            ((131072,), 0, torch.bool), ((131072,), 0, torch.int32),
+            ((131072,), 0, torch.int8), ((131072,), 0, torch.int16),
+            ((131072,), 0, torch.float32), ((131072, 4), 0, torch.int16),
+            ((128, 131072), 1, torch.bool), ((5, 131072), 1, torch.bool),
+            ((3, 131072), 1, torch.int32), ((3, 8192, 4), 1, torch.bool),
+            ((4096, 128), 0, torch.uint8), ((4096,), 0, torch.bool)):
+        for n_dirty in (1, 5, 1000):
+            dirty = np.sort(rng.choice(shape[axis], size=n_dirty,
+                                       replace=False))
+            rows_np = ex.pad_rows(dirty).astype(np.int32)
+            vshape = shape[:axis] + (len(rows_np),) + shape[axis + 1:]
+            lo, hi = (0, 2) if dtype == torch.bool else (-3, 100)
+            col = torch.from_numpy(rng.integers(lo, hi, size=shape)) \
+                .to(dtype).to(dev)
+            vals = torch.from_numpy(rng.integers(lo, hi, size=vshape)) \
+                .to(dtype)
+            pad = [slice(None)] * len(shape)
+            pad[axis] = slice(n_dirty, None)
+            first = [slice(None)] * len(shape)
+            first[axis] = slice(0, 1)
+            vals[tuple(pad)] = vals[tuple(first)]
+            vals = vals.to(dev)
+            rows = torch.from_numpy(rows_np).to(dev)
+            keep = col.clone()
+            got = scatter.scatter_rows(col, rows, vals, axis)
+            torch.cuda.synchronize()
+            if not torch.equal(got, scatter.scatter_rows_plain(
+                    col, rows, vals, axis)) or not torch.equal(col, keep):
+                fail(f"K4 mismatch on {dtype} {list(shape)} axis {axis}, "
+                     f"{n_dirty} rows")
+    # the match-mask shape a churned kind scatters: [C_pad, R_pad] bool
+    # along R, 1% of 100k rows (bucket 1024)
+    dirty = np.sort(rng.choice(100_000, size=1000, replace=False))
+    rows = torch.from_numpy(ex.pad_rows(dirty).astype(np.int32)).to(dev)
+    mask_col = torch.from_numpy(rng.random((128, 131072)) < 0.5).to(dev)
+    mask_vals = torch.from_numpy(rng.random((128, 1024)) < 0.5).to(dev)
+    k4_mask = k4_numbers(scatter, [(mask_col, rows, mask_vals, 1)])
+    del mask_col, mask_vals
+    for seed, kw in ((0, {}), (1, {"c_pad": 128, "r_pad": 1 << 14,
+                                   "e_pad": 8, "t_pad": 4096, "u": 64})):
+        prog, host = every_op_case(seed, **kw)
+        arrays = convert.arrays_to_device(host, dev)
+        d_dev = ex._with_dfa_tables(prog, arrays, dfa.dfa_table)
+        c_pad, r_pad = host["__match__"].shape
+        viol_old = torch.from_numpy(rng.random((c_pad, r_pad)) < 0.5).to(dev)
+        for n_dirty in (1, 7, r_pad // 8):
+            dirty = np.sort(rng.choice(r_pad, size=n_dirty, replace=False))
+            rows = torch.from_numpy(
+                ex.pad_rows(dirty).astype(np.int32)).to(dev)
+            got = ir_eval.delta_mask(prog, d_dev, viol_old, rows)
+            if not torch.equal(got, ex._delta_mask(prog, arrays, viol_old,
+                                                   rows)):
+                fail(f"K5 mismatch on the every-op case {seed}, {n_dirty} "
+                     "rows")
+    print(f"phase K4/K5 random: K4 equal to plain on 12 dtype/axis layouts "
+          f"x 3 row counts with duplicate padding rows; [128, 131072] bool "
+          f"along R, 1024 rows: {k4_mask['ms']:.4f} ms (plain "
+          f"{k4_mask['plain_ms']:.4f}, torch.index_copy "
+          f"{k4_mask['library_ms']:.4f}, bound {k4_mask['bound_ms']:.4f}); "
+          f"K5 equal to plain on 2 every-op programs x 3 row counts",
+          flush=True)
+
+    # ---- 3d. library set through TorchDriver on the card
     torch_driver.SMALL_WORKLOAD_EVALS = 0
     lib_drv = TorchDriver()
     lib = Backend(lib_drv).new_client([K8sValidationTarget()])
@@ -232,13 +393,11 @@ def main() -> int:
         lib.add_template(t)
         lib.add_constraint(con)
     lib.add_data_batch(make_mixed(random.Random(0), LIBRARY_ROWS))
-    reset_counts(ir_eval, topk, dfa)
+    reset_counts(fns)
     t0 = time.perf_counter()
     lib_res, _ = lib_drv.query_audit(TARGET, QueryOpts(limit_per_constraint=CAP))
     lib_s = time.perf_counter() - t0
-    lib_counts = {"K1": ir_eval.eval_mask.launches,
-                  "K2": topk.topk_packed.launches,
-                  "K3": dfa.dfa_table.launches}
+    lib_counts = counts_of("K1", "K2", "K3")
     if min(lib_counts.values()) <= 0:
         fail(f"library sweep did not launch every kernel: {lib_counts}")
     st = lib_drv._state(TARGET)
@@ -282,10 +441,10 @@ def main() -> int:
     resources = make_resources(args.resources, random.Random(1))
     t0 = time.perf_counter()
     drv = TorchDriver()
-    setup_north_star(drv, resources, random.Random(2))
+    client = setup_north_star(drv, resources, random.Random(2))
     ingest_s = time.perf_counter() - t0
     opts = QueryOpts(limit_per_constraint=CAP)
-    reset_counts(ir_eval, topk, dfa)
+    reset_counts(fns)
     t0 = time.perf_counter()
     cold, _ = drv.query_audit(TARGET, opts)
     cold_s = time.perf_counter() - t0
@@ -296,9 +455,7 @@ def main() -> int:
         steady.append(time.perf_counter() - t0)
         if norm(res) != norm(cold):
             fail("steady sweep results differ from the cold sweep")
-    counts = {"K1": ir_eval.eval_mask.launches,
-              "K2": topk.topk_packed.launches,
-              "K3": dfa.dfa_table.launches}
+    counts = counts_of("K1", "K2", "K3")
     if counts["K1"] <= 0 or counts["K2"] <= 0:
         fail(f"main path did not launch K1 and K2: {counts}")
     evals = args.resources * 201
@@ -378,17 +535,125 @@ def main() -> int:
           f"bound {k1_bound:.4f}); K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, "
           f"torch.topk {k2_lib:.4f}, bound {k2_bound:.4f}); both equal "
           f"their plain versions", flush=True)
-    del drv, st
+    c_pad, r_pad = got.shape
+    del st, arrays, got, want, g2, w2, score
 
-    # the same store on the CPU path, and the scalar oracle on a subsample
+    # the same store on the CPU path
     t0 = time.perf_counter()
     cpu = TorchDriver(device="cpu")
-    setup_north_star(cpu, resources, random.Random(2))
+    cpu_client = setup_north_star(cpu, resources, random.Random(2))
     cpu_res, _ = cpu.query_audit(TARGET, opts)
     if norm(cpu_res) != norm(cold):
         fail("card results differ from TorchDriver(device='cpu')")
     cpu_s = time.perf_counter() - t0
-    del cpu
+
+    # ---- 5. churn on the same driver and store: 3 rounds, each upserting
+    # 1% of the pods (new labels on existing names, as bench.py's churn
+    # does) and then a capped sweep, against the CPU driver
+    n_churn = max(args.resources // 100, 1)
+    churn_rng = random.Random(1234)
+    label_pool = [f"l{j}" for j in range(10)]
+    orig = {"K4": scatter.scatter_rows, "K5": ir_eval.delta_mask}
+    calls = {"K4": [], "K5": []}
+    churn_counts = dict.fromkeys(fns, 0)
+    x = drv.executor
+    mem = []
+    for rep in range(3):
+        batch = []
+        for i in churn_rng.sample(range(args.resources), n_churn):
+            o = copy.deepcopy(resources[i])
+            o["metadata"]["labels"] = {k: "v" for k in label_pool
+                                       if churn_rng.random() < 0.35}
+            resources[i] = o
+            batch.append(o)
+        t0 = time.perf_counter()
+        for o in batch:
+            client.add_data(o)
+        upsert_s = time.perf_counter() - t0
+        for o in batch:
+            cpu_client.add_data(o)
+        if rep == 0:
+            # keep the first sweep's K4/K5 inputs to check them after it
+            scatter.scatter_rows = recording(orig["K4"], calls["K4"])
+            ir_eval.delta_mask = recording(orig["K5"], calls["K5"])
+        before = (x.mask_evals, x.delta_evals, x.h2d_bytes,
+                  x.h2d_scatter_bytes, x.h2d_scatter_rows)
+        reset_counts(fns)
+        t0 = time.perf_counter()
+        res, _ = drv.query_audit(TARGET, opts)
+        sweep_s = time.perf_counter() - t0
+        swept = launch_counts(fns)
+        scatter.scatter_rows, ir_eval.delta_mask = orig["K4"], orig["K5"]
+        for k, v in swept.items():
+            churn_counts[k] += v
+        d_mask, d_delta, d_h2d, d_sb, d_sr = (
+            a - b for a, b in zip((x.mask_evals, x.delta_evals, x.h2d_bytes,
+                                   x.h2d_scatter_bytes, x.h2d_scatter_rows),
+                                  before))
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        want_res, _ = cpu.query_audit(TARGET, opts)
+        if norm(res) != norm(want_res):
+            fail(f"churn sweep {rep + 1} differs from TorchDriver(cpu)")
+        if (swept["K5"], swept["K1"], d_delta, d_mask) != (3, 0, 3, 0) \
+                or swept["K4"] <= 0:
+            fail(f"churn sweep {rep + 1} did not take the delta plan: "
+                 f"launches {swept}, delta_evals {d_delta}, mask_evals "
+                 f"{d_mask}")
+        print(f"phase churn {rep + 1}: upsert {n_churn} pods {upsert_s:.3f}s,"
+              f" capped sweep {sweep_s:.4f}s, {len(res)} results equal "
+              f"TorchDriver(cpu); delta_evals {d_delta}, mask_evals "
+              f"{d_mask}, launches {swept}, h2d_bytes {d_h2d}, "
+              f"h2d_scatter_bytes {d_sb} ({d_sr} rows), memory_allocated "
+              f"{mem[-1]}", flush=True)
+        if rep:
+            continue
+        # K4 and K5 on the churn's own inputs, bit for bit, and timed
+        k4_err = k5_err = 0.0
+        for (col, rows, vals, axis), got in calls["K4"]:
+            want = scatter.scatter_rows_plain(col, rows, vals, axis)
+            if not torch.equal(got, want):
+                fail(f"K4 mismatch on a churn scatter {list(col.shape)} "
+                     f"{col.dtype} axis {axis}")
+            k4_err = max(k4_err, max_err(got, want))
+        for (prog, d, viol_old, rows), got in calls["K5"]:
+            want = ex._delta_mask(prog, d, viol_old, rows)
+            if not torch.equal(got, want):
+                fail("K5 mismatch on a churn delta")
+            k5_err = max(k5_err, max_err(got, want))
+        k4_args = [a for a, _ in calls["K4"]]
+        k5_args = [a for a, _ in calls["K5"]]
+        shapes = sorted({(tuple(a[0].shape), str(a[0].dtype).replace(
+            "torch.", ""), a[1].numel()) for a in k4_args})
+        rec["K4"] = {"max_abs_err": k4_err, **k4_numbers(scatter, k4_args)}
+        rec["K5"] = {"max_abs_err": k5_err, **k5_numbers(ex, ir_eval,
+                                                         k5_args)}
+        print(f"phase churn kernels: K4 equal to plain on the sweep's "
+              f"{len(k4_args)} scatters ({shapes}): {rec['K4']['ms']:.4f} ms"
+              f" mean (plain {rec['K4']['plain_ms']:.4f}, torch.index_copy "
+              f"{rec['K4']['library_ms']:.4f}, bound "
+              f"{rec['K4']['bound_ms']:.6f}); K5 equal to plain on its "
+              f"{len(k5_args)} deltas (rows {k5_args[0][3].numel()}, mask "
+              f"{list(k5_args[0][2].shape)}): {rec['K5']['ms']:.4f} ms mean "
+              f"(plain {rec['K5']['plain_ms']:.4f}, bound "
+              f"{rec['K5']['bound_ms']:.6f} {rec['K5']['bound_by']})",
+              flush=True)
+        # drop every reference to the first sweep's tensors before the
+        # next sweeps' memory readings
+        del calls, k4_args, k5_args, got, want, col, rows, vals, prog, d, \
+            viol_old
+    rec["K4"]["launches"] = churn_counts["K4"]
+    rec["K5"]["launches"] = churn_counts["K5"]
+    if mem[2] - mem[1] >= c_pad * r_pad:
+        fail(f"device memory grew by {mem[2] - mem[1]} bytes from the "
+             f"second churned sweep to the third (one [{c_pad}, {r_pad}] "
+             f"mask is {c_pad * r_pad})")
+    print(f"phase churn memory: memory_allocated after each sweep {mem}; "
+          f"third - second {mem[2] - mem[1]} bytes (< one mask, "
+          f"{c_pad * r_pad})", flush=True)
+    del drv, client, cpu, cpu_client, x
+
+    # the scalar oracle on a subsample
     sub = resources[:300]
     torch_driver.SMALL_WORKLOAD_EVALS = 0
     small = TorchDriver()
@@ -412,11 +677,9 @@ def main() -> int:
     dc.add_template(template_doc("K8sImageDigests", rego))
     dc.add_constraint(constraint_doc("K8sImageDigests", "digests", params))
     dc.add_data_batch(resources)
-    reset_counts(ir_eval, topk, dfa)
+    reset_counts(fns)
     dig_res, _ = dig.query_audit(TARGET, opts)
-    dig_counts = {"K1": ir_eval.eval_mask.launches,
-                  "K2": topk.topk_packed.launches,
-                  "K3": dfa.dfa_table.launches}
+    dig_counts = counts_of("K1", "K2", "K3")
     if min(dig_counts.values()) <= 0:
         fail(f"K8sImageDigests sweep did not launch every kernel: "
              f"{dig_counts}")
@@ -442,7 +705,7 @@ def main() -> int:
           f"to plain", flush=True)
     del dig, dc, st, arrays
 
-    # ---- 5. kernels line, card line, final line
+    # ---- 6. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -450,9 +713,14 @@ def main() -> int:
                "gatekeeper_tpu/engine/veval.py:660"),
         "K3": ("dfa", "cuda", "gatekeeper_tpu_torch/csrc/dfa.cu",
                "gatekeeper_tpu/engine/veval.py:227"),
+        "K4": ("scatter_rows", "cuda", "gatekeeper_tpu_torch/csrc/scatter.cu",
+               "gatekeeper_tpu/engine/veval.py:1049"),
+        "K5": ("ir_eval_delta", "triton",
+               "gatekeeper_tpu_torch/kernels/ir_eval.py",
+               "gatekeeper_tpu/engine/veval.py:1579"),
     }
     kernels = []
-    for key in ("K1", "K2", "K3"):
+    for key in ("K1", "K2", "K3", "K4", "K5"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -12,12 +12,17 @@ presence mask, rules are ORed and the match mask ANDed.
 ``run_async``, ``run_topk``, ``run_topk_async``, ``stage_uploads``) and
 its identity-keyed device cache.  On CUDA tensors it calls the port's
 hand-written kernels — K1 (``kernels/ir_eval.py``, the IR evaluator),
-K2 (``kernels/topk.py``, count + top-k) and K3 (``kernels/dfa.py``, the
-regex byte scan); on CPU tensors the same wrappers run the plain
-versions.  A steady sweep over unchanged bindings only reduces: the
-stored violation mask is reused (``_viol_plan`` "reduce").  Churned
-bindings are re-uploaded and re-evaluated whole ("full"); the
-reference's dirty-row delta plan is not part of this port yet.
+K2 (``kernels/topk.py``, count + top-k), K3 (``kernels/dfa.py``, the
+regex byte scan), K4 (``kernels/scatter.py``, the dirty-row scatter)
+and K5 (``kernels/ir_eval.delta_mask``, the dirty-row evaluation); on
+CPU tensors the same wrappers run the plain versions.
+
+The violation mask stays on the device across sweeps (``_viol_plan``):
+a sweep over unchanged bindings only reduces ("reduce"); bindings that
+``update_bindings`` derived from a base under churn migrate the base's
+device arrays by row scatter (``_migrate``, K4) and re-evaluate only
+the dirty rows into a copy of the base's stored mask ("delta", K5);
+anything else evaluates whole ("full", K1).
 """
 
 from __future__ import annotations
@@ -25,10 +30,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gatekeeper_tpu_torch.ir.prep import _STR_PREFIX, Bindings, binding_axes
+from gatekeeper_tpu_torch.ir.prep import (_STR_PREFIX, Bindings,
+                                          binding_axes, bucket)
 from gatekeeper_tpu_torch.ir.program import Node, Program
 from gatekeeper_tpu_torch.kernels import dfa as _dfa
 from gatekeeper_tpu_torch.kernels import ir_eval as _ir_eval
+from gatekeeper_tpu_torch.kernels import scatter as _scatter
 from gatekeeper_tpu_torch.kernels import topk as _topk
 from gatekeeper_tpu_torch.kernels.topk import topk_reduce  # noqa: F401
 from gatekeeper_tpu_torch.utils.device import resolve_device
@@ -320,11 +327,17 @@ slice by slice so its [C, R(, E)] intermediates stay bounded in host
 memory.  The result does not depend on it (K1 has R as a grid axis)."""
 
 
-def _slice_r(name: str, arr: torch.Tensor, off: int, rc: int):
+def _r_axis(name: str) -> int | None:
+    """Which dim of a bound array is the resource axis (None if none)."""
     axes = binding_axes(name)
-    if "r" not in axes:
+    return axes.index("r") if "r" in axes else None
+
+
+def _slice_r(name: str, arr: torch.Tensor, off: int, rc: int):
+    ax = _r_axis(name)
+    if ax is None:
         return arr
-    return arr.narrow(axes.index("r"), off, rc)
+    return arr.narrow(ax, off, rc)
 
 
 def _eval_mask(program: Program, d: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -337,6 +350,37 @@ def _eval_mask(program: Program, d: dict[str, torch.Tensor]) -> torch.Tensor:
                                      for nm, a in d.items()})
              for off in range(0, r_pad, R_CHUNK)]
     return torch.cat(parts, dim=1)
+
+
+def _delta_mask(program: Program, d: dict[str, torch.Tensor],
+                viol_old: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Plain churn delta (the reference's ``_delta_fn``): gather the rows
+    ``rows`` of every r-axis array, evaluate them as [C, d], and write
+    them into a copy of the stored mask ``viol_old``.  Duplicate rows
+    carry equal values."""
+    d = _with_dfa_tables(program, d, _dfa.dfa_table_plain)
+    idx = rows.to(torch.int64)
+    sliced = {}
+    for nm, a in d.items():
+        ax = _r_axis(nm)
+        sliced[nm] = a if ax is None else a.index_select(ax, idx)
+    sub = _eval_program(program, sliced)
+    return viol_old.clone().index_copy_(1, idx, sub)
+
+
+def pad_rows(rows: np.ndarray) -> np.ndarray:
+    """``rows`` padded to a power-of-two bucket of at least 8 by
+    repeating its first row, so each kernel shape recurs across sweeps
+    (a duplicate write stores the same value)."""
+    b = bucket(max(len(rows), 1), minimum=8)
+    return np.concatenate([rows, np.full((b - len(rows),),
+                                         rows[0] if len(rows) else 0,
+                                         dtype=rows.dtype)])
+
+
+MIGRATE_DEPTH = 8
+"""Longest bindings lineage ``_migrate`` walks back for device copies;
+past it the generation uploads whole."""
 
 
 def pad_rank(rank: np.ndarray, r_pad: int) -> np.ndarray:
@@ -394,14 +438,19 @@ class PendingTopK(_Pending):
 
 class ProgramExecutor:
     """Device executor: per-Bindings device arrays, stored violation
-    masks, and the K1/K2/K3 dispatch.  ``device`` defaults to CUDA."""
+    masks, and the K1-K5 dispatch.  ``device`` defaults to CUDA."""
 
     def __init__(self, device: str | torch.device | None = None):
         self.device = resolve_device(device)
-        # H2D accounting: bytes staged through _put (read per sweep as
-        # deltas by the driver)
+        # H2D accounting, read per sweep as deltas by the driver: bytes
+        # staged whole through _put, and the row-sized records (values
+        # plus int32 row ids) and padded row counts that _scatter_rows
+        # ships instead of whole columns
         self.h2d_bytes = 0
+        self.h2d_scatter_bytes = 0
+        self.h2d_scatter_rows = 0
         self.mask_evals = 0      # full-mask evaluations (K1 or plain)
+        self.delta_evals = 0     # dirty-row evaluations (K5 or plain)
         self.reduces = 0         # count + top-k reductions (K2 or plain)
 
     # ------------------------------------------------------------------
@@ -422,18 +471,91 @@ class ProgramExecutor:
                     self.h2d_bytes += int(host.nbytes) - \
                         int(host.size * 4)
                     break
+        return self._upload(host)
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(host))
         # always a copy: host buffers are recycled in place by the
         # driver's bindings ping-pong, device arrays must not alias them
         return t.to(self.device, copy=True)
 
+    def _scatter_rows(self, name: str, dev: torch.Tensor, host: np.ndarray,
+                      rows: np.ndarray, axis: int | None = None) \
+            -> torch.Tensor:
+        """New device array: ``dev`` with ``rows`` along the resource
+        axis (or ``axis``: the id axis of append-only interner tables)
+        replaced by the host's values.  Ships O(|dirty|) bytes instead of
+        the whole column; the write is K4."""
+        ax = _r_axis(name) if axis is None else axis
+        rows = pad_rows(rows)
+        idx = [slice(None)] * host.ndim
+        idx[ax] = rows
+        vals = torch.from_numpy(np.ascontiguousarray(host[tuple(idx)]))
+        if dev.dtype != vals.dtype:
+            # narrow-transferred column (_put): scatter narrow when the
+            # new values still fit, else re-upload whole (the interner
+            # outgrowing the narrow range)
+            if dev.dtype in (torch.int8, torch.int16) and vals.numel() and \
+                    torch.iinfo(dev.dtype).min <= int(vals.min()) and \
+                    int(vals.max()) <= torch.iinfo(dev.dtype).max:
+                vals = vals.to(dev.dtype)
+            else:
+                return self._put(name, host)
+        rows32 = rows.astype(np.int32)
+        self.h2d_scatter_bytes += int(vals.nbytes) + int(rows32.nbytes)
+        self.h2d_scatter_rows += int(len(rows))
+        return _scatter.scatter_rows(dev, self._upload(rows32),
+                                     vals.to(self.device), ax)
+
+    def _migrate(self, bindings: Bindings, depth: int = 0) -> dict:
+        """Per-name device cache for ``bindings``, seeded from its delta
+        base when present: unchanged arrays keep their device copies,
+        dirty arrays are row-scattered on the device, and only new
+        arrays are uploaded whole (by ``_arrays``).  Then the lineage is
+        cut, so a bindings generation and its device arrays and stored
+        masks live only as long as the driver holds it."""
+        caches = bindings.__dict__.setdefault("_device_caches", {})
+        cache = caches.get(id(self))
+        if cache is not None:
+            return cache
+        base = bindings.base
+        base_dirty = bindings.base_dirty
+        append_rows = bindings.base_append_rows or {}
+        arrays = bindings.arrays
+        cache = {}
+        if base is not None and depth < MIGRATE_DEPTH:
+            base_cache = self._migrate(base, depth + 1)
+            for name, (href, dev) in base_cache.items():
+                cur = arrays.get(name)
+                if cur is None:
+                    continue
+                if cur is href:
+                    cache[name] = (href, dev)
+                elif cur.shape != dev.shape \
+                        or href is not base.arrays.get(name):
+                    continue
+                elif name in base_dirty:
+                    cache[name] = (cur, self._scatter_rows(
+                        name, dev, cur, base_dirty[name]))
+                elif name in append_rows and len(append_rows[name]):
+                    # append-only interner-indexed array: only the newly
+                    # interned id rows differ from the device copy
+                    cache[name] = (cur, self._scatter_rows(
+                        name, dev, cur, append_rows[name], axis=0))
+        cache = caches.setdefault(id(self), cache)
+        bindings.base = None
+        bindings.base_dirty = {}
+        bindings.base_append_rows = {}
+        return cache
+
     def _arrays(self, bindings: Bindings, match: np.ndarray | None,
                 rank: np.ndarray | None = None) -> dict[str, torch.Tensor]:
         """Device-resident view of the bindings, memoized per array name
         on the Bindings instance (identity-keyed): steady-state audits
-        re-run without re-uploading columns."""
-        caches = bindings.__dict__.setdefault("_device_caches", {})
-        cache = caches.setdefault(id(self), {})
+        re-run without re-uploading columns, and bindings derived by
+        update_bindings migrate their base's device arrays by row
+        scatter."""
+        cache = self._migrate(bindings)
         arrays: dict[str, torch.Tensor] = {}
         for name, host in bindings.arrays.items():
             hit = cache.get(name)
@@ -460,7 +582,9 @@ class ProgramExecutor:
 
     def stage_uploads(self, bindings: Bindings) -> None:
         """Enqueue every binding array upload now, so the later dispatch
-        finds them in the per-bindings device cache."""
+        finds them in the per-bindings device cache.  It migrates (and
+        so cuts the lineage), so a dispatch after it takes the full
+        plan, as the reference's forced full sweeps do."""
         self._arrays(bindings, None, None)
 
     # ------------------------------------------------------------------
@@ -473,20 +597,51 @@ class ProgramExecutor:
         d = _with_dfa_tables(program, arrays, _dfa.dfa_table)
         return _ir_eval.eval_mask(program, d)
 
+    def _delta_eval(self, program: Program, arrays: dict,
+                    viol_old: torch.Tensor, rows: torch.Tensor) \
+            -> torch.Tensor:
+        """The stored mask with ``rows`` re-evaluated: K3 over the whole
+        string table (as the reference's delta program does), then K5 —
+        or their plain versions on the CPU."""
+        self.delta_evals += 1
+        d = _with_dfa_tables(program, arrays, _dfa.dfa_table)
+        return _ir_eval.delta_mask(program, d, viol_old, rows)
+
     def _viol_key(self, program: Program) -> tuple:
         return (id(self), program.cache_key())
 
     def _viol_plan(self, program: Program, bindings: Bindings,
-                   arrays: dict) -> tuple:
-        """('reduce', viol) when a mask stored for exactly these device
-        arrays exists, else ('full',)."""
-        hit = bindings.__dict__.get("_viol_masks", {}).get(
-            self._viol_key(program))
+                   arrays: dict, base, base_dirty,
+                   append_only=frozenset()) -> tuple:
+        """('reduce', viol) | ('delta', viol_old, rows) | ('full',).
+        ``base``/``base_dirty``/``append_only`` must be captured BEFORE
+        _arrays (migration cuts the lineage)."""
+        key = self._viol_key(program)
+        hit = bindings.__dict__.get("_viol_masks", {}).get(key)
         if hit is not None:
             sig, viol = hit
             if len(sig) == len(arrays) and \
                     all(arrays.get(nm) is dev for nm, dev in sig.items()):
                 return ("reduce", viol)
+        if base is not None and base_dirty:
+            bhit = base.__dict__.get("_viol_masks", {}).get(key)
+            if bhit is not None:
+                bsig, bviol = bhit
+                ok = len(bsig) == len(arrays)
+                for nm, dev in arrays.items():
+                    if not ok:
+                        break
+                    if bsig.get(nm) is dev:
+                        continue
+                    if nm not in base_dirty and nm not in append_only:
+                        ok = False      # changed outside the dirty rows
+                for nm in base_dirty:
+                    if nm not in arrays:
+                        ok = False
+                if ok:
+                    rows = np.unique(np.concatenate(
+                        [np.asarray(r) for r in base_dirty.values()]))
+                    return ("delta", bviol, rows)
         return ("full",)
 
     def _store_viol(self, program: Program, bindings: Bindings,
@@ -495,11 +650,20 @@ class ProgramExecutor:
             self._viol_key(program)] = (dict(arrays), viol)
 
     def _viol_mask_dev(self, program: Program, bindings: Bindings,
-                       arrays: dict) -> torch.Tensor:
-        plan = self._viol_plan(program, bindings, arrays)
+                       arrays: dict, base, base_dirty,
+                       append_only=frozenset()) -> torch.Tensor:
+        """Device [C, R] violation mask, maintained incrementally."""
+        plan = self._viol_plan(program, bindings, arrays, base, base_dirty,
+                               append_only)
         if plan[0] == "reduce":
             return plan[1]
-        viol = self._full_mask(program, arrays)
+        if plan[0] == "delta":
+            _, viol_old, rows = plan
+            rows = pad_rows(rows).astype(np.int32)
+            viol = self._delta_eval(program, arrays, viol_old,
+                                    self._upload(rows))
+        else:
+            viol = self._full_mask(program, arrays)
         self._store_viol(program, bindings, arrays, viol)
         return viol
 
@@ -508,8 +672,11 @@ class ProgramExecutor:
                   rank: np.ndarray | None = None) -> PendingMask:
         """Dispatch a full-mask evaluation without blocking; .get()
         yields the mask trimmed to [n_constraints, n_resources]."""
+        base, base_dirty = bindings.base, bindings.base_dirty
+        append_only = bindings.base_append_only
         arrays = self._arrays(bindings, match, rank)
-        mask = self._viol_mask_dev(program, bindings, arrays)
+        mask = self._viol_mask_dev(program, bindings, arrays, base,
+                                   base_dirty, append_only)
         return PendingMask(mask, bindings.n_constraints,
                            bindings.n_resources)
 
@@ -524,8 +691,11 @@ class ProgramExecutor:
         """Dispatch evaluate + count/top-k without blocking; .get()
         yields (counts [C], rows [C, k], valid [C, k]) trimmed to the
         live constraint count."""
+        base, base_dirty = bindings.base, bindings.base_dirty
+        append_only = bindings.base_append_only
         arrays = self._arrays(bindings, match, rank)
-        viol = self._viol_mask_dev(program, bindings, arrays)
+        viol = self._viol_mask_dev(program, bindings, arrays, base,
+                                   base_dirty, append_only)
         self.reduces += 1
         rnk = arrays.get("__rank__")
         if rnk is not None:

@@ -18,9 +18,12 @@ GATEKEEPER_DEDUP=off`` — which the reference documents as a
 bit-identical oracle for its later layers.  Templates outside the
 lowerable subset, kinds whose numbers are not float32-exact, and
 workloads below ``SMALL_WORKLOAD_EVALS`` run on the scalar oracle.
-Admission review batches, the churn delta plan, device pages, what-if
-and sharding are not part of this port yet; the review path is the
-scalar engine's (LocalDriver).
+Under churn the host masks and bindings are delta-maintained, and the
+executor keeps the violation mask on the device: dirty rows are
+scattered into the device columns and re-evaluated into the stored mask
+(engine/executor.py "delta" plan).  Admission review batches, device
+pages, what-if and sharding are not part of this port yet; the review
+path is the scalar engine's (LocalDriver).
 """
 
 from __future__ import annotations
@@ -180,23 +183,25 @@ class TorchDriver(LocalDriver):
 
     def _kind_mask(self, st: TorchTargetState, target: str, kind: str,
                    constraints: list[dict]):
-        """(mask [C, n_rows] view, padded).  The mask
+        """(mask [C, n_rows] view, mask_delta, padded).  The mask
         is kept in its padded [c_pad, r_pad] form (the device layout) and
         delta-maintained under churn: one copy + dirty-column writes per
         generation instead of full re-matching + re-padding.  Delta is
         bypassed when a Namespace object changed (namespaceSelector
         results of unchanged rows may shift, table.namespaces_dirty_since)
-        or rows were remapped."""
+        or rows were remapped.  ``mask_delta`` is (base buffer, rows):
+        the padded buffer this one was derived from and the rows dirty
+        since it, or None after a full rebuild."""
         from gatekeeper_tpu_torch.ir.prep import audit_pads
         from gatekeeper_tpu_torch.store.table import delta_worthwhile
         engine = self._match_engine(st, target)
         if engine is None:
-            return None, None
+            return None, None, None
         if all(not (c.get("spec") or {}).get("match") for c in constraints):
             # no constraint carries match criteria: every alive resource
             # matches; the device gates on __alive__ alone and no [C, R]
             # mask is built or shipped
-            return TRIVIAL_MATCH, None
+            return TRIVIAL_MATCH, None, None
         table = st.table
         gen, remap = table.generation, table.remap_generation
         conver = self.con_version_of(st, kind)
@@ -206,7 +211,7 @@ class TorchDriver(LocalDriver):
         hit = st.mask_cache.get(kind)
         if hit is not None and hit[0] == (gen, conver):
             padded = hit[2]
-            return padded[:n_con, :n], padded
+            return padded[:n_con, :n], None, padded
         if hit is not None and hit[1] == (conver, remap) \
                 and hit[2].shape == (c_pad, r_pad):
             prev_gen = hit[0][0]
@@ -237,13 +242,17 @@ class TorchDriver(LocalDriver):
                         flat = (np.arange(n_con, dtype=np.int64)[:, None]
                                 * buf.shape[1] + rows[None, :]).ravel()
                         buf.ravel()[flat] = sub.ravel()
+                    base_rows = rows if since == prev_gen else \
+                        table.dirty_rows_since(prev_gen)
                     st.mask_cache[kind] = ((gen, conver), (conver, remap),
                                            buf, (prev_gen, hit[2]))
-                    return buf[:n_con, :n], buf
+                    # the rows are dirty relative to hit[2] only: the
+                    # device sync must check that its base is that buffer
+                    return buf[:n_con, :n], (hit[2], base_rows), buf
         padded = np.zeros((c_pad, r_pad), dtype=bool)
         padded[:n_con, :n] = engine.mask(constraints)
         st.mask_cache[kind] = ((gen, conver), (conver, remap), padded, None)
-        return padded[:n_con, :n], padded
+        return padded[:n_con, :n], None, padded
 
     def _kind_bindings(self, st: TorchTargetState, kind: str,
                        compiled: CompiledTemplate, constraints: list[dict]):
@@ -305,14 +314,20 @@ class TorchDriver(LocalDriver):
 
     def _install_gates(self, st, kind: str, bindings,
                        mask: np.ndarray | None,
+                       mask_delta: tuple | None,
                        rank: np.ndarray | None,
                        padded: np.ndarray | None = None) -> None:
         """Attach the padded match mask and rank as regular bindings
         arrays ("__match__", "__rank__") so they ride the same per-name
-        device cache as the columns.  `padded` is the mask's canonical
-        padded form from _kind_mask, installed without any copy."""
-        # bindings.arrays is REBOUND (never mutated in place): concurrent
-        # readers may be iterating the old dict
+        device cache and row-scatter path as the columns.  `padded` is
+        the mask's canonical padded form from _kind_mask, installed
+        without any copy; `mask_delta` = (base buffer, rows) from
+        _kind_mask.  A device row scatter of __match__ is recorded only
+        when the bindings' inherited __match__ IS that base buffer (a
+        scalar-routed sweep can advance the mask cache without the
+        device; syncing from the wrong frame would miss rows)."""
+        # bindings.arrays / base_dirty are REBOUND (never mutated in
+        # place): concurrent readers may be iterating the old dicts
         d = bindings.__dict__
         if mask is TRIVIAL_MATCH:
             if "__match__" in bindings.arrays:
@@ -331,9 +346,15 @@ class TorchDriver(LocalDriver):
                 padded = np.zeros((bindings.c_pad, bindings.r_pad),
                                   dtype=bool)
                 padded[: mask.shape[0], : mask.shape[1]] = mask
+            old = bindings.arrays.get("__match__")
             bindings.arrays = {**bindings.arrays, "__match__": padded}
             d["_match_src"] = mask
             st.installed_match[kind] = padded
+            if bindings.base is not None and mask_delta is not None \
+                    and old is not None and old is mask_delta[0] \
+                    and old.shape == padded.shape:
+                bindings.base_dirty = {**bindings.base_dirty,
+                                       "__match__": mask_delta[1]}
         if rank is not None and d.get("_rank_src") is not rank:
             bindings.arrays = {**bindings.arrays,
                                "__rank__": pad_rank(rank, bindings.r_pad)}
@@ -405,8 +426,8 @@ class TorchDriver(LocalDriver):
                 constraints = self._kind_constraints(st, kind)
                 if not constraints:
                     continue
-                mask, padded = self._kind_mask(st, target, kind,
-                                               constraints)
+                mask, mask_delta, padded = self._kind_mask(
+                    st, target, kind, constraints)
                 small = len(ordered_rows) * len(constraints) \
                     < SMALL_WORKLOAD_EVALS
                 if compiled.vectorized is None or mask is None or small:
@@ -425,8 +446,14 @@ class TorchDriver(LocalDriver):
                     specs.append(("scalar", kind, compiled, constraints,
                                   None, None, mask, None))
                     continue
-                self._install_gates(st, kind, bindings, mask, rank, padded)
+                self._install_gates(st, kind, bindings, mask, mask_delta,
+                                    rank, padded)
                 prog = compiled.vectorized.program
+                if full:
+                    # the reference stages a forced full sweep's uploads
+                    # first; staging migrates, so the dispatch below
+                    # takes the full plan
+                    self.executor.stage_uploads(bindings)
                 if limit is not None:
                     handle = self.executor.run_topk_async(prog, bindings,
                                                           limit)

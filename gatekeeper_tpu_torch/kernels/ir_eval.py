@@ -22,6 +22,14 @@ division can change a bit.  The epilogue applies ``__alive__`` and
 and stores one bool per (c, r): R is a grid axis, so there is no
 ``R_CHUNK`` scan.
 
+K5, the churn delta (item B5, the reference's ``_delta_fn``), is the
+same kernel in row-index mode: a runtime row vector ``rows`` of length
+``D > 0`` replaces the tile's own rows, the grid's R axis runs over
+``ceil(D / BR)`` tiles, and every r-axis load and the mask store address
+the full ``R_PAD``-strided arrays at ``rows[j]``.  :func:`delta_mask`
+launches it into a copy of the stored mask.  ``D`` is not specialised,
+so one compiled kernel per program serves full and delta sweeps.
+
 Bound on the H100: bytes.  The pass must read each bound column once
 and write the [C_pad, R_pad] mask once (one byte per pair); arithmetic
 is a few integer compares per pair.  The design keeps every
@@ -386,7 +394,12 @@ class _Emitter:
         self.emit("pid_c = tl.program_id(0)")
         self.emit("pid_r = tl.program_id(1)")
         self.emit("oc = pid_c * BC + tl.arange(0, BC)")
-        self.emit("orr = pid_r * BR + tl.arange(0, BR)")
+        self.emit("j = pid_r * BR + tl.arange(0, BR)")
+        # row-index mode (K5): with D > 0 the tile's lanes evaluate the
+        # rows rows[j] (lanes past D repeat the last one), else row j
+        self.emit("dj = tl.load(rows + tl.minimum(j, D - 1), "
+                  "mask=(j >= 0) & (D > 0), other=0)")
+        self.emit("orr = tl.where(D > 0, _clamp(dj, R_PAD - 1), j)")
         self.emit("c3 = oc[:, None, None]")
         self.emit("r3 = orr[None, :, None]")
         self.emit(f"{_ALWAYS} = tl.full([1, 1, 1], 1, tl.int1)")
@@ -408,10 +421,13 @@ class _Emitter:
             self.emit(f"viol = viol & {self._load_expr('__match__', off2)}")
         self.emit(f"tl.store(out + {off2}, viol.to(tl.uint8))")
         params = ["out"] + [f"p{i}" for i in range(len(self.ptrs))] \
-            + ["R_PAD"] + [a for a, _, _ in self.ints] \
+            + ["rows", "R_PAD", "D"] + [a for a, _, _ in self.ints] \
             + ["BC: tl.constexpr", "BR: tl.constexpr"] \
             + [f"{a}: tl.constexpr" for a, _, _ in self.consts]
-        head = ["", "", "@triton.jit", f"def ir_kernel({', '.join(params)}):"]
+        # D is a runtime value that Triton must not specialise on, so
+        # full and delta launches share one compiled kernel
+        head = ["", "", '@triton.jit(do_not_specialize=["D"])',
+                f"def ir_kernel({', '.join(params)}):"]
         return _HELPERS + "\n".join(head + self.lines) + "\n"
 
 
@@ -483,6 +499,54 @@ def tile_shape(c_pad: int, r_pad: int, e_max: int) -> tuple[int, int]:
     return bc, br
 
 
+_NO_ROWS: dict[torch.device, torch.Tensor] = {}
+
+
+def _no_rows(dev: torch.device) -> torch.Tensor:
+    """The int32 row vector a full launch passes (D = 0 never reads it)."""
+    t = _NO_ROWS.get(dev)
+    if t is None:
+        t = _NO_ROWS[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return t
+
+
+def _launch(program: Program, arrays: dict, out: torch.Tensor,
+            rows: torch.Tensor | None, what: str) -> None:
+    """One launch of the program's kernel into ``out`` [C_pad, R_pad]:
+    every row (``rows`` None) or the rows ``rows`` (int32 [d])."""
+    dev = out.device
+    kern, ptrs, ints, consts = _kernel_for(program, arrays)
+    c_pad = arrays["__cvalid__"].shape[0]
+    r_pad = arrays["__alive__"].shape[0]
+    args = []
+    for nm in ptrs:
+        t = arrays[nm]
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what}: {nm} must be a contiguous tensor on "
+                             f"{dev}")
+        axes = binding_axes(nm)
+        if "r" in axes and t.shape[axes.index("r")] != r_pad:
+            raise ValueError(f"{what}: {nm} has {t.shape} but r_pad is "
+                             f"{r_pad}")
+        args.append(t.view(torch.uint8) if t.dtype == torch.bool else t)
+    sizes = [int(arrays[nm].shape[d]) for _, nm, d in ints]
+    cexpr = {a: int(arrays[nm].shape[d]) for a, nm, d in consts}
+    e_max = max(cexpr.values(), default=1)
+    bc, br = tile_shape(c_pad, r_pad, e_max)
+    if c_pad % bc or r_pad % br:
+        raise ValueError(f"{what}: padded shape [{c_pad}, {r_pad}] is not a "
+                         f"multiple of the tile [{bc}, {br}] (the prep pads "
+                         f"every axis to a power of two)")
+    if rows is None:
+        n_rows, rows, grid = 0, _no_rows(dev), (c_pad // bc, r_pad // br)
+    else:
+        n_rows = rows.shape[0]
+        grid = (c_pad // bc, -(-n_rows // br))
+    with torch.cuda.device(dev):
+        kern[grid](out.view(torch.uint8), *args, rows, r_pad, n_rows, *sizes,
+                   BC=bc, BR=br, num_warps=4, **cexpr)
+
+
 def eval_mask(program: Program, arrays: dict) -> torch.Tensor:
     """bool [C_pad, R_pad] violation mask: K1 on CUDA tensors, the plain
     evaluator on CPU tensors.  ``arrays`` must already hold every
@@ -495,36 +559,52 @@ def eval_mask(program: Program, arrays: dict) -> torch.Tensor:
         return _eval_mask(program, arrays)
     if dev.type != "cuda":
         raise ValueError(f"eval_mask: unsupported device {dev}")
-    kern, ptrs, ints, consts = _kernel_for(program, arrays)
     c_pad = arrays["__cvalid__"].shape[0]
     r_pad = arrays["__alive__"].shape[0]
-    args = []
-    for nm in ptrs:
-        t = arrays[nm]
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"eval_mask: {nm} must be a contiguous "
-                             f"tensor on {dev}")
-        axes = binding_axes(nm)
-        if "r" in axes and t.shape[axes.index("r")] != r_pad:
-            raise ValueError(f"eval_mask: {nm} has {t.shape} but r_pad is "
-                             f"{r_pad}")
-        args.append(t.view(torch.uint8) if t.dtype == torch.bool else t)
-    sizes = [int(arrays[nm].shape[d]) for _, nm, d in ints]
-    cexpr = {a: int(arrays[nm].shape[d]) for a, nm, d in consts}
-    e_max = max(cexpr.values(), default=1)
-    bc, br = tile_shape(c_pad, r_pad, e_max)
-    if c_pad % bc or r_pad % br:
-        raise ValueError(f"eval_mask: padded shape [{c_pad}, {r_pad}] is "
-                         f"not a multiple of the tile [{bc}, {br}] (the "
-                         f"prep pads every axis to a power of two)")
     out = torch.empty((c_pad, r_pad), dtype=torch.bool, device=dev)
-    grid = (c_pad // bc, r_pad // br)
-    with torch.cuda.device(dev):
-        kern[grid](out.view(torch.uint8), *args, r_pad, *sizes,
-                   BC=bc, BR=br, num_warps=4, **cexpr)
+    _launch(program, arrays, out, None, "eval_mask")
     eval_mask.launches += 1
     return out
 
 
 eval_mask.launches = 0
 eval_mask.plain_calls = 0
+
+
+def delta_mask(program: Program, arrays: dict, viol_old: torch.Tensor,
+               rows: torch.Tensor) -> torch.Tensor:
+    """K5 (item B5, the reference's ``ProgramExecutor._delta_fn``): a
+    copy of the stored mask ``viol_old`` [C_pad, R_pad] with the columns
+    ``rows`` (int32 [d], each in [0, R_pad); duplicates allowed)
+    re-evaluated over the current ``arrays``.  On CUDA tensors this is
+    K1's kernel in row-index mode: its lanes address the full
+    R_PAD-strided arrays at the dirty rows, so nothing is gathered into
+    temporaries, and full and delta sweeps share one compiled kernel.
+    On CPU tensors it is the plain gather / evaluate / ``index_copy_``
+    (``engine/executor._delta_mask``)."""
+    dev = arrays["__alive__"].device
+    if dev.type == "cpu":
+        delta_mask.plain_calls += 1
+        from gatekeeper_tpu_torch.engine.executor import _delta_mask
+        return _delta_mask(program, arrays, viol_old, rows)
+    if dev.type != "cuda":
+        raise ValueError(f"delta_mask: unsupported device {dev}")
+    c_pad = arrays["__cvalid__"].shape[0]
+    r_pad = arrays["__alive__"].shape[0]
+    if viol_old.dtype != torch.bool or \
+            tuple(viol_old.shape) != (c_pad, r_pad) or \
+            viol_old.device != dev or not viol_old.is_contiguous():
+        raise TypeError(f"delta_mask: viol_old must be a contiguous bool "
+                        f"[{c_pad}, {r_pad}] tensor on {dev}")
+    if rows.dtype != torch.int32 or rows.dim() != 1 or rows.shape[0] == 0 \
+            or rows.device != dev or not rows.is_contiguous():
+        raise TypeError(f"delta_mask: rows must be a non-empty contiguous "
+                        f"1-d int32 tensor on {dev}")
+    out = viol_old.clone()
+    _launch(program, arrays, out, rows, "delta_mask")
+    delta_mask.launches += 1
+    return out
+
+
+delta_mask.launches = 0
+delta_mask.plain_calls = 0

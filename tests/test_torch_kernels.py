@@ -6,8 +6,8 @@ machine with a CUDA card and no jax:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 On the CPU the wrappers take their plain versions; the ``cuda``-marked
-tests hold K1, K2 and K3 against those plain versions on the card, bit
-for bit, and skip where there is no card.
+tests hold K1-K5 against those plain versions on the card, bit for bit,
+and skip where there is no card.
 """
 
 import random
@@ -23,6 +23,7 @@ from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
 from gatekeeper_tpu_torch.ir.program import Program
 from gatekeeper_tpu_torch.kernels import dfa as tdfa
 from gatekeeper_tpu_torch.kernels import ir_eval, topk as ttopk
+from gatekeeper_tpu_torch.kernels import scatter as tscatter
 from gatekeeper_tpu_torch.kernels.op_cases import every_op_case
 from gatekeeper_tpu_torch.library.north_star import (make_resources,
                                                      setup_north_star)
@@ -109,6 +110,88 @@ def test_executor_reuses_stored_mask():
     assert ex.mask_evals == 2
 
 
+def _packed(topk):
+    """(counts, rows, valid) from run_topk back in the packed layout."""
+    counts, rows, valid = topk
+    return np.concatenate([counts[:, None], rows, valid.astype(np.int32)],
+                          axis=1)
+
+
+def _churned(b, dirty, rng):
+    """A bindings generation derived from ``b`` the way update_bindings
+    derives one: new host arrays that differ from the base only at the
+    rows ``dirty`` of every r-axis array, recorded in base_dirty."""
+    arrays = dict(b.arrays)
+    base_dirty = {}
+    for nm, a in b.arrays.items():
+        ax = tex._r_axis(nm)
+        if ax is None or nm == "__match__":
+            continue
+        new = a.copy()
+        idx = [slice(None)] * a.ndim
+        idx[ax] = dirty
+        src = [slice(None)] * a.ndim
+        src[ax] = rng.permutation(a.shape[ax])[: len(dirty)]
+        new[tuple(idx)] = a[tuple(src)]         # other rows' values
+        arrays[nm] = new
+        base_dirty[nm] = dirty
+    return convert.bindings_from_plain(arrays, b.n_constraints,
+                                       b.n_resources, b.c_pad, b.r_pad), \
+        base_dirty
+
+
+def _delta_round(ex, prog, b, rng, n_dirty):
+    """One churned generation of ``b`` through ``ex``: returns the new
+    bindings and its capped top-k, after checking the plan was delta."""
+    dirty = np.sort(rng.choice(b.n_resources, size=n_dirty, replace=False))
+    nb, base_dirty = _churned(b, dirty, rng)
+    nb.base, nb.base_dirty = b, base_dirty
+    evals, deltas = ex.mask_evals, ex.delta_evals
+    got = ex.run_topk(prog, nb, 20)
+    assert (ex.mask_evals, ex.delta_evals) == (evals, deltas + 1)
+    assert nb.base is None and nb.base_dirty == {}
+    return nb, got
+
+
+def test_executor_delta_plan_matches_full():
+    """A derived generation migrates by row scatter, re-evaluates only
+    its dirty rows into the base's stored mask (the delta plan) and
+    gives what a full evaluation of the same arrays gives."""
+    prog, arrays = every_op_case(4, c_pad=8, r_pad=128)
+    b = convert.bindings_from_plain(arrays, 6, 120, 8, 128)
+    ex = tex.ProgramExecutor(device="cpu")
+    ex.run_topk(prog, b, 20)
+    rng = np.random.default_rng(0)
+    for n_dirty in (1, 9, 14):
+        rows = ex.h2d_scatter_rows
+        h2d = ex.h2d_bytes
+        nb, got = _delta_round(ex, prog, b, rng, n_dirty)
+        assert ex.h2d_bytes == h2d           # nothing uploaded whole
+        assert ex.h2d_scatter_rows > rows
+        fresh = tex.ProgramExecutor(device="cpu")
+        want = fresh.run_topk(prog, convert.bindings_from_plain(
+            nb.arrays, 6, 120, 8, 128), 20)
+        assert fresh.mask_evals == 1
+        _packed_equal(_packed(got), _packed(want), 20)
+        np.testing.assert_array_equal(ex.run(prog, nb),
+                                      fresh.run(prog, nb))
+        b = nb
+
+
+def test_executor_delta_needs_matching_base():
+    """The delta plan falls back to a full evaluation where the
+    reference's does: an array changed outside the dirty rows."""
+    prog, arrays = every_op_case(5, c_pad=8, r_pad=64)
+    b = convert.bindings_from_plain(arrays, 6, 60, 8, 64)
+    ex = tex.ProgramExecutor(device="cpu")
+    ex.run(prog, b)
+    nb, base_dirty = _churned(b, np.array([3, 7]), np.random.default_rng(1))
+    nb.arrays["__cvalid__"] = ~b.arrays["__cvalid__"]
+    nb.base, nb.base_dirty = b, base_dirty
+    ex.run(prog, nb)
+    assert (ex.mask_evals, ex.delta_evals) == (2, 0)
+
+
 # -- the kernels themselves, on a CUDA card
 
 
@@ -193,3 +276,109 @@ def test_driver_on_card_matches_cpu(card, monkeypatch):
         assert a == b and a, limit
     assert ir_eval.eval_mask.launches - k1 >= 3
     assert ttopk.topk_packed.launches - k2 >= 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axis,dtype", [
+    ((1 << 17,), 0, torch.bool),            # __alive__
+    ((1 << 17,), 0, torch.int32),           # r: id column
+    ((1 << 17,), 0, torch.int8),            # narrow-transferred column
+    ((1 << 17,), 0, torch.float32),         # r: number column
+    ((4096, 8), 0, torch.int16),            # e: [R, E]
+    ((128, 1 << 17), 1, torch.bool),        # __match__ [C, R]
+    ((5, 4096), 1, torch.bool),             # m [L, R]
+    ((3, 4096, 4), 1, torch.bool),          # ek [K, R, E]
+    ((1000, 128), 0, torch.uint8),          # __strbytes__ id axis
+    ((64, 33), 1, torch.int64),             # 8-byte elements, odd rows
+])
+def test_k4_matches_plain_on_card(card, shape, axis, dtype):
+    """K4 against index_copy_ on a clone: a new tensor with the dirty
+    rows written (duplicate padding rows included), the old one as it
+    was."""
+    rng = np.random.default_rng(len(shape) * 1000 + shape[axis])
+    n = shape[axis]
+    for n_dirty in (1, 5, 300):
+        n_dirty = min(n_dirty, n)
+        dirty = np.sort(rng.choice(n, size=n_dirty, replace=False))
+        rows = tex.pad_rows(dirty).astype(np.int32)
+        vshape = shape[:axis] + (len(rows),) + shape[axis + 1:]
+        if dtype == torch.bool:
+            host, vals = rng.random(shape) < 0.5, rng.random(vshape) < 0.5
+        else:
+            host = rng.integers(-100, 100, size=shape)
+            vals = rng.integers(-100, 100, size=vshape)
+        dev = torch.from_numpy(np.asarray(host)).to(dtype).to(card)
+        v = torch.from_numpy(np.asarray(vals)).to(dtype)
+        # padding rows repeat the first row with its values
+        pad = [slice(None)] * len(shape)
+        pad[axis] = slice(n_dirty, None)
+        first = [slice(None)] * len(shape)
+        first[axis] = slice(0, 1)
+        v[tuple(pad)] = v[tuple(first)]
+        v = v.to(card)
+        r = torch.from_numpy(rows).to(card)
+        keep = dev.clone()
+        launches = tscatter.scatter_rows.launches
+        got = tscatter.scatter_rows(dev, r, v, axis)
+        torch.cuda.synchronize()
+        assert tscatter.scatter_rows.launches == launches + 1
+        assert torch.equal(got, tscatter.scatter_rows_plain(dev, r, v, axis))
+        assert torch.equal(dev, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,kw", [
+    (0, {}),
+    (1, {"c_pad": 128, "r_pad": 4096, "e_pad": 8}),
+    (2, {"c_pad": 16, "r_pad": 256, "e_pad": 2}),
+])
+def test_k5_matches_plain_on_card(card, seed, kw):
+    """K5 (K1's kernel in row-index mode) against the plain gather /
+    evaluate / index_copy_, on every-op programs at random rows, with
+    int32 and narrowed id columns; and one full launch after it is
+    still K1's result."""
+    prog, arrays = every_op_case(seed, **kw)
+    t = convert.arrays_to_device(arrays, card)
+    c_pad, r_pad = t["__match__"].shape
+    rng = np.random.default_rng(seed)
+    for dt in (None, torch.int8, torch.int16):
+        x = t if dt is None else {
+            k: (v.to(dt) if v.dtype == torch.int32
+                and not k.endswith(".trans") else v)
+            for k, v in t.items()}
+        d = tex._with_dfa_tables(prog, x, tdfa.dfa_table)
+        viol_old = torch.from_numpy(rng.random((c_pad, r_pad)) < 0.5) \
+            .to(card)
+        for n_dirty in (1, 7, min(r_pad, 40)):
+            dirty = np.sort(rng.choice(r_pad, size=n_dirty, replace=False))
+            rows = torch.from_numpy(
+                tex.pad_rows(dirty).astype(np.int32)).to(card)
+            launches = ir_eval.delta_mask.launches
+            got = ir_eval.delta_mask(prog, d, viol_old, rows)
+            torch.cuda.synchronize()
+            assert ir_eval.delta_mask.launches == launches + 1
+            assert torch.equal(got, tex._delta_mask(prog, x, viol_old,
+                                                    rows)), (dt, n_dirty)
+        assert torch.equal(ir_eval.eval_mask(prog, d),
+                           tex._eval_mask(prog, x)), dt
+
+
+@pytest.mark.cuda
+def test_executor_delta_on_card_matches_cpu(card):
+    """The executor's churn path on the card (K4 scatters, K5 delta,
+    K2 reduce) against the same generations on the CPU."""
+    prog, arrays = every_op_case(6, c_pad=16, r_pad=1024)
+    b = convert.bindings_from_plain(arrays, 14, 1000, 16, 1024)
+    gpu, cpu = tex.ProgramExecutor(), tex.ProgramExecutor(device="cpu")
+    gpu.run_topk(prog, b, 20)
+    cpu.run_topk(prog, b, 20)
+    k4, k5 = tscatter.scatter_rows.launches, ir_eval.delta_mask.launches
+    rng_g, rng_c = np.random.default_rng(2), np.random.default_rng(2)
+    bg = bc = b
+    for n_dirty in (3, 60):
+        bg, got = _delta_round(gpu, prog, bg, rng_g, n_dirty)
+        bc, want = _delta_round(cpu, prog, bc, rng_c, n_dirty)
+        _packed_equal(_packed(got), _packed(want), 20)
+        np.testing.assert_array_equal(gpu.run(prog, bg), cpu.run(prog, bc))
+    assert tscatter.scatter_rows.launches > k4
+    assert ir_eval.delta_mask.launches == k5 + 2
