@@ -30,7 +30,18 @@ Phases (each prints one line of its numbers):
      churned store, 3 K5 launches and no full K1 launch per sweep, K4
      and K5 against their plain versions on the churn's own inputs, their
      times at the churn's shapes, and device memory that stops growing
-  6. the kernels JSON line, the card line, and the final JSON line.
+  6. fleet — the fleet audit (B9): batched K1, K2 and K3 against their
+     plain versions on stacked every-op cases (N 1-5, ragged sizes) and
+     random masks; (a) 4 north-star clusters (100k, 90k, 80k and 60k
+     pods x 201 constraints, each TorchDriver() on its own seed) and (b)
+     4 library clusters of 2,500 make_mixed rows, each audited by
+     fleet_audit twice (warm, then timed) and by fleet_loop_oracle:
+     digests equal (and equal TorchDriver(device="cpu") for (b) and the
+     60k cluster), one batched K1 and one batched K2 launch per stacked
+     kind (plus one batched K3 per regex table), the batched kernels on
+     the phase's own inputs against their plain versions, timed at
+     (a)'s shapes, the Triton variant count and peak device memory
+  7. the kernels JSON line, the card line, and the final JSON line.
 Any mismatch or exception exits nonzero before the final line.
 """
 
@@ -95,7 +106,10 @@ def kernel_fns(ir_eval, topk, dfa, scatter) -> dict:
     function its module's name refers to at the time of the call."""
     return {"K1": (ir_eval, "eval_mask"), "K2": (topk, "topk_packed"),
             "K3": (dfa, "dfa_table"), "K4": (scatter, "scatter_rows"),
-            "K5": (ir_eval, "delta_mask")}
+            "K5": (ir_eval, "delta_mask"),
+            "K1b": (ir_eval, "eval_mask_batched"),
+            "K2b": (topk, "topk_packed_batched"),
+            "K3b": (dfa, "dfa_table_batched")}
 
 
 def reset_counts(fns: dict) -> None:
@@ -221,6 +235,348 @@ def k1_element_ops(executor_mod, program, arrays) -> int:
             size *= 2 * arrays[n.meta[0] + ".B"].shape[1]
         ops += size
     return ops + 4 * c * r * len(program.rules)
+
+
+def triton_variants(ir_eval) -> int | None:
+    """Compiled Triton variants over every K1 kernel of this process
+    (one per program and specialisation; None where this Triton keeps
+    its cache elsewhere).  A batched launch that recompiles a program
+    already launched unbatched shows here."""
+    n = 0
+    for kern, *_ in list(ir_eval._KERNELS.values()):
+        caches = getattr(kern, "device_caches", None)
+        if caches is not None:
+            n += sum(len(c[0]) for c in caches.values())
+        elif isinstance(getattr(kern, "cache", None), dict):
+            n += sum(len(c) for c in kern.cache.values())
+        else:
+            return None
+    return n
+
+
+def fleet_twice(clusters, fns, fleet_audit, ir_eval) -> dict:
+    """fleet_audit warm (recording each stacked kind's inputs), then
+    timed, with the launch counts set to 0 just before it and read just
+    after; the timed run's seconds inside run_topk_batched (uploads, the
+    batched kernels, the fetch of the top-k) are summed, and the Triton
+    variant count is read before, between and after."""
+    exe = clusters[0].driver.executor
+    orig = exe.run_topk_batched
+    inputs, spent = {}, []
+
+    def warm_run(program, stacked, k):
+        inputs[id(program)] = (program, stacked)
+        return orig(program, stacked, k)
+
+    def timed_run(program, stacked, k):
+        t = time.perf_counter()
+        out = orig(program, stacked, k)
+        spent.append(time.perf_counter() - t)
+        return out
+
+    out = {"exe": exe, "inputs": inputs,
+           "variants": [triton_variants(ir_eval)]}
+    exe.run_topk_batched = warm_run
+    t0 = time.perf_counter()
+    out["warm"] = fleet_audit(clusters, CAP)
+    out["warm_s"] = time.perf_counter() - t0
+    out["variants"].append(triton_variants(ir_eval))
+    exe.run_topk_batched = timed_run
+    widen0 = exe.batched_mask_evals
+    reset_counts(fns)
+    t0 = time.perf_counter()
+    out["rep"] = fleet_audit(clusters, CAP)
+    out["stacked_s"] = time.perf_counter() - t0
+    out["counts"] = launch_counts(fns)
+    out["widen"] = exe.batched_mask_evals - widen0
+    del exe.run_topk_batched
+    out["variants"].append(triton_variants(ir_eval))
+    out["batched_s"] = sum(spent)
+    return out
+
+
+FLEET_SIZES = (100_000, 90_000, 80_000, 60_000)
+FLEET_LIBRARY_ROWS = 2500
+
+
+def fleet_phase(rec: dict, fns: dict, dev) -> None:
+    """The fleet audit (item B9): (a) 4 north-star clusters of
+    FLEET_SIZES pods, 201 constraints each, and (b) 4 library clusters
+    of FLEET_LIBRARY_ROWS make_mixed rows under every library template;
+    each audited by fleet_audit twice (warm, then timed) and by
+    fleet_loop_oracle, digests held equal, the batched kernels held
+    against their plain versions and timed at (a)'s shapes."""
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import dfa, ir_eval, topk
+    from gatekeeper_tpu_torch.kernels.op_cases import stacked_every_op_case
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.library.north_star import (make_resources,
+                                                         setup_north_star)
+    from gatekeeper_tpu_torch.whatif import (fleet_audit, fleet_loop_oracle,
+                                             make_cluster, normalize_results)
+    from gatekeeper_tpu_torch.whatif.fleet import FleetCluster
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+
+    # -- batched kernels on random stacked inputs: N 1..5, ragged sizes,
+    # every IR op
+    for n, kw in ((1, {}), (2, {"c_pad": 16, "r_pad": 256}),
+                  (3, {"c_pad": 128, "r_pad": 4096, "t_pad": 1024,
+                       "u": 32}),
+                  (4, {"c_pad": 8, "r_pad": 64, "n_states": 60}),
+                  (5, {"c_pad": 32, "r_pad": 512, "t_pad": 64})):
+        prog, stacked = stacked_every_op_case(n, **kw)
+        d = {nm: torch.from_numpy(a).to(dev) for nm, a in stacked.items()}
+        ins = (d["dfa0.trans"], d["dfa0.accept"], d["__strbytes__"],
+               d["__strdfaok__"], d["dfa0.xv"], 3)
+        tab = dfa.dfa_table_batched(*ins)
+        if not torch.equal(tab, dfa.dfa_table_batched_plain(*ins)):
+            fail(f"batched K3 mismatch on {n} every-op clusters {kw}")
+        d["dfa0.devtab"] = tab
+        mask = ir_eval.eval_mask_batched(prog, d)
+        if not torch.equal(mask, ex._eval_mask_batched(prog, d)):
+            fail(f"batched K1 mismatch on {n} every-op clusters {kw}")
+        for k in (CAP, 2):
+            got = topk.topk_packed_batched(mask, d["__rank__"], k)
+            want = topk.topk_packed_batched_plain(mask, d["__rank__"], k)
+            if max(packed_err(got[i], want[i], k) for i in range(n)):
+                fail(f"batched K2 mismatch on {n} every-op clusters k {k}")
+    g = torch.Generator(device="cpu").manual_seed(9)
+    for n, dens in ((4, 0.3), (4, 1e-4), (5, 0.5)):
+        viol = (torch.rand((n, 128, 16384), generator=g) < dens).to(dev)
+        rank = torch.stack([torch.randperm(16384, generator=g)
+                            for _ in range(n)]).to(torch.int32).to(dev)
+        for k in (CAP, 300):
+            got = topk.topk_packed_batched(viol, rank, k)
+            want = topk.topk_packed_batched_plain(viol, rank, k)
+            if max(packed_err(got[i], want[i], k) for i in range(n)):
+                fail(f"batched K2 mismatch on random [{n}, 128, 16384] "
+                     f"density {dens} k {k}")
+    print("phase fleet kernels random: batched K1 and K3 equal their plain "
+          "versions on 5 stacked every-op cases (N 1-5, ragged R_pad, T, U "
+          "and DFA states); batched K2 at caps 20, 2 and 300 on those and on "
+          "random [N, 128, 16384] masks", flush=True)
+    del d, tab, mask, got, want, viol, rank
+
+    # -- (a) the north-star fleet
+    t0 = time.perf_counter()
+    clusters, res60 = [], None
+    for i, n in enumerate(FLEET_SIZES):
+        res = make_resources(n, random.Random(100 + i))
+        drv = TorchDriver()
+        client = setup_north_star(drv, res, random.Random(2))
+        clusters.append(FleetCluster(name=f"ns{i}", client=client,
+                                     driver=drv, handler=drv.targets[TARGET]))
+        if n == FLEET_SIZES[-1]:
+            res60 = res
+    build_s = time.perf_counter() - t0
+    fa = fleet_twice(clusters, fns, fleet_audit, ir_eval)
+    warm, rep, counts_a, widen_a = fa["warm"], fa["rep"], fa["counts"], \
+        fa["widen"]
+    exe, inputs = fa["exe"], fa["inputs"]
+    _v, loop_digests, loop_s = fleet_loop_oracle(clusters, CAP)
+    n_stacked = len(rep.kinds_stacked)
+    if rep.digests != warm.digests or rep.digests != loop_digests:
+        fail(f"north-star fleet digests {rep.digests}, warm {warm.digests}, "
+             f"loop oracle {loop_digests}")
+    if rep.kinds_stacked != ["K8sAllowedRepos", "K8sContainerLimits",
+                             "K8sRequiredLabels"] or rep.kinds_replicated:
+        fail(f"north-star fleet stacked {rep.kinds_stacked}, replicated "
+             f"{rep.kinds_replicated}")
+    if rep.device_dispatches != n_stacked or widen_a \
+            or counts_a["K1b"] != n_stacked \
+            or counts_a["K2b"] != n_stacked or counts_a["K3b"] != 0 \
+            or counts_a["K1"] or counts_a["K2"]:
+        fail(f"north-star fleet: {rep.device_dispatches} dispatches, "
+             f"{widen_a} widening masks, launches {counts_a}")
+    torch.cuda.synchronize()
+    peak_a = torch.cuda.max_memory_allocated()
+    print(f"phase fleet north star: {len(clusters)} clusters of "
+          f"{list(FLEET_SIZES)} pods x 201 constraints, cap {CAP}: build "
+          f"{build_s:.3f}s; stacked warm {fa['warm_s']:.4f}s, stacked "
+          f"{fa['stacked_s']:.4f}s (of it {fa['batched_s']:.4f}s in "
+          f"run_topk_batched: uploads, batched kernels, fetch) vs loop "
+          f"oracle {loop_s:.4f}s; digests "
+          f"{rep.digests} equal the loop oracle's; stacked "
+          f"{rep.kinds_stacked}, replicated {rep.kinds_replicated}; "
+          f"{rep.device_dispatches} dispatches; launches "
+          f"{ {k: v for k, v in counts_a.items() if v} }; Triton variants "
+          f"{' -> '.join(map(str, fa['variants']))} (before, after warm, "
+          f"after timed); "
+          f"max_memory_allocated {peak_a} (phase start {mem0})",
+          flush=True)
+
+    # the 60k cluster on the CPU path
+    t0 = time.perf_counter()
+    cpu = TorchDriver(device="cpu")
+    setup_north_star(cpu, res60, random.Random(2))
+    cpu_v = normalize_results(cpu.query_audit(
+        TARGET, QueryOpts(limit_per_constraint=CAP))[0])
+    if cpu_v != rep.verdicts[-1]:
+        fail("north-star fleet: the 60k cluster differs from "
+             "TorchDriver(device='cpu')")
+    print(f"phase fleet north star check: the {FLEET_SIZES[-1]}-pod "
+          f"cluster's {len(cpu_v)} verdicts equal TorchDriver(cpu) "
+          f"({time.perf_counter() - t0:.1f}s incl. ingest)", flush=True)
+    del cpu, res60
+
+    # batched K1 and K2 on the phase's own stacked inputs, bit for bit,
+    # and timed; torch.topk on the same [N * C_pad, R_pad] scores
+    t = {k: 0.0 for k in ("k1", "k1p", "k1b", "k2", "k2p", "k2l", "k2b")}
+    k1_by = k2_by = "bytes"
+    k1_err = k2_err = 0
+    for program, stacked in inputs.values():
+        d = exe._stacked_arrays(program, stacked)
+        got = ir_eval.eval_mask_batched(program, d)
+        want = ex._eval_mask_batched(program, d)
+        k1_err = max(k1_err, max_err(got, want))
+        if k1_err:
+            fail("batched K1 mismatch on the north-star fleet's inputs")
+        rank = d["__rank__"]
+        g2 = topk.topk_packed_batched(got, rank, CAP)
+        w2 = topk.topk_packed_batched_plain(got, rank, CAP)
+        n_b, c_pad, r_pad = got.shape
+        k2_err = max([k2_err] + [packed_err(g2[i], w2[i], CAP)
+                                 for i in range(n_b)])
+        if k2_err:
+            fail("batched K2 mismatch on the north-star fleet's inputs")
+        used = ir_eval.emit_source(program, ir_eval.array_signature(
+            d, lead=1))[1].ptrs
+        nbytes = sum(d[nm].numel() * d[nm].element_size() for nm in used) \
+            + got.numel()
+        ops = sum(k1_element_ops(ex, program, {nm: a[i] for nm, a
+                                               in d.items()})
+                  for i in range(n_b))
+        b1, k1_by = bound(nbytes, ops)
+        t["k1b"] += b1
+        t["k1"] += cuda_ms(lambda: ir_eval.eval_mask_batched(program, d))
+        t["k1p"] += cuda_ms(lambda: ex._eval_mask_batched(program, d),
+                            iters=3)
+        b2, k2_by = bound(n_b * c_pad * r_pad + n_b * r_pad * 4
+                          + n_b * c_pad * (1 + 2 * CAP) * 4,
+                          2 * n_b * c_pad * r_pad)
+        t["k2b"] += b2
+        t["k2"] += cuda_ms(lambda: topk.topk_packed_batched(got, rank, CAP))
+        t["k2p"] += cuda_ms(lambda: topk.topk_packed_batched_plain(
+            got, rank, CAP), iters=3)
+        score = torch.where(got, r_pad - rank[:, None, :], 0) \
+            .reshape(n_b * c_pad, r_pad)
+        t["k2l"] += cuda_ms(lambda: torch.topk(score, CAP, dim=1))
+    nk = len(inputs)
+    t = {k: v / nk for k, v in t.items()}
+    rec["K1b"] = {"launches": counts_a["K1b"], "max_abs_err": k1_err,
+                  "ms": t["k1"], "plain_ms": t["k1p"], "bound_ms": t["k1b"],
+                  "bound_by": k1_by, "library_ms": None}
+    rec["K2b"] = {"launches": counts_a["K2b"], "max_abs_err": k2_err,
+                  "ms": t["k2"], "plain_ms": t["k2p"], "bound_ms": t["k2b"],
+                  "bound_by": k2_by, "library_ms": t["k2l"]}
+    print(f"phase fleet north star kernels: per launch at [{n_b}, {c_pad}, "
+          f"{r_pad}] (mean over {nk} kinds): batched K1 {t['k1']:.4f} ms "
+          f"(plain {t['k1p']:.4f}, bound {t['k1b']:.4f} {k1_by}); batched "
+          f"K2 {t['k2']:.4f} ms (plain {t['k2p']:.4f}, torch.topk on "
+          f"[{n_b * c_pad}, {r_pad}] {t['k2l']:.4f}, bound {t['k2b']:.4f} "
+          f"{k2_by}); both equal their plain versions", flush=True)
+    del inputs, d, got, want, g2, w2, score, rank, clusters, warm, rep, exe
+    torch.cuda.synchronize()
+
+    # -- (b) the library fleet: bench.py's fleet_stack shape
+    saved = torch_driver.SMALL_WORKLOAD_EVALS
+    torch_driver.SMALL_WORKLOAD_EVALS = 0
+    docs = all_docs()
+    templates = [tdoc for tdoc, _ in docs]
+    constraints = [c for _, c in docs]
+
+    def library_fleet(factory):
+        return [make_cluster(f"lib{i}", templates, constraints,
+                             objs=make_mixed(random.Random(100 + i),
+                                             FLEET_LIBRARY_ROWS),
+                             driver_factory=factory) for i in range(4)]
+
+    lib = library_fleet(None)
+    fb = fleet_twice(lib, fns, fleet_audit, ir_eval)
+    warm, rep, counts_b, widen_b = fb["warm"], fb["rep"], fb["counts"], \
+        fb["widen"]
+    exe, inputs = fb["exe"], fb["inputs"]
+    _v, loop_digests, loop_s = fleet_loop_oracle(lib, CAP)
+    cpu_lib = library_fleet(lambda: TorchDriver(device="cpu"))
+    _cv, cpu_digests, cpu_s = fleet_loop_oracle(cpu_lib, CAP)
+    torch_driver.SMALL_WORKLOAD_EVALS = saved
+    n_stacked = len(rep.kinds_stacked)
+    n_dfa = sum(len(ex.dfa_names(lib[0].driver._state(TARGET)
+                                 .templates[k].vectorized.program))
+                for k in rep.kinds_stacked)
+    if rep.digests != warm.digests or rep.digests != loop_digests \
+            or rep.digests != cpu_digests:
+        fail(f"library fleet digests {rep.digests}, warm {warm.digests}, "
+             f"loop oracle {loop_digests}, TorchDriver(cpu) {cpu_digests}")
+    # an under-filled cap widens a kind to its full stacked mask: one
+    # more batched K1 (and K3 per regex table) for that kind
+    if rep.device_dispatches != n_stacked \
+            or counts_b["K1b"] != n_stacked + widen_b \
+            or counts_b["K2b"] != n_stacked \
+            or not n_dfa <= counts_b["K3b"] <= n_dfa * (1 + widen_b) \
+            or n_dfa == 0:
+        fail(f"library fleet: {rep.device_dispatches} dispatches for "
+             f"{n_stacked} stacked kinds ({n_dfa} regex tables, "
+             f"{widen_b} widening masks), launches {counts_b}")
+    print(f"phase fleet library: 4 clusters of {FLEET_LIBRARY_ROWS} rows x "
+          f"{len(docs)} templates, cap {CAP}: stacked warm "
+          f"{fb['warm_s']:.4f}s, stacked {fb['stacked_s']:.4f}s (of it "
+          f"{fb['batched_s']:.4f}s in run_topk_batched) vs loop oracle "
+          f"{loop_s:.4f}s; digests "
+          f"{rep.digests} equal the loop oracle's and TorchDriver(cpu)'s "
+          f"({cpu_s:.1f}s); {n_stacked} kinds stacked, replicated "
+          f"{rep.kinds_replicated}; {rep.device_dispatches} dispatches, "
+          f"{widen_b} widening masks; launches "
+          f"{ {k: v for k, v in counts_b.items() if v} }; Triton "
+          f"variants {' -> '.join(map(str, fb['variants']))}", flush=True)
+
+    # batched K1, K2 and K3 on the library fleet's own inputs, bit for
+    # bit; K3 timed at the regex kind's stacked table
+    k3 = None
+    k3_err = 0
+    for program, stacked in inputs.values():
+        d = exe._stacked_arrays(program, stacked)
+        got = ir_eval.eval_mask_batched(program, d)
+        if not torch.equal(got, ex._eval_mask_batched(program, d)):
+            fail("batched K1 mismatch on the library fleet's inputs")
+        g2 = topk.topk_packed_batched(got, d["__rank__"], CAP)
+        w2 = topk.topk_packed_batched_plain(got, d["__rank__"], CAP)
+        if max(packed_err(g2[i], w2[i], CAP) for i in range(got.shape[0])):
+            fail("batched K2 mismatch on the library fleet's inputs")
+        for nm in ex.dfa_names(program):
+            ins = dfa_inputs(d, nm)
+            k3_err = max(k3_err, max_err(dfa.dfa_table_batched(*ins),
+                                         dfa.dfa_table_batched_plain(*ins)))
+            if k3_err:
+                fail(f"batched K3 mismatch on the library fleet's {nm}")
+            k3 = ins
+    n_b, u, w = k3[2].shape
+    trans = k3[0]
+    nbytes = n_b * u * w + trans.numel() * trans.element_size() \
+        + trans.shape[0] * trans.shape[1] + 3 * n_b * u
+    b3, by3 = bound(nbytes, n_b * u * (w - 3 + 1))
+    rec["K3b"] = {"launches": counts_a["K3b"] + counts_b["K3b"],
+                  "max_abs_err": k3_err,
+                  "ms": cuda_ms(lambda: dfa.dfa_table_batched(*k3)),
+                  "plain_ms": cuda_ms(lambda: dfa.dfa_table_batched_plain(
+                      *k3), iters=5),
+                  "bound_ms": b3, "bound_by": by3, "library_ms": None}
+    rec["K1b"]["launches"] += counts_b["K1b"]
+    rec["K2b"]["launches"] += counts_b["K2b"]
+    torch.cuda.synchronize()
+    print(f"phase fleet library kernels: batched K1 and K2 equal their "
+          f"plain versions on {len(inputs)} stacked kinds, batched K3 on "
+          f"the regex table ([{n_b}, {u}, {w}] bytes, {trans.shape[1]} "
+          f"states): {rec['K3b']['ms']:.4f} ms (plain "
+          f"{rec['K3b']['plain_ms']:.4f}, bound {b3:.6f} {by3}); phase "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()}",
+          flush=True)
 
 
 def main() -> int:
@@ -705,7 +1061,11 @@ def main() -> int:
           f"to plain", flush=True)
     del dig, dc, st, arrays
 
-    # ---- 6. kernels line, card line, final line
+    # ---- 6. fleet: N clusters' stores stacked into one batched sweep
+    # per kind (B9)
+    fleet_phase(rec, fns, dev)
+
+    # ---- 7. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -718,9 +1078,16 @@ def main() -> int:
         "K5": ("ir_eval_delta", "triton",
                "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:1579"),
+        "K1b": ("ir_eval_batched", "triton",
+                "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                "gatekeeper_tpu/whatif/fleet.py:60"),
+        "K2b": ("topk_batched", "cuda", "gatekeeper_tpu_torch/csrc/topk.cu",
+                "gatekeeper_tpu/whatif/fleet.py:47"),
+        "K3b": ("dfa_batched", "cuda", "gatekeeper_tpu_torch/csrc/dfa.cu",
+                "gatekeeper_tpu/whatif/fleet.py:47"),
     }
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K1b", "K2b", "K3b"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -18,6 +18,12 @@
 // each row with 16-byte vector loads so one thread issues W/16 loads
 // instead of W; the dependent chain of table lookups (one per byte) is
 // latency-bound per thread, which many ids in flight hide.
+//
+// Batched (item B9, the fleet audit: the reference's `_with_dfa_tables`
+// inside a jax.vmap over clusters): N clusters' byte rows, flags and
+// [S, 256] tables arrive stacked, and one launch covers N * T ids.  Id u
+// belongs to cluster u / T and reads that cluster's `trans` and `accept`
+// (S states each).  The unbatched entry point is the case N = 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,13 +37,17 @@ __device__ __forceinline__ int step(const T* __restrict__ trans, int state,
 template <typename T>
 __global__ void dfa_scan_kernel(const uint8_t* __restrict__ bytes,
                                 int64_t n_ids, int width, int prefix,
-                                const T* __restrict__ trans,
-                                const uint8_t* __restrict__ accept,
+                                const T* __restrict__ trans_all,
+                                const uint8_t* __restrict__ accept_all,
+                                int64_t ids_per_table, int states,
                                 const uint8_t* __restrict__ ok,
                                 const uint8_t* __restrict__ xv,
                                 uint8_t* __restrict__ out, int vec) {
   const int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (u >= n_ids) return;
+  const int64_t table = u / ids_per_table;
+  const T* __restrict__ trans = trans_all + table * states * 256;
+  const uint8_t* __restrict__ accept = accept_all + table * states;
   const uint8_t* row = bytes + u * width;
   int state = 0;
   if (vec) {
@@ -64,9 +74,11 @@ __global__ void dfa_scan_kernel(const uint8_t* __restrict__ bytes,
 
 template <typename T>
 static int launch(const void* bytes, int64_t n_ids, int width, int prefix,
-                  const void* trans, const void* accept, const void* ok,
+                  const void* trans, const void* accept,
+                  int64_t ids_per_table, int states, const void* ok,
                   const void* xv, void* out, void* stream) {
   if (n_ids <= 0) return 0;
+  if (ids_per_table <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 256;
   const int64_t blocks = (n_ids + threads - 1) / threads;
   const int vec = (width % 16 == 0) &&
@@ -75,22 +87,34 @@ static int launch(const void* bytes, int64_t n_ids, int width, int prefix,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bytes), n_ids, width, prefix,
       static_cast<const T*>(trans), static_cast<const uint8_t*>(accept),
-      static_cast<const uint8_t*>(ok), static_cast<const uint8_t*>(xv),
+      ids_per_table, states, static_cast<const uint8_t*>(ok), static_cast<const uint8_t*>(xv),
       static_cast<uint8_t*>(out), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// trans_itemsize selects the stored width of the transition table
-// (the executor may ship it narrowed to int16 or int8; widening
-// happens at the gather).
+// n_batch tables of `states` states; bytes/ok/xv/out hold n_batch * n_ids
+// ids, cluster-major.  trans_itemsize selects the stored width of the
+// transition table (the executor may ship it narrowed to int16 or int8;
+// widening happens at the gather).
+extern "C" int gk_dfa_scan_batched(const void* bytes, int64_t n_batch,
+                                   int64_t n_ids, int width, int prefix,
+                                   const void* trans, int states,
+                                   int trans_itemsize, const void* accept,
+                                   const void* ok, const void* xv, void* out,
+                                   void* stream) {
+  const int64_t total = n_batch * n_ids;
+  switch (trans_itemsize) {
+    case 4: return launch<int32_t>(bytes, total, width, prefix, trans, accept, n_ids, states, ok, xv, out, stream);
+    case 2: return launch<int16_t>(bytes, total, width, prefix, trans, accept, n_ids, states, ok, xv, out, stream);
+    case 1: return launch<int8_t>(bytes, total, width, prefix, trans, accept, n_ids, states, ok, xv, out, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" int gk_dfa_scan(const void* bytes, int64_t n_ids, int width,
                            int prefix, const void* trans, int trans_itemsize,
                            const void* accept, const void* ok, const void* xv,
                            void* out, void* stream) {
-  switch (trans_itemsize) {
-    case 4: return launch<int32_t>(bytes, n_ids, width, prefix, trans, accept, ok, xv, out, stream);
-    case 2: return launch<int16_t>(bytes, n_ids, width, prefix, trans, accept, ok, xv, out, stream);
-    case 1: return launch<int8_t>(bytes, n_ids, width, prefix, trans, accept, ok, xv, out, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return gk_dfa_scan_batched(bytes, 1, n_ids, width, prefix, trans, 0,
+                             trans_itemsize, accept, ok, xv, out, stream);
 }

@@ -26,6 +26,13 @@
 // block per SM, so the scan is latency-bound rather than at the
 // 3.35 TB/s roofline; splitting R across blocks with a second merge
 // pass is the known next step.
+//
+// Batched (item B9, the fleet audit's vmapped top-k, whatif/fleet.py
+// `_topk_fn`): the mask is N clusters' [C_pad, R_pad] masks stacked,
+// read as [N * C_pad, R_pad], and the rank is [N, R_pad]; block b reads
+// rank row b / rows_per_rank (rows_per_rank = C_pad).  The unbatched call
+// passes rows_per_rank = C_pad with one rank row, so one kernel serves
+// both.  The score base is the (stacked) R_pad, as in the reference.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -62,12 +69,15 @@ __device__ __forceinline__ long long warp_max(long long v) {
 
 __global__ void __launch_bounds__(kThreads)
 topk_kernel(const uint8_t* __restrict__ mask, const int32_t* __restrict__ rank,
-            int r_pad, int k, int vec, int32_t* __restrict__ out) {
+            int rows_per_rank, int r_pad, int k, int vec,
+            int32_t* __restrict__ out) {
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const uint8_t* row = mask + static_cast<int64_t>(c) * r_pad;
+  const int32_t* rk =
+      rank ? rank + static_cast<int64_t>(c / rows_per_rank) * r_pad : nullptr;
   int32_t* o = out + static_cast<int64_t>(c) * (1 + 2 * k);
 
   __shared__ int s_count[kWarps];
@@ -84,7 +94,7 @@ topk_kernel(const uint8_t* __restrict__ mask, const int32_t* __restrict__ rank,
     int n = 0;
     auto visit = [&](int r) {
       if (first) ++count;
-      const int s = r_pad - (rank ? __ldg(rank + r) : r);
+      const int s = r_pad - (rk ? __ldg(rk + r) : r);
       if (s <= 0) return;
       const long long key = (static_cast<long long>(s) << 32) |
                             static_cast<unsigned>(r_pad - 1 - r);
@@ -154,15 +164,19 @@ topk_kernel(const uint8_t* __restrict__ mask, const int32_t* __restrict__ rank,
 
 }  // namespace
 
-// rank may be null (score by raw row order).  Returns cudaGetLastError().
-extern "C" int gk_topk_packed(const void* mask, const void* rank, int c_pad,
-                              int r_pad, int k, void* out, void* stream) {
-  if (c_pad <= 0) return 0;
-  if (k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// n_rows mask rows of r_pad; mask row b scores by rank row
+// b / rows_per_rank.  rank may be null (score by raw row order).  Returns
+// cudaGetLastError().
+extern "C" int gk_topk_packed(const void* mask, const void* rank, int n_rows,
+                              int rows_per_rank, int r_pad, int k, void* out,
+                              void* stream) {
+  if (n_rows <= 0) return 0;
+  if (k <= 0 || rows_per_rank <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int vec = (r_pad % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(mask) % 16 == 0);
-  topk_kernel<<<c_pad, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  topk_kernel<<<n_rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(rank),
-      r_pad, k, vec, static_cast<int32_t*>(out));
+      rows_per_rank, r_pad, k, vec, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

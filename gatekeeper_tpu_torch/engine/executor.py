@@ -10,7 +10,10 @@ presence mask, rules are ORed and the match mask ANDed.
 
 :class:`ProgramExecutor` keeps the reference's public surface (``run``,
 ``run_async``, ``run_topk``, ``run_topk_async``, ``stage_uploads``) and
-its identity-keyed device cache.  On CUDA tensors it calls the port's
+its identity-keyed device cache.  ``run_topk_batched`` and
+``run_mask_batched`` evaluate N clusters' stacked bindings in one
+launch per kernel, for the fleet audit (whatif/fleet.py, item B9).
+On CUDA tensors it calls the port's
 hand-written kernels — K1 (``kernels/ir_eval.py``, the IR evaluator),
 K2 (``kernels/topk.py``, count + top-k), K3 (``kernels/dfa.py``, the
 regex byte scan), K4 (``kernels/scatter.py``, the dirty-row scatter)
@@ -352,6 +355,18 @@ def _eval_mask(program: Program, d: dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
+def _eval_mask_batched(program: Program,
+                       stacked: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Plain [N, C, R]: :func:`_eval_mask` per cluster, on each stacked
+    array's slice ``[i]`` (the padded stacked form, not the cluster's own
+    arrays: padding moves gather clamps and edge columns, and only the
+    stacked form is what the reference's vmap evaluates)."""
+    n = stacked["__alive__"].shape[0]
+    return torch.stack([_eval_mask(program, {nm: a[i] for nm, a
+                                             in stacked.items()})
+                        for i in range(n)])
+
+
 def _delta_mask(program: Program, d: dict[str, torch.Tensor],
                 viol_old: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Plain churn delta (the reference's ``_delta_fn``): gather the rows
@@ -452,6 +467,9 @@ class ProgramExecutor:
         self.mask_evals = 0      # full-mask evaluations (K1 or plain)
         self.delta_evals = 0     # dirty-row evaluations (K5 or plain)
         self.reduces = 0         # count + top-k reductions (K2 or plain)
+        # full masks of N stacked clusters an under-filled fleet cap
+        # widens to (run_mask_batched)
+        self.batched_mask_evals = 0
 
     # ------------------------------------------------------------------
     # uploads
@@ -707,3 +725,51 @@ class ProgramExecutor:
                  match: np.ndarray | None = None,
                  rank: np.ndarray | None = None):
         return self.run_topk_async(program, bindings, k, match, rank).get()
+
+    # ------------------------------------------------------------------
+    # the fleet audit: N clusters' bindings stacked along a leading axis
+
+    def _put_stacked(self, host: np.ndarray) -> torch.Tensor:
+        """One stacked array, uploaded as the reference hands it to
+        ``jax.jit``: 64-bit values narrowed to 32 bits (JAX with x64
+        off), no int8/int16 narrowing, no identity-keyed cache."""
+        narrow = {np.dtype(np.int64): np.int32,
+                  np.dtype(np.uint64): np.uint32,
+                  np.dtype(np.float64): np.float32}.get(host.dtype)
+        if narrow is not None:
+            host = host.astype(narrow)
+        self.h2d_bytes += int(host.nbytes)
+        return self._upload(host)
+
+    def _stacked_arrays(self, program: Program,
+                        stacked: dict[str, np.ndarray]) -> dict:
+        """Device copies of the stacked arrays plus every regex table's
+        verdicts ``<dfa>.devtab`` [N, T] (batched K3, or its plain
+        version on the CPU)."""
+        arrays = {nm: self._put_stacked(a) for nm, a in stacked.items()}
+        return _with_dfa_tables(program, arrays, _dfa.dfa_table_batched)
+
+    def run_mask_batched(self, program: Program,
+                         stacked: dict[str, np.ndarray]) -> np.ndarray:
+        """bool [N, C_pad, R_pad] violation masks of the stacked clusters
+        (the reference's ``whatif/fleet._mask_fn``): batched K3, then
+        batched K1 — or their plain versions on the CPU."""
+        self.batched_mask_evals += 1
+        d = self._stacked_arrays(program, stacked)
+        return _ir_eval.eval_mask_batched(program, d).cpu().numpy()
+
+    def run_topk_batched(self, program: Program,
+                         stacked: dict[str, np.ndarray], k: int):
+        """(counts [N, C_pad], rows [N, C_pad, k], valid [N, C_pad, k])
+        of the stacked clusters (the reference's
+        ``whatif/fleet._topk_fn``): batched K3, batched K1, then batched
+        K2 scored by each cluster's ``__rank__`` row against the stacked
+        R_pad — or their plain versions on the CPU."""
+        self.reduces += 1
+        d = self._stacked_arrays(program, stacked)
+        viol = _ir_eval.eval_mask_batched(program, d)
+        packed = _topk.topk_packed_batched(viol, d["__rank__"],
+                                           k).cpu().numpy()
+        return (packed[:, :, 0], packed[:, :, 1:1 + k],
+                packed[:, :, 1 + k:].astype(bool))
+

@@ -21,9 +21,13 @@ workloads below ``SMALL_WORKLOAD_EVALS`` run on the scalar oracle.
 Under churn the host masks and bindings are delta-maintained, and the
 executor keeps the violation mask on the device: dirty rows are
 scattered into the device columns and re-evaluated into the stored mask
-(engine/executor.py "delta" plan).  Admission review batches, device
-pages, what-if and sharding are not part of this port yet; the review
-path is the scalar engine's (LocalDriver).
+(engine/executor.py "delta" plan).  Template install runs the Stage-5
+footprint and Stage-6 partition-plan certifiers (analysis/footprint.py,
+analysis/shardplan.py), which the fleet audit (whatif/fleet.py) reads
+to decide which kinds it stacks across clusters.  Admission review
+batches, device pages, shadow and replay what-if and sharding are not
+part of this port yet; the review path is the scalar engine's
+(LocalDriver).
 """
 
 from __future__ import annotations
@@ -112,6 +116,11 @@ class TorchTargetState(TargetState):
         self.order_cache: tuple | None = None      # (gen, ordered_rows, row_order)
         self.fmt_cache: dict[str, tuple] = {}      # kind -> (con_ver, {(cname,row): (ver, results)})
         self.match_engine = None
+        # install-time certificates (analysis/footprint.py, Stage 5;
+        # analysis/shardplan.py, Stage 6): read by the fleet audit's
+        # stacking gate, not by the audit sweep
+        self.footprints: dict[str, object] = {}
+        self.shardplans: dict[str, object] = {}
 
     def bump(self, kind: str) -> None:
         self.con_version[kind] = self.con_version.get(kind, 0) + 1
@@ -137,6 +146,37 @@ class TorchDriver(LocalDriver):
         for name in targets:
             self.state.setdefault(name, TorchTargetState())
 
+    @property
+    def scalar_only(self) -> bool:
+        """True when the device path is degraded and every kind must
+        run on the scalar oracle.  The port has no resilience supervisor
+        yet (the reference's health probes and breaker), so the device
+        path is never degraded here: always False."""
+        return False
+
+    @locked
+    def adopt_store(self, target: str, state: dict) -> None:
+        """Swap the target's columnar store for a fresh table built
+        from a ``snapshot_state()`` payload.  Valid on a non-empty
+        driver: every table-derived cache layer is dropped, because the
+        new table's generation counters restart and would otherwise
+        collide with cached keys from the old table."""
+        from gatekeeper_tpu_torch.store.table import ResourceTable
+        st = self._state(target)
+        st.table = ResourceTable.from_state(state)
+        st._inv_cache = None
+        if isinstance(st, TorchTargetState):
+            st.bindings_cache = {}
+            st.bindings_retired = {}
+            st.mask_cache = {}
+            st.installed_match = {}
+            st.rank_cache = None
+            st.order_cache = None
+            st.fmt_cache = {}
+            st.match_engine = None
+            for kind in list(st.templates):
+                st.bump(kind)
+
     # ------------------------------------------------------------------
     # templates and constraints
 
@@ -150,13 +190,80 @@ class TorchDriver(LocalDriver):
             except CannotLower:
                 compiled.vectorized = None  # scalar fallback
         st = self._state(target)
+        if isinstance(st, TorchTargetState):
+            # stage 5 (dependency footprint), then stage 6 (partition
+            # plan, which reads stage 5's cross-row reason)
+            fp = None
+            if compiled.vectorized is not None:
+                fp = self._footprint_lowered(kind, compiled)
+            if fp is not None:
+                st.footprints[kind] = fp
+            else:
+                st.footprints.pop(kind, None)
+            sp = None
+            if compiled.vectorized is not None:
+                sp = self._shardplan_lowered(kind, compiled)
+            if sp is not None:
+                st.shardplans[kind] = sp
+            else:
+                st.shardplans.pop(kind, None)
         st.templates[kind] = compiled
         st.bump(kind)
+
+    def _footprint_lowered(self, kind: str, compiled: CompiledTemplate):
+        """Stage-5 dependency analysis (analysis/footprint.py) behind
+        GATEKEEPER_FOOTPRINT=off|on|strict.  An analysis error must not
+        take the install down: it is counted and the kind has no
+        footprint.  ``strict`` (perturbation validation) is not ported
+        and raises ClientError here, outside the error guard, so the
+        install fails instead of carrying on without a footprint."""
+        from gatekeeper_tpu_torch.analysis import footprint
+        if footprint.mode() == "off":
+            return None
+        try:
+            fp = footprint.certify(kind, compiled.vectorized)
+        except Exception as e:   # noqa: BLE001 — analysis must not take
+            # template install down with it
+            from gatekeeper_tpu_torch.utils.log import logger
+            logger("engine.torch_driver").warning(
+                "footprint analysis errored", kind=kind, err=str(e))
+            self.metrics.counter("footprint_errors").inc()
+            return None
+        if not fp.row_local:
+            self.metrics.counter("footprint_cross_row").inc()
+        return fp
+
+    def _shardplan_lowered(self, kind: str, compiled: CompiledTemplate):
+        """Stage-6 partition-plan certification (analysis/shardplan.py)
+        behind GATEKEEPER_SHARDPLAN=off|warn|strict.  Never fails an
+        install: an analysis error is counted and the kind has no plan.
+        Ineligible plans (cross-row templates) ARE returned — callers
+        read ``plan.eligible``.  ``strict`` (simulated-mesh validation)
+        is not ported and raises ClientError outside the error guard."""
+        from gatekeeper_tpu_torch.analysis import shardplan
+        if shardplan.mode() == "off":
+            return None
+        try:
+            plan = shardplan.certify(kind, compiled.vectorized)
+        except Exception as e:   # noqa: BLE001 — analysis must not take
+            # template install down with it
+            from gatekeeper_tpu_torch.utils.log import logger
+            logger("engine.torch_driver").warning(
+                "shardplan analysis errored", kind=kind, err=str(e))
+            self.metrics.counter("shardplan_errors").inc()
+            return None
+        if not plan.eligible:
+            self.metrics.counter("shardplan_ineligible").inc()
+        return plan
 
     @locked
     def delete_template(self, target: str, kind: str) -> None:
         super().delete_template(target, kind)
-        self._state(target).bump(kind)
+        st = self._state(target)
+        if isinstance(st, TorchTargetState):
+            st.footprints.pop(kind, None)
+            st.shardplans.pop(kind, None)
+        st.bump(kind)
 
     @locked
     def put_constraint(self, target: str, kind: str, name: str,

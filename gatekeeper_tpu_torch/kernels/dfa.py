@@ -4,6 +4,8 @@ Replaces the JAX package's ``engine/veval.py`` ``_dfa_device_table``
 (item B2).  The CUDA kernel is ``csrc/dfa.cu``; its note gives the
 bound and the design.  :func:`dfa_table` launches it for CUDA tensors
 and uses :func:`dfa_table_plain` only for tensors on the CPU.
+:func:`dfa_table_batched` is the same kernel over N clusters' stacked
+tables (item B9, the fleet audit).
 """
 
 from __future__ import annotations
@@ -75,6 +77,73 @@ def dfa_table(trans: torch.Tensor, accept: torch.Tensor,
 
 dfa_table.launches = 0
 dfa_table.plain_calls = 0
+
+
+def dfa_table_batched_plain(trans: torch.Tensor, accept: torch.Tensor,
+                            strbytes: torch.Tensor, ok: torch.Tensor,
+                            xv: torch.Tensor, prefix: int) -> torch.Tensor:
+    """bool [N, T]: :func:`dfa_table_plain` per cluster on the stacked
+    inputs' slice ``[i]``."""
+    return torch.stack([dfa_table_plain(trans[i], accept[i], strbytes[i],
+                                        ok[i], xv[i], prefix)
+                        for i in range(strbytes.shape[0])])
+
+
+def dfa_table_batched(trans: torch.Tensor, accept: torch.Tensor,
+                      strbytes: torch.Tensor, ok: torch.Tensor,
+                      xv: torch.Tensor, prefix: int) -> torch.Tensor:
+    """bool [N, T] regex verdicts of N clusters (item B9, the fleet
+    audit): ``trans`` [N, S, 256], ``accept`` [N, S], ``strbytes``
+    [N, T, W], ``ok`` and ``xv`` [N, T], stacked along the cluster axis.
+    On CUDA tensors one K3 launch covers all N * T ids, each reading
+    its own cluster's table; on CPU tensors the plain scan runs per
+    cluster."""
+    if strbytes.device.type == "cpu":
+        dfa_table_batched.plain_calls += 1
+        return dfa_table_batched_plain(trans, accept, strbytes, ok, xv,
+                                       prefix)
+    _check(strbytes, torch.uint8, 3, "strbytes")
+    n_b, n_ids, width = strbytes.shape
+    _check(trans, (torch.int32, torch.int16, torch.int8), 3, "trans")
+    if trans.shape[0] != n_b or trans.shape[2] != 256:
+        raise ValueError(f"trans must be [{n_b}, S, 256], got "
+                         f"{tuple(trans.shape)}")
+    _check(accept, torch.bool, 2, "accept")
+    if tuple(accept.shape) != tuple(trans.shape[:2]):
+        raise ValueError(f"accept {tuple(accept.shape)} does not match "
+                         f"trans {tuple(trans.shape)}")
+    for name, t in (("ok", ok), ("xv", xv)):
+        _check(t, torch.bool, 2, name)
+        if tuple(t.shape) != (n_b, n_ids):
+            raise ValueError(f"{name} is {tuple(t.shape)}, strbytes "
+                             f"[{n_b}, {n_ids}, ...]")
+    for t in (trans, accept, ok, xv):
+        if t.device != strbytes.device:
+            raise ValueError("dfa_table_batched: inputs on different "
+                             "devices")
+    if not 0 <= prefix <= width:
+        raise ValueError(f"prefix {prefix} outside row width {width}")
+    out = torch.empty((n_b, n_ids), dtype=torch.bool, device=strbytes.device)
+    fn = build.load("dfa").gk_dfa_scan_batched
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    with torch.cuda.device(strbytes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(strbytes.data_ptr(), n_b, n_ids, width, prefix,
+                 trans.data_ptr(), trans.shape[1], trans.element_size(),
+                 accept.data_ptr(), ok.data_ptr(), xv.data_ptr(),
+                 out.data_ptr(), stream)
+    build.check(err, "dfa_scan_batched launch")
+    dfa_table_batched.launches += 1
+    return out
+
+
+dfa_table_batched.launches = 0
+dfa_table_batched.plain_calls = 0
 
 
 def _check(t: torch.Tensor, dtypes, ndim: int, name: str) -> None:

@@ -30,6 +30,17 @@ the full ``R_PAD``-strided arrays at ``rows[j]``.  :func:`delta_mask`
 launches it into a copy of the stored mask.  ``D`` is not specialised,
 so one compiled kernel per program serves full and delta sweeps.
 
+The fleet audit's batched evaluator (item B9, the reference's
+``whatif/fleet.py`` ``_mask_fn`` and the evaluator inside ``_topk_fn``:
+``jax.vmap`` over a leading cluster axis) is the same kernel again: grid
+axis 2 runs over the N clusters, and every array pointer and the output
+advance by ``pid_b`` times their per-cluster element count, a runtime
+argument (``sb<i>``, ``SB_OUT``).  :func:`eval_mask_batched` launches it
+once for all N clusters.  Unbatched launches pass the same per-cluster
+counts with ``pid_b`` 0, so over equal per-cluster shapes the two modes
+take one compiled kernel (Triton specialises an integer argument only on
+being 1 or a multiple of 16, and equal counts agree on both).
+
 Bound on the H100: bytes.  The pass must read each bound column once
 and write the [C_pad, R_pad] mask once (one byte per pair); arithmetic
 is a few integer compares per pair.  The design keeps every
@@ -420,23 +431,32 @@ class _Emitter:
         if "__match__" in self.sig:
             self.emit(f"viol = viol & {self._load_expr('__match__', off2)}")
         self.emit(f"tl.store(out + {off2}, viol.to(tl.uint8))")
-        params = ["out"] + [f"p{i}" for i in range(len(self.ptrs))] \
-            + ["rows", "R_PAD", "D"] + [a for a, _, _ in self.ints] \
+        n = len(self.ptrs)
+        params = ["out"] + [f"p{i}" for i in range(n)] \
+            + ["rows", "R_PAD", "D", "SB_OUT"] + [f"sb{i}" for i in range(n)] \
+            + [a for a, _, _ in self.ints] \
             + ["BC: tl.constexpr", "BR: tl.constexpr"] \
             + [f"{a}: tl.constexpr" for a, _, _ in self.consts]
         # D is a runtime value that Triton must not specialise on, so
         # full and delta launches share one compiled kernel
         head = ["", "", '@triton.jit(do_not_specialize=["D"])',
                 f"def ir_kernel({', '.join(params)}):"]
-        return _HELPERS + "\n".join(head + self.lines) + "\n"
+        # batched mode (B9): grid axis 2 is the cluster; every array and
+        # the output advance by their per-cluster element count
+        rebase = ["    pid_b = tl.program_id(2).to(tl.int64)",
+                  "    out = out + pid_b * SB_OUT"] \
+            + [f"    p{i} = p{i} + pid_b * sb{i}" for i in range(n)]
+        return _HELPERS + "\n".join(head + rebase + self.lines) + "\n"
 
 
-def array_signature(arrays: dict) -> dict[str, tuple[str, tuple]]:
-    """name -> (dtype name, shape) for torch tensors or numpy arrays."""
+def array_signature(arrays: dict, lead: int = 0) \
+        -> dict[str, tuple[str, tuple]]:
+    """name -> (dtype name, shape) for torch tensors or numpy arrays;
+    ``lead`` leading (batch) dims are left out of the shape."""
     out = {}
     for nm, a in arrays.items():
         dt = str(a.dtype).replace("torch.", "")
-        out[nm] = (dt, tuple(int(s) for s in a.shape))
+        out[nm] = (dt, tuple(int(s) for s in a.shape[lead:]))
     return out
 
 
@@ -476,8 +496,7 @@ def _load_kernel(src: str):
     return mod.ir_kernel
 
 
-def _kernel_for(program: Program, arrays: dict):
-    sig = array_signature(arrays)
+def _kernel_for(program: Program, sig: dict[str, tuple[str, tuple]]):
     key = (program.cache_key(),
            tuple(sorted((nm, dt, len(sh)) for nm, (dt, sh) in sig.items())))
     hit = _KERNELS.get(key)
@@ -511,26 +530,39 @@ def _no_rows(dev: torch.device) -> torch.Tensor:
 
 
 def _launch(program: Program, arrays: dict, out: torch.Tensor,
-            rows: torch.Tensor | None, what: str) -> None:
+            rows: torch.Tensor | None, what: str,
+            batched: bool = False) -> None:
     """One launch of the program's kernel into ``out`` [C_pad, R_pad]:
-    every row (``rows`` None) or the rows ``rows`` (int32 [d])."""
+    every row (``rows`` None) or the rows ``rows`` (int32 [d]).  With
+    ``batched`` every array and ``out`` carry a leading cluster axis
+    [N, ...] and the grid's third axis runs over it.  Each array's
+    per-cluster element count is passed as its cluster stride in both
+    modes, so an unbatched and a batched launch over equal per-cluster
+    shapes pass equal arguments and share one compiled kernel."""
     dev = out.device
-    kern, ptrs, ints, consts = _kernel_for(program, arrays)
-    c_pad = arrays["__cvalid__"].shape[0]
-    r_pad = arrays["__alive__"].shape[0]
-    args = []
+    lead = 1 if batched else 0
+    kern, ptrs, ints, consts = _kernel_for(program,
+                                           array_signature(arrays, lead))
+    c_pad = arrays["__cvalid__"].shape[lead]
+    r_pad = arrays["__alive__"].shape[lead]
+    n_b = arrays["__alive__"].shape[0] if batched else 1
+    args, strides = [], []
     for nm in ptrs:
         t = arrays[nm]
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{what}: {nm} must be a contiguous tensor on "
                              f"{dev}")
+        if batched and t.shape[0] != n_b:
+            raise ValueError(f"{what}: {nm} has {t.shape[0]} clusters, "
+                             f"__alive__ {n_b}")
         axes = binding_axes(nm)
-        if "r" in axes and t.shape[axes.index("r")] != r_pad:
+        if "r" in axes and t.shape[lead + axes.index("r")] != r_pad:
             raise ValueError(f"{what}: {nm} has {t.shape} but r_pad is "
                              f"{r_pad}")
         args.append(t.view(torch.uint8) if t.dtype == torch.bool else t)
-    sizes = [int(arrays[nm].shape[d]) for _, nm, d in ints]
-    cexpr = {a: int(arrays[nm].shape[d]) for a, nm, d in consts}
+        strides.append(t[0].numel() if batched else t.numel())
+    sizes = [int(arrays[nm].shape[lead + d]) for _, nm, d in ints]
+    cexpr = {a: int(arrays[nm].shape[lead + d]) for a, nm, d in consts}
     e_max = max(cexpr.values(), default=1)
     bc, br = tile_shape(c_pad, r_pad, e_max)
     if c_pad % bc or r_pad % br:
@@ -538,13 +570,15 @@ def _launch(program: Program, arrays: dict, out: torch.Tensor,
                          f"multiple of the tile [{bc}, {br}] (the prep pads "
                          f"every axis to a power of two)")
     if rows is None:
-        n_rows, rows, grid = 0, _no_rows(dev), (c_pad // bc, r_pad // br)
+        n_rows, rows = 0, _no_rows(dev)
+        grid = (c_pad // bc, r_pad // br, n_b)
     else:
         n_rows = rows.shape[0]
-        grid = (c_pad // bc, -(-n_rows // br))
+        grid = (c_pad // bc, -(-n_rows // br), n_b)
     with torch.cuda.device(dev):
-        kern[grid](out.view(torch.uint8), *args, rows, r_pad, n_rows, *sizes,
-                   BC=bc, BR=br, num_warps=4, **cexpr)
+        kern[grid](out.view(torch.uint8), *args, rows, r_pad, n_rows,
+                   c_pad * r_pad, *strides, *sizes, BC=bc, BR=br,
+                   num_warps=4, **cexpr)
 
 
 def eval_mask(program: Program, arrays: dict) -> torch.Tensor:
@@ -608,3 +642,30 @@ def delta_mask(program: Program, arrays: dict, viol_old: torch.Tensor,
 
 delta_mask.launches = 0
 delta_mask.plain_calls = 0
+
+
+def eval_mask_batched(program: Program, stacked: dict) -> torch.Tensor:
+    """bool [N, C_pad, R_pad]: the violation masks of N clusters whose
+    bindings are stacked along a leading cluster axis (item B9, the
+    reference's ``whatif/fleet._mask_fn``, a ``jax.vmap`` of the
+    evaluator).  On CUDA tensors one K1 launch covers every cluster
+    (grid axis 2); on CPU tensors the plain evaluator runs per cluster
+    on ``stacked[nm][i]`` (``engine/executor._eval_mask_batched``).
+    ``stacked`` must already hold every ``<dfa>.devtab`` [N, T]."""
+    dev = stacked["__alive__"].device
+    if dev.type == "cpu":
+        eval_mask_batched.plain_calls += 1
+        from gatekeeper_tpu_torch.engine.executor import _eval_mask_batched
+        return _eval_mask_batched(program, stacked)
+    if dev.type != "cuda":
+        raise ValueError(f"eval_mask_batched: unsupported device {dev}")
+    n_b, r_pad = stacked["__alive__"].shape
+    c_pad = stacked["__cvalid__"].shape[1]
+    out = torch.empty((n_b, c_pad, r_pad), dtype=torch.bool, device=dev)
+    _launch(program, stacked, out, None, "eval_mask_batched", batched=True)
+    eval_mask_batched.launches += 1
+    return out
+
+
+eval_mask_batched.launches = 0
+eval_mask_batched.plain_calls = 0

@@ -128,3 +128,35 @@ def every_op_case(seed: int, c_pad: int = 8, r_pad: int = 64, e_pad: int = 4,
         RuleSpec((kv, ri, es)),
     )
     return Program(nodes=tuple(N), rules=rules), A
+
+
+def stacked_every_op_case(n: int, seed: int = 40, c_pad: int = 8,
+                          r_pad: int = 32, t_pad: int = 16, u: int = 4,
+                          n_states: int = 5):
+    """(program, stacked): ``n`` every-op cases of ragged sizes (the
+    cluster i case has R_pad ``r_pad << i % 3``, T ``t_pad << i % 2``, U
+    ``u + 2i`` and ``n_states + i`` DFA states), each with a permuted
+    ``__rank__`` padded as the fleet pads it, stacked along a leading
+    cluster axis exactly as ``whatif/fleet.fleet_audit`` stacks bindings
+    (zero fill; edge fill for ``.any``/``.all``/``.bitmap``)."""
+    from gatekeeper_tpu_torch.whatif.fleet import _EDGE_PAD_SUFFIXES, _pad_to
+    per = []
+    for i in range(n):
+        prog, arrays = every_op_case(seed + i, c_pad=c_pad,
+                                     r_pad=r_pad << (i % 3),
+                                     t_pad=t_pad << (i % 2), u=u + 2 * i,
+                                     n_states=n_states + i)
+        rng = np.random.default_rng(seed + 1000 + i)
+        rp = arrays["__alive__"].shape[0]
+        rank = np.full((rp,), rp - 1, dtype=np.int32)
+        live = rp - 3
+        rank[:live] = rng.permutation(live).astype(np.int32)
+        arrays["__rank__"] = rank
+        per.append(arrays)
+    stacked = {}
+    for nm in sorted(per[0]):
+        arrs = [a[nm] for a in per]
+        shape = tuple(max(s) for s in zip(*[x.shape for x in arrs]))
+        edge = nm.endswith(_EDGE_PAD_SUFFIXES)
+        stacked[nm] = np.stack([_pad_to(x, shape, edge) for x in arrs])
+    return prog, stacked

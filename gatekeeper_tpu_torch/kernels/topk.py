@@ -8,6 +8,8 @@ Replaces the JAX package's ``engine/veval.py`` ``topk_reduce`` and
 
 Packed layout (the reference's ``[C, 1+2k]`` int32): column 0 the
 violation count, columns ``1..k`` the rows, ``k+1..2k`` the valid flags.
+:func:`topk_packed_batched` is the same kernel over N clusters' stacked
+masks (item B9, the fleet audit).
 """
 
 from __future__ import annotations
@@ -82,20 +84,73 @@ def topk_packed(viol: torch.Tensor, rank: torch.Tensor | None,
                             f"[{r_pad}] tensor on {viol.device}")
     out = torch.empty((c_pad, 1 + 2 * k), dtype=torch.int32,
                       device=viol.device)
-    fn = build.load("topk").gk_topk_packed
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    with torch.cuda.device(viol.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(viol.data_ptr(),
-                 rank.data_ptr() if rank is not None else None,
-                 c_pad, r_pad, k, out.data_ptr(), stream)
-    build.check(err, "topk_packed launch")
+    _launch(viol, rank, c_pad, k, out, "topk_packed launch")
     topk_packed.launches += 1
     return out
 
 
 topk_packed.launches = 0
 topk_packed.plain_calls = 0
+
+
+def _launch(viol: torch.Tensor, rank: torch.Tensor | None,
+            rows_per_rank: int, k: int, out: torch.Tensor, what: str) -> None:
+    """K2 over ``viol`` read as [rows, R_pad]: mask row b scores by
+    rank row b // rows_per_rank."""
+    r_pad = viol.shape[-1]
+    fn = build.load("topk").gk_topk_packed
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(viol.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(viol.data_ptr(),
+                 rank.data_ptr() if rank is not None else None,
+                 viol.numel() // r_pad, rows_per_rank, r_pad, k,
+                 out.data_ptr(), stream)
+    build.check(err, what)
+
+
+def topk_packed_batched_plain(viol: torch.Tensor, rank: torch.Tensor,
+                              k: int) -> torch.Tensor:
+    """[N, C, 1+2k] int32: :func:`topk_packed_plain` per cluster, on
+    ``viol[i]`` and ``rank[i]`` (the score base is the stacked R_pad)."""
+    return torch.stack([topk_packed_plain(viol[i], rank[i], k)
+                        for i in range(viol.shape[0])])
+
+
+def topk_packed_batched(viol: torch.Tensor, rank: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """Packed count + top-k of N clusters' stacked masks (item B9, the
+    reduction inside the reference's ``whatif/fleet._topk_fn``): ``viol``
+    bool [N, C_pad, R_pad], ``rank`` int32 [N, R_pad] -> int32
+    [N, C_pad, 1+2k].  On CUDA tensors one K2 launch covers every
+    cluster (block b reads rank row b // C_pad); on CPU tensors the plain
+    version runs per cluster."""
+    if viol.device.type == "cpu":
+        topk_packed_batched.plain_calls += 1
+        return topk_packed_batched_plain(viol, rank, k)
+    if viol.device.type != "cuda":
+        raise ValueError(f"topk_packed_batched: unsupported device "
+                         f"{viol.device}")
+    if viol.dtype != torch.bool or viol.dim() != 3 \
+            or not viol.is_contiguous():
+        raise TypeError("topk_packed_batched: viol must be a contiguous "
+                        f"3-d bool tensor, got {viol.dim()}-d {viol.dtype}")
+    n_b, c_pad, r_pad = viol.shape
+    if k <= 0:
+        raise ValueError(f"topk_packed_batched: k={k} must be positive")
+    if rank.device != viol.device or rank.dtype != torch.int32 \
+            or tuple(rank.shape) != (n_b, r_pad) or not rank.is_contiguous():
+        raise TypeError("topk_packed_batched: rank must be a contiguous "
+                        f"int32 [{n_b}, {r_pad}] tensor on {viol.device}")
+    out = torch.empty((n_b, c_pad, 1 + 2 * k), dtype=torch.int32,
+                      device=viol.device)
+    _launch(viol, rank, c_pad, k, out, "topk_packed_batched launch")
+    topk_packed_batched.launches += 1
+    return out
+
+
+topk_packed_batched.launches = 0
+topk_packed_batched.plain_calls = 0

@@ -6,8 +6,9 @@ machine with a CUDA card and no jax:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 On the CPU the wrappers take their plain versions; the ``cuda``-marked
-tests hold K1-K5 against those plain versions on the card, bit for bit,
-and skip where there is no card.
+tests hold K1-K5 and the fleet audit's batched K1, K2 and K3 against
+those plain versions on the card, bit for bit, and skip where there is
+no card.
 """
 
 import random
@@ -24,7 +25,8 @@ from gatekeeper_tpu_torch.ir.program import Program
 from gatekeeper_tpu_torch.kernels import dfa as tdfa
 from gatekeeper_tpu_torch.kernels import ir_eval, topk as ttopk
 from gatekeeper_tpu_torch.kernels import scatter as tscatter
-from gatekeeper_tpu_torch.kernels.op_cases import every_op_case
+from gatekeeper_tpu_torch.kernels.op_cases import (every_op_case,
+                                                   stacked_every_op_case)
 from gatekeeper_tpu_torch.library.north_star import (make_resources,
                                                      setup_north_star)
 
@@ -382,3 +384,50 @@ def test_executor_delta_on_card_matches_cpu(card):
         np.testing.assert_array_equal(gpu.run(prog, bg), cpu.run(prog, bc))
     assert tscatter.scatter_rows.launches > k4
     assert ir_eval.delta_mask.launches == k5 + 2
+
+
+# -- the fleet audit's batched kernels (item B9), on a CUDA card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,kw", [
+    (1, {}),
+    (2, {"c_pad": 16, "r_pad": 256}),
+    (3, {"c_pad": 128, "r_pad": 2048, "t_pad": 512, "u": 16}),
+    (5, {"c_pad": 8, "r_pad": 64, "n_states": 40}),
+])
+def test_batched_k1_k3_match_plain_on_card(card, n, kw):
+    """Batched K3 then batched K1 on N every-op cases of ragged sizes,
+    stacked as the fleet stacks them, against the per-cluster plain
+    versions on the stacked slices."""
+    prog, stacked = stacked_every_op_case(n, **kw)
+    d = convert.arrays_to_device(stacked, card)
+    ins = (d["dfa0.trans"], d["dfa0.accept"], d["__strbytes__"],
+           d["__strdfaok__"], d["dfa0.xv"], 3)
+    tab = tdfa.dfa_table_batched(*ins)
+    assert torch.equal(tab, tdfa.dfa_table_batched_plain(*ins))
+    dd = dict(d, **{"dfa0.devtab": tab})
+    assert torch.equal(ir_eval.eval_mask_batched(prog, dd),
+                       tex._eval_mask_batched(prog, dd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c_pad,r_pad,k,density", [
+    (1, 128, 1 << 15, 20, 0.2),
+    (4, 128, 1 << 15, 20, 1e-3),
+    (3, 8, 64, 2, 0.5),
+    (5, 4, 16, 20, 0.3),                  # r_pad < k
+    (2, 16, 4096, 300, 0.5),              # several passes
+])
+def test_batched_k2_matches_plain_on_card(card, n, c_pad, r_pad, k,
+                                          density):
+    rng = np.random.default_rng(n + c_pad + r_pad + k)
+    viol = torch.from_numpy(rng.random((n, c_pad, r_pad)) < density) \
+        .to(card)
+    rank = torch.from_numpy(np.stack([rng.permutation(r_pad)
+                                      for _ in range(n)]).astype(np.int32)) \
+        .to(card)
+    got = ttopk.topk_packed_batched(viol, rank, k).cpu()
+    want = ttopk.topk_packed_batched_plain(viol, rank, k).cpu()
+    for i in range(n):
+        _packed_equal(got[i], want[i], k)
