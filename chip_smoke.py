@@ -41,13 +41,32 @@ Phases (each prints one line of its numbers):
      kind (plus one batched K3 per regex table), the batched kernels on
      the phase's own inputs against their plain versions, timed at
      (a)'s shapes, the Triton variant count and peak device memory
-  7. the kernels JSON line, the card line, and the final JSON line.
+  7. devpages — the paged audit with device-resident deltas (B6): K6
+     against its plain version on random masks (overflow, permuted and
+     out-of-range page tables, ragged sizes) and at [128, 131072] on
+     the main phase's steady mask against its first churned mask; the
+     cold ledger build timed at 10,000 pods; then 100,000 pods x 3
+     constraints (the north-star templates, one constraint each) on
+     driver A (GATEKEEPER_PAGES=on, GATEKEEPER_DEVPAGES=on), driver B
+     (GATEKEEPER_PAGES=off, the oracle) and driver C (GATEKEEPER_PAGES=on,
+     GATEKEEPER_DEVPAGES=off: the default route, the host page loop), a
+     cold sweep and 3 rounds of 1% relabels, each followed by a capped
+     sweep on all three: equal results, 3 K6 launches per churned sweep
+     on A (plus one per overflow) and none on C, every kind on the
+     device on A, row-sized transfers, flat device memory, ledger events
+     that add up and equal ledger totals on A and C, and K6 on the
+     phase's own inputs
+  8. the kernels JSON line, the card line, and the final JSON line.
+Every phase but devpages sweeps with GATEKEEPER_PAGES=off: they measure
+the legacy sweep and assert its launch counts, and the port, like the
+reference, defaults to the paged route.
 Any mismatch or exception exits nonzero before the final line.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import json
 import os
@@ -101,7 +120,7 @@ def packed_err(got, want, k: int) -> int:
                int((got[:, 1:1 + k] * gv - want[:, 1:1 + k] * wv).abs().max()))
 
 
-def kernel_fns(ir_eval, topk, dfa, scatter) -> dict:
+def kernel_fns(ir_eval, topk, dfa, scatter, devdelta) -> dict:
     """Each kernel's wrapper as (module, name): a wrapper counts on the
     function its module's name refers to at the time of the call."""
     return {"K1": (ir_eval, "eval_mask"), "K2": (topk, "topk_packed"),
@@ -109,7 +128,8 @@ def kernel_fns(ir_eval, topk, dfa, scatter) -> dict:
             "K5": (ir_eval, "delta_mask"),
             "K1b": (ir_eval, "eval_mask_batched"),
             "K2b": (topk, "topk_packed_batched"),
-            "K3b": (dfa, "dfa_table_batched")}
+            "K3b": (dfa, "dfa_table_batched"),
+            "K6": (devdelta, "mask_delta")}
 
 
 def reset_counts(fns: dict) -> None:
@@ -579,6 +599,300 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
           flush=True)
 
 
+def stored_mask(st, kind: str):
+    """The device violation mask the executor stores on ``kind``'s newest
+    bindings (the legacy sweep's "reduce" and "delta" plans)."""
+    ((_sig, viol),) = st.bindings_cache[kind][1].__dict__[
+        "_viol_masks"].values()
+    return viol
+
+
+K6_OUTPUTS = ("new_g", "idx", "signs", "count", "row_any")
+
+
+def k6_check(devdelta, ins, what: str, got=None) -> tuple[int, float]:
+    """K6 (or its recorded output ``got``) against the plain version on
+    ``ins`` = (new, pt, old, k), all five outputs bit for bit; returns
+    (count, max_abs_err)."""
+    if got is None:
+        got = devdelta.mask_delta(*ins)
+    want = devdelta.mask_delta_plain(*ins)
+    err = 0.0
+    for name, a, b in zip(K6_OUTPUTS, got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"K6 mismatch ({name}) on {what}")
+        err = max(err, max_err(a, b))
+    return int(got[3]), err
+
+
+def k6_numbers(devdelta, new, pt, old, k) -> dict:
+    """K6, its plain version and one ``torch.nonzero`` of the gathered
+    XOR timed on one input, with the bound: new, old and pt read once,
+    the gathered mask, row_any, idx and signs written once."""
+    c, r = new.shape
+    b, by = bound(3 * c * r + 4 * r + r + 5 * k, 2 * c * r)
+    pt64 = pt.to(torch.int64)
+    return {"ms": cuda_ms(lambda: devdelta.mask_delta(new, pt, old, k)),
+            "plain_ms": cuda_ms(lambda: devdelta.mask_delta_plain(
+                new, pt, old, k), iters=5),
+            "bound_ms": b, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.nonzero(
+                torch.index_select(new, 1, pt64) ^ old))}
+
+
+DEVPAGES_PODS = 100_000
+DEVPAGES_PROBE_PODS = 10_000
+
+
+def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
+    """The paged audit with device-resident deltas (item B6): K6 against
+    its plain version on random masks and at [C_pad, R_pad] on the main
+    phase's masks, then driver A (pages and devpages on) beside driver B
+    (GATEKEEPER_PAGES=off, the oracle) over DEVPAGES_PODS north-star
+    pods with one constraint per template: a cold sweep and 3 churned
+    capped sweeps on each, held equal, with A's routing, launches,
+    transfers, memory and ledger events checked."""
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.enforce.devpages import delta_bucket
+    from gatekeeper_tpu_torch.kernels import devdelta
+    from gatekeeper_tpu_torch.library.north_star import (make_resources,
+                                                         setup_north_star)
+
+    opts = QueryOpts(limit_per_constraint=CAP)
+
+    def sweep(drv, paged: bool, devpages: bool | None = None):
+        os.environ["GATEKEEPER_PAGES"] = "on" if paged else "off"
+        os.environ["GATEKEEPER_DEVPAGES"] = \
+            "on" if (paged if devpages is None else devpages) else "off"
+        try:
+            t0 = time.perf_counter()
+            res, _ = drv.query_audit(TARGET, opts)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+        finally:
+            os.environ["GATEKEEPER_PAGES"] = "off"
+            os.environ["GATEKEEPER_DEVPAGES"] = "off"
+
+    # -- K6 on random masks: sparse and dense flips, a stream that
+    # overflows its width, permuted and out-of-range page tables
+    g = torch.Generator(device="cpu").manual_seed(31)
+    overflowed = 0
+    for c, r, dens, ptk, k in ((4, 131072, 1e-3, "identity", 256),
+                               (4, 131072, 1e-4, "permuted", 4096),
+                               (128, 131072, 1e-4, "permuted", 4096),
+                               (128, 131072, 0.0, "identity", 256),
+                               (5, 1000, 0.05, "out_of_range", 64),
+                               (3, 4097, 0.5, "permuted", 20000),
+                               (1, 1, 1.0, "identity", 1)):
+        new = (torch.rand((c, r), generator=g) < 0.4).to(dev)
+        pt = torch.arange(r, dtype=torch.int32) if ptk == "identity" \
+            else torch.randperm(r, generator=g).to(torch.int32)
+        if ptk == "out_of_range":
+            pt[:6] = torch.tensor([-1, r, -r - 1, 2 * r, -r, r + 3])
+        pt = pt.to(dev)
+        flips = (torch.rand((c, r), generator=g) < dens).to(dev)
+        old = devdelta.mask_delta_plain(new, pt, torch.zeros_like(new),
+                                        1)[0] ^ flips
+        n, _ = k6_check(devdelta, (new, pt, old, k),
+                        f"random [{c}, {r}] {ptk} density {dens} k {k}")
+        overflowed += n > k
+    if not overflowed:
+        fail("K6 random cases never overflowed their width")
+    # -- K6 at the main phase's [C_pad, R_pad]: its steady stored mask
+    # of one kind against the same kind's first churned mask
+    steady, churned = main_masks
+    c_pad, r_pad = steady.shape
+    pt = torch.arange(r_pad, dtype=torch.int32, device=dev)
+    n_main = int((churned ^ steady).sum())
+    k_main = delta_bucket(n_main)
+    k6_check(devdelta, (churned, pt, steady, k_main),
+             f"the main phase's masks [{c_pad}, {r_pad}]")
+    big = k6_numbers(devdelta, churned, pt, steady, k_main)
+    print(f"phase devpages kernels random: K6 equal to plain on 7 random "
+          f"cases ({overflowed} overflowing their width), and at [{c_pad}, "
+          f"{r_pad}] on the main phase's steady mask against its first "
+          f"churned mask ({n_main} changed bits, k {k_main}): "
+          f"{big['ms']:.4f} ms (plain {big['plain_ms']:.4f}, torch.nonzero "
+          f"{big['library_ms']:.4f}, bound {big['bound_ms']:.4f} "
+          f"{big['bound_by']})", flush=True)
+    del steady, churned, pt, new, old, flips
+
+    # -- the cold ledger build's size dependence: 10k pods first
+    probe = TorchDriver()
+    setup_north_star(probe, make_resources(DEVPAGES_PROBE_PODS,
+                                           random.Random(21)),
+                     random.Random(2), c_per_kind=1)
+    _, probe_s = sweep(probe, True)
+    del probe
+
+    # -- driver A (paged + devpages), driver B (legacy oracle) and
+    # driver C (paged, devpages off: the port's default route, the host
+    # page loop)
+    resources = make_resources(DEVPAGES_PODS, random.Random(1))
+    t0 = time.perf_counter()
+    a, b, c = TorchDriver(), TorchDriver(), TorchDriver()
+    ca = setup_north_star(a, resources, random.Random(2), c_per_kind=1)
+    cb = setup_north_star(b, resources, random.Random(2), c_per_kind=1)
+    cc = setup_north_star(c, resources, random.Random(2), c_per_kind=1)
+    ingest_s = time.perf_counter() - t0
+    reset_counts(fns)
+    res_a, cold_s = sweep(a, True)
+    cold_counts = launch_counts(fns)
+    cold_pg = dict(a.last_sweep_phases["pages"])
+    cold_dv = dict(a.last_sweep_phases["devpages"])
+    res_b, cold_b_s = sweep(b, False)
+    if norm(res_a) != norm(res_b):
+        fail("devpages cold sweep: A's results differ from the oracle B's")
+    reset_counts(fns)
+    res_c, cold_c_s = sweep(c, True, devpages=False)
+    cold_c_counts = launch_counts(fns)
+    cold_c_pg = dict(c.last_sweep_phases["pages"])
+    if norm(res_c) != norm(res_b):
+        fail("devpages cold sweep: C's results differ from the oracle B's")
+    if cold_c_pg["kinds_paged"] != 3 or cold_c_pg["ledger_full_builds"] != 3 \
+            or c.last_sweep_phases["devpages"] != {"enabled": False} \
+            or any(cold_c_counts.values()):
+        fail(f"devpages cold sweep on C: pages {cold_c_pg}, devpages "
+             f"{c.last_sweep_phases['devpages']}, launches {cold_c_counts}")
+    if cold_pg["kinds_paged"] != 3 or cold_pg["ledger_full_builds"] != 3 \
+            or cold_dv["kinds_device"] != 3 or cold_dv["mask_builds"] != 3 \
+            or cold_counts["K6"] != 3 or cold_counts["K1"] != 3:
+        fail(f"devpages cold sweep: pages {cold_pg}, devpages {cold_dv}, "
+             f"launches {cold_counts}")
+    led = a._state(TARGET).ledger
+    ops = collections.Counter()
+    led.subscribe(lambda ev: ops.update([ev["op"]]))
+    led_c = c._state(TARGET).ledger
+    ops_c = collections.Counter()
+    led_c.subscribe(lambda ev: ops_c.update([ev["op"]]))
+    if led_c.total_violations() != led.total_violations():
+        fail(f"devpages cold sweep: C's ledger holds "
+             f"{led_c.total_violations()} violations, A's "
+             f"{led.total_violations()}")
+    print(f"phase devpages cold: {DEVPAGES_PODS} pods x 3 constraints "
+          f"(R_pad {r_pad}), cap {CAP}: ingest A and B {ingest_s:.3f}s; "
+          f"cold ledger build {cold_s:.4f}s on A (at "
+          f"{DEVPAGES_PROBE_PODS} pods {probe_s:.4f}s), oracle B's cold "
+          f"sweep {cold_b_s:.4f}s, default route C's (host page loop) "
+          f"cold ledger build {cold_c_s:.4f}s; {len(res_a)} results equal; "
+          f"ledger "
+          f"{led.total_violations()} violations; devpages h2d_bytes "
+          f"{cold_dv['h2d_bytes']}; launches "
+          f"{ {k: v for k, v in cold_counts.items() if v} }", flush=True)
+
+    n_churn = max(DEVPAGES_PODS // 100, 1)
+    churn_rng = random.Random(1234)
+    label_pool = [f"l{j}" for j in range(10)]
+    orig = devdelta.mask_delta
+    calls: list = []
+    k6_launches = cold_counts["K6"]
+    mem = []
+    for rep in range(3):
+        for i in churn_rng.sample(range(DEVPAGES_PODS), n_churn):
+            o = copy.deepcopy(resources[i])
+            o["metadata"]["labels"] = {k: "v" for k in label_pool
+                                       if churn_rng.random() < 0.35}
+            resources[i] = o
+            ca.add_data(o)
+            cb.add_data(o)
+            cc.add_data(o)
+        ops.clear()
+        ops_c.clear()
+        total0 = led.total_violations()
+        total0_c = led_c.total_violations()
+        if rep == 0:
+            devdelta.mask_delta = recording(orig, calls)
+        reset_counts(fns)
+        res_a, a_s = sweep(a, True)
+        counts = launch_counts(fns)
+        devdelta.mask_delta = orig
+        dv = dict(a.last_sweep_phases["devpages"])
+        pg = dict(a.last_sweep_phases["pages"])
+        res_b, b_s = sweep(b, False)
+        reset_counts(fns)
+        res_c, c_s = sweep(c, True, devpages=False)
+        c_counts = launch_counts(fns)
+        pg_c = dict(c.last_sweep_phases["pages"])
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        if norm(res_c) != norm(res_b):
+            fail(f"devpages churn {rep + 1}: C's results differ from B's")
+        if pg_c["kinds_paged"] != 3 or any(c_counts.values()) \
+                or ops_c["appear"] - ops_c["clear"] \
+                != led_c.total_violations() - total0_c \
+                or led_c.total_violations() != led.total_violations():
+            fail(f"devpages churn {rep + 1} on C: pages {pg_c}, launches "
+                 f"{c_counts}, {ops_c['appear']} appear - {ops_c['clear']} "
+                 f"clear, ledger violations {total0_c} -> "
+                 f"{led_c.total_violations()} (A {led.total_violations()})")
+        k6_launches += counts["K6"]
+        if norm(res_a) != norm(res_b):
+            fail(f"devpages churn {rep + 1}: A's results differ from B's")
+        over = dv["delta_overflows"]
+        if dv["kinds_device"] != 3 or dv["kinds_fallback"] \
+                or counts["K6"] != 3 + over or counts["K1"] != 3 + over \
+                or counts["K5"] or counts["K2"]:
+            fail(f"devpages churn {rep + 1}: devpages {dv}, launches "
+                 f"{counts}")
+        if dv["h2d_bytes"] * 5 >= cold_dv["h2d_bytes"]:
+            fail(f"devpages churn {rep + 1}: h2d_bytes {dv['h2d_bytes']} is "
+                 f"not under a fifth of the cold sweep's "
+                 f"{cold_dv['h2d_bytes']}")
+        if ops["appear"] - ops["clear"] != led.total_violations() - total0:
+            fail(f"devpages churn {rep + 1}: {ops['appear']} appear - "
+                 f"{ops['clear']} clear events, ledger violations "
+                 f"{total0} -> {led.total_violations()}")
+        print(f"phase devpages churn {rep + 1}: relabel {n_churn} pods; A "
+              f"capped sweep {a_s:.4f}s, oracle B {b_s:.4f}s, {len(res_a)} "
+              f"results equal; rows_confirmed {dv['rows_confirmed']}, "
+              f"direct_clears {dv['direct_clears']}, delta_events "
+              f"{dv['delta_events']}, delta_overflows {over}, scatter_rows "
+              f"{dv['scatter_rows']}, h2d_scatter_bytes "
+              f"{dv['h2d_scatter_bytes']}, h2d_bytes {dv['h2d_bytes']}; "
+              f"ledger {ops['appear']} appear / {ops['clear']} clear, "
+              f"{led.total_violations()} violations, {pg['events']} events; "
+              f"launches { {k: v for k, v in counts.items() if v} }; "
+              f"memory_allocated {mem[-1]}", flush=True)
+        print(f"phase devpages churn {rep + 1} default route: C (host page "
+              f"loop) capped sweep {c_s:.4f}s, {len(res_c)} results equal "
+              f"B's; pages_evaluated {pg_c['pages_evaluated']}, "
+              f"pages_skipped {pg_c['pages_skipped']}, rows_reevaluated "
+              f"{pg_c['rows_reevaluated']}, {pg_c['events']} events, ledger "
+              f"{led_c.total_violations()} violations as A's", flush=True)
+        if rep:
+            continue
+        # K6 on the sweep's own inputs, bit for bit, and timed there
+        k6_err = 0.0
+        t = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+        for ins, got in calls:
+            k6_err = max(k6_err, k6_check(devdelta, ins, "a churned sweep's "
+                                          "input", got)[1])
+            for key, v in k6_numbers(devdelta, *ins).items():
+                if key != "bound_by":
+                    t[key] += v / len(calls)
+        shape = (list(calls[0][0][0].shape), calls[0][0][3])
+        rec["K6"] = {"max_abs_err": k6_err, **t, "bound_by": "bytes"}
+        print(f"phase devpages kernels: K6 equal to plain on the sweep's "
+              f"{len(calls)} deltas ([C_pad, R_pad] and k {shape}): "
+              f"{t['ms']:.4f} ms mean (plain {t['plain_ms']:.4f}, "
+              f"torch.nonzero {t['library_ms']:.4f}, bound "
+              f"{t['bound_ms']:.6f} bytes)", flush=True)
+        del calls, ins, got
+    rec["K6"]["launches"] = k6_launches
+    mask_bytes = 4 * r_pad
+    if mem[2] - mem[1] >= mask_bytes:
+        fail(f"devpages: device memory grew by {mem[2] - mem[1]} bytes from "
+             f"the second churned sweep to the third (one [4, {r_pad}] "
+             f"mask is {mask_bytes})")
+    print(f"phase devpages memory: memory_allocated after each round "
+          f"{mem}; third - second {mem[2] - mem[1]} bytes (< one mask, "
+          f"{mask_bytes}); K6 launches over the phase {k6_launches}",
+          flush=True)
+    os.environ.pop("GATEKEEPER_DEVPAGES", None)
+    del a, b, c, ca, cb, cc, led, led_c
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
@@ -597,7 +911,8 @@ def main() -> int:
     from gatekeeper_tpu_torch.engine import executor as ex
     from gatekeeper_tpu_torch.engine import torch_driver
     from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-    from gatekeeper_tpu_torch.kernels import build, dfa, ir_eval, scatter, topk
+    from gatekeeper_tpu_torch.kernels import (build, devdelta, dfa, ir_eval,
+                                              scatter, topk)
     from gatekeeper_tpu_torch.kernels.op_cases import every_op_case
     from gatekeeper_tpu_torch.library import all_docs, make_mixed
     from gatekeeper_tpu_torch.library.north_star import (make_resources,
@@ -606,6 +921,11 @@ def main() -> int:
                                                         constraint_doc,
                                                         template_doc)
     from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+
+    # the port, like the reference, serves non-full sweeps from the
+    # verdict ledger by default; every phase but devpages measures the
+    # legacy sweep and its launch counts
+    os.environ["GATEKEEPER_PAGES"] = "off"
 
     # ---- 1. card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -632,7 +952,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rec: dict[str, dict] = {}
-    fns = kernel_fns(ir_eval, topk, dfa, scatter)
+    fns = kernel_fns(ir_eval, topk, dfa, scatter, devdelta)
 
     def counts_of(*keys) -> dict:
         return {k: v for k, v in launch_counts(fns).items() if k in keys}
@@ -892,6 +1212,11 @@ def main() -> int:
           f"torch.topk {k2_lib:.4f}, bound {k2_bound:.4f}); both equal "
           f"their plain versions", flush=True)
     c_pad, r_pad = got.shape
+    # a copy of one kind's steady stored mask, for K6 at [C_pad, R_pad]
+    # in the devpages phase (against the same kind's first churned mask;
+    # copies, so the churn's memory readings see the generations freed)
+    mask_kind = "K8sRequiredLabels"
+    main_masks = [stored_mask(st, mask_kind).clone()]
     del st, arrays, got, want, g2, w2, score
 
     # the same store on the CPU path
@@ -964,6 +1289,7 @@ def main() -> int:
               f"{mem[-1]}", flush=True)
         if rep:
             continue
+        main_masks.append(stored_mask(drv._state(TARGET), mask_kind).clone())
         # K4 and K5 on the churn's own inputs, bit for bit, and timed
         k4_err = k5_err = 0.0
         for (col, rows, vals, axis), got in calls["K4"]:
@@ -1065,7 +1391,11 @@ def main() -> int:
     # per kind (B9)
     fleet_phase(rec, fns, dev)
 
-    # ---- 7. kernels line, card line, final line
+    # ---- 7. devpages: the paged audit with device-resident deltas (B6)
+    devpages_phase(rec, fns, dev, main_masks)
+    del main_masks
+
+    # ---- 8. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -1085,9 +1415,11 @@ def main() -> int:
                 "gatekeeper_tpu/whatif/fleet.py:47"),
         "K3b": ("dfa_batched", "cuda", "gatekeeper_tpu_torch/csrc/dfa.cu",
                 "gatekeeper_tpu/whatif/fleet.py:47"),
+        "K6": ("devdelta", "cuda", "gatekeeper_tpu_torch/csrc/devdelta.cu",
+               "gatekeeper_tpu/engine/veval.py:1185"),
     }
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K1b", "K2b", "K3b"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K1b", "K2b", "K3b", "K6"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -51,6 +51,16 @@ violations: dict[str, list] = {}
 # sensitivity lattice: join = most value-sensitive class wins
 _SENS_ORDER = {"existence": 0, "range": 1, "string-regex": 2, "equality": 3}
 
+# constraint match criteria read these object paths (engine._kind_mask):
+# kinds/groups from $meta, namespaces/name/labelSelector from metadata.
+# The paged sweep unions them into every template's effective read-set.
+MATCH_PATHS: tuple[tuple[str, ...], ...] = (
+    ("metadata", "labels"),
+    ("metadata", "name"),
+    ("metadata", "namespace"),
+    ("$meta",),
+)
+
 STRICT_NOT_PORTED = ("GATEKEEPER_FOOTPRINT=strict: footprint validation "
                      "is not yet ported (it needs translation validation "
                      "and the small-model worlds)")

@@ -16,8 +16,9 @@ launch per kernel, for the fleet audit (whatif/fleet.py, item B9).
 On CUDA tensors it calls the port's
 hand-written kernels — K1 (``kernels/ir_eval.py``, the IR evaluator),
 K2 (``kernels/topk.py``, count + top-k), K3 (``kernels/dfa.py``, the
-regex byte scan), K4 (``kernels/scatter.py``, the dirty-row scatter)
-and K5 (``kernels/ir_eval.delta_mask``, the dirty-row evaluation); on
+regex byte scan), K4 (``kernels/scatter.py``, the dirty-row scatter),
+K5 (``kernels/ir_eval.delta_mask``, the dirty-row evaluation) and K6
+(``kernels/devdelta.py``, the devpages delta of ``eval_mask_delta``); on
 CPU tensors the same wrappers run the plain versions.
 
 The violation mask stays on the device across sweeps (``_viol_plan``):
@@ -36,6 +37,7 @@ import torch
 from gatekeeper_tpu_torch.ir.prep import (_STR_PREFIX, Bindings,
                                           binding_axes, bucket)
 from gatekeeper_tpu_torch.ir.program import Node, Program
+from gatekeeper_tpu_torch.kernels import devdelta as _devdelta
 from gatekeeper_tpu_torch.kernels import dfa as _dfa
 from gatekeeper_tpu_torch.kernels import ir_eval as _ir_eval
 from gatekeeper_tpu_torch.kernels import scatter as _scatter
@@ -470,6 +472,13 @@ class ProgramExecutor:
         # full masks of N stacked clusters an under-filled fleet cap
         # widens to (run_mask_batched)
         self.batched_mask_evals = 0
+        # the reference's executable-cache accounting, kept for the
+        # devpages delta's ("devdelta", ...) key only: the first call at
+        # a key counts a compile, later ones a hit (K6 takes k at run
+        # time and compiles nothing itself)
+        self.compiles = 0
+        self.cache_hits = 0
+        self._devdelta_keys: set = set()
 
     # ------------------------------------------------------------------
     # uploads
@@ -725,6 +734,46 @@ class ProgramExecutor:
                  match: np.ndarray | None = None,
                  rank: np.ndarray | None = None):
         return self.run_topk_async(program, bindings, k, match, rank).get()
+
+    def eval_mask_delta(self, program: Program, bindings: Bindings,
+                        match: np.ndarray | None, old_mask: torch.Tensor,
+                        page_table: torch.Tensor, k: int):
+        """Violation mask AND its delta against the previous resident
+        mask — the devpages sweep (the reference's ``eval_mask_delta``,
+        without its in-kernel inventory joins, item B7).
+
+        Evaluates the program over the bindings' device arrays into a
+        fresh mask (K3 for regex tables, then K1; never through the
+        stored-mask plans, whose mask it leaves alone), then K6 gathers
+        it through ``page_table`` (row -> slot), XORs it with
+        ``old_mask`` and compacts the changed bits.  The resident mask
+        excludes ``__match__``: with ``match`` None a ``__match__`` that
+        an earlier legacy sweep installed into these bindings (and that
+        ``update_bindings`` carried into this generation) is left out.
+
+        Returns ``(new_mask, idx, signs, count, row_any)``: ``new_mask``
+        stays on the device; ``idx`` [k] int32 flat indices into
+        [c_pad * r_pad] (-1 = fill), ``signs`` [k] bool (True =
+        appeared), ``count`` the true changed-bit count (> k means the
+        stream overflowed) and ``row_any`` [r_pad] bool come back as
+        numpy and int."""
+        arrays = self._arrays(bindings, match)
+        if match is None:
+            arrays = {nm: a for nm, a in arrays.items() if nm != "__match__"}
+        names = tuple(sorted(arrays))
+        key = ("devdelta", program.cache_key(), k, (), R_CHUNK,
+               tuple((nm,) + tuple(arrays[nm].shape)
+                     + (str(arrays[nm].dtype),) for nm in names))
+        if key in self._devdelta_keys:
+            self.cache_hits += 1
+        else:
+            self._devdelta_keys.add(key)
+            self.compiles += 1
+        new = self._full_mask(program, arrays)
+        new_mask, idx, signs, count, row_any = _devdelta.mask_delta(
+            new, page_table, old_mask, k)
+        return (new_mask, idx.cpu().numpy(), signs.cpu().numpy(),
+                int(count), row_any.cpu().numpy())
 
     # ------------------------------------------------------------------
     # the fleet audit: N clusters' bindings stacked along a leading axis

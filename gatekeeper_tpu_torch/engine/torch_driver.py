@@ -12,22 +12,31 @@ audit path only, plugged into the same Driver seam (client/interface.py):
   3. host: only the capped violating pairs are re-evaluated with the
      scalar oracle to produce exact messages/details.
 
-This is the reference's legacy full-kind sweep — the path JaxDriver
-takes with ``GATEKEEPER_PAGES=off GATEKEEPER_FOOTPRINT=off
-GATEKEEPER_DEDUP=off`` — which the reference documents as a
-bit-identical oracle for its later layers.  Templates outside the
-lowerable subset, kinds whose numbers are not float32-exact, and
-workloads below ``SMALL_WORKLOAD_EVALS`` run on the scalar oracle.
-Under churn the host masks and bindings are delta-maintained, and the
-executor keeps the violation mask on the device: dirty rows are
-scattered into the device columns and re-evaluated into the stored mask
-(engine/executor.py "delta" plan).  Template install runs the Stage-5
-footprint and Stage-6 partition-plan certifiers (analysis/footprint.py,
-analysis/shardplan.py), which the fleet audit (whatif/fleet.py) reads
-to decide which kinds it stacks across clusters.  Admission review
-batches, device pages, shadow and replay what-if and sharding are not
-part of this port yet; the review path is the scalar engine's
-(LocalDriver).
+Non-full, untraced sweeps take the reference's default route
+(``GATEKEEPER_PAGES`` on): every page-eligible kind — lowered, with a
+row-local Stage-5 footprint and no provider or inventory reads — is
+served from the target's VerdictLedger (enforce/ledger.py), which the
+sweep first brings current by re-evaluating only the rows of dirty
+pages through the scalar oracle (``_paged_kind``), or, under
+``GATEKEEPER_DEVPAGES=on``, by consuming the device's delta stream
+against the resident mask (``_devpaged_kind``: K4, K3, K1, then K6).
+Every other kind, and every kind under ``GATEKEEPER_PAGES=off``, takes
+the legacy full-kind sweep — the path JaxDriver takes with
+``GATEKEEPER_PAGES=off GATEKEEPER_FOOTPRINT=off GATEKEEPER_DEDUP=off``,
+which the reference keeps as the bit-identical oracle of its later
+layers.  Templates outside the lowerable subset, kinds whose numbers are
+not float32-exact, and workloads below ``SMALL_WORKLOAD_EVALS`` run on
+the scalar oracle.  Under churn the host masks and bindings are
+delta-maintained, and the executor keeps the violation mask on the
+device: dirty rows are scattered into the device columns and
+re-evaluated into the stored mask (engine/executor.py "delta" plan).
+Template install runs the Stage-5 footprint and Stage-6 partition-plan
+certifiers (analysis/footprint.py, analysis/shardplan.py): the paged
+route reads the first, the fleet audit (whatif/fleet.py) both.
+Admission review batches, the watch-driven reactor, the inventory join
+and residency planner of the device pages (B7, B8), shadow and replay
+what-if and sharding are not part of this port yet; the review path is
+the scalar engine's (LocalDriver).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from gatekeeper_tpu_torch.api.templates import CompiledTemplate
 from gatekeeper_tpu_torch.client.interface import QueryOpts
@@ -44,6 +54,7 @@ from gatekeeper_tpu_torch.client.local_driver import (LocalDriver,
                                                       TargetState, locked,
                                                       locked_read)
 from gatekeeper_tpu_torch.client.types import Result
+from gatekeeper_tpu_torch.errors import ExternalDataError
 from gatekeeper_tpu_torch.engine.executor import ProgramExecutor, pad_rank
 from gatekeeper_tpu_torch.ir.lower import CannotLower, lower_template
 from gatekeeper_tpu_torch.ir.prep import build_bindings
@@ -117,10 +128,23 @@ class TorchTargetState(TargetState):
         self.fmt_cache: dict[str, tuple] = {}      # kind -> (con_ver, {(cname,row): (ver, results)})
         self.match_engine = None
         # install-time certificates (analysis/footprint.py, Stage 5;
-        # analysis/shardplan.py, Stage 6): read by the fleet audit's
-        # stacking gate, not by the audit sweep
+        # analysis/shardplan.py, Stage 6): the footprint gates the paged
+        # route and both gate the fleet audit's stacking
         self.footprints: dict[str, object] = {}
         self.shardplans: dict[str, object] = {}
+        # continuous enforcement (enforce/ledger.py): the target's
+        # VerdictLedger (created on the first paged sweep), a restored
+        # pagemap awaiting adoption (always None: the port has no
+        # snapshot tier yet), and the dirty-log overflow watermark
+        # already exported to metrics
+        self.ledger = None
+        self.ledger_restored: dict | None = None
+        self.dirtylog_overflows_seen = 0
+        # device-resident pages (enforce/devpages.py): per-kind
+        # KindPages (resident mask + page table), and snapshot geometry
+        # awaiting adoption (always None without a snapshot tier)
+        self.devpages: dict[str, object] = {}
+        self.devpages_geom: dict | None = None
 
     def bump(self, kind: str) -> None:
         self.con_version[kind] = self.con_version.get(kind, 0) + 1
@@ -140,6 +164,9 @@ class TorchDriver(LocalDriver):
         # racing audit readers would otherwise interleave interner
         # appends and column/cache mutations across kinds
         self._prep_lock = threading.Lock()
+        # the last sweep's stanzas: "pages" (ledger route) and
+        # "devpages" (device-resident deltas), as the reference reports
+        self.last_sweep_phases: dict = {}
 
     def init(self, targets) -> None:
         self.targets = dict(targets)
@@ -174,6 +201,11 @@ class TorchDriver(LocalDriver):
             st.order_cache = None
             st.fmt_cache = {}
             st.match_engine = None
+            # the ledger's row ids and generation guards are meaningless
+            # against the swapped table (its counters restart)
+            st.ledger = None
+            st.ledger_restored = None
+            st.dirtylog_overflows_seen = 0
             for kind in list(st.templates):
                 st.bump(kind)
 
@@ -395,6 +427,29 @@ class TorchDriver(LocalDriver):
         st.bindings_cache[kind] = (key, bindings)
         return bindings
 
+    def _prefetch_axes(self, st) -> None:
+        """Union-prefetch the element-axis extractions
+        (jax_driver.py:1821): kinds sharing an axis pay one full-table
+        walk, and per-kind build_bindings slice the table's superset
+        cache.  It also fixes when element values reach the interner —
+        before any kind's bindings — so interner-indexed tables get the
+        reference's shape buckets."""
+        axis_union: dict[tuple, set] = {}
+        for kind in st.templates:
+            lowered = st.templates[kind].vectorized
+            if lowered is None or not self._kind_constraints(st, kind):
+                continue
+            abase = dict(lowered.spec.axes)
+            for _axis, base in lowered.spec.axes:
+                axis_union.setdefault(base, set())
+            for ec in lowered.spec.e_cols:
+                axis_union[abase[ec.axis]].add((ec.rel, ec.mode))
+        for base, rels in axis_union.items():
+            # only on a first build: churned sweeps re-extract dirty
+            # rows inside update_bindings
+            if base not in st.table._elem_cache:
+                st.table.prefetch_elem_arrays(base, sorted(rels))
+
     def _ensure_order(self, st):
         """Sorted-cache-key row order (matches the scalar driver) with
         its key_generation-keyed cache; pure updates never re-sort."""
@@ -495,6 +550,465 @@ class TorchDriver(LocalDriver):
         return st.con_version.get(kind, 0)
 
     # ------------------------------------------------------------------
+    # continuous enforcement: the paged sweep and its ledger
+
+    def _devpages_active(self, compiled: CompiledTemplate) -> bool:
+        """Device-resident pages are usable for this template right
+        now: GATEKEEPER_DEVPAGES on, a lowered program to evaluate, and
+        a live device path."""
+        from gatekeeper_tpu_torch.enforce.devpages import devpages_mode
+        return devpages_mode() and compiled.vectorized is not None \
+            and not self.scalar_only
+
+    @staticmethod
+    def _inv_join_only(fp, compiled: CompiledTemplate) -> bool:
+        """True when a template is cross-row SOLELY through lowered
+        inventory joins (spec.inv_joins) — the one cross-row shape the
+        reference's devpages kernel evaluates on the device (B7), which
+        makes e.g. K8sUniqueIngressHost page-eligible there."""
+        if compiled.vectorized is None:
+            return False
+        if not getattr(compiled.vectorized.spec, "inv_joins", ()):
+            return False
+        reasons = tuple(getattr(fp, "cross_row_reasons", ()) or ())
+        return bool(reasons) and all(
+            r.startswith("inventory join") for r in reasons)
+
+    def _pages_ineligible(self, st: TorchTargetState, kind: str,
+                          compiled: CompiledTemplate) -> str | None:
+        """None when the kind can serve from the VerdictLedger, else
+        the fallback reason: only a row-local template with no
+        provider/inventory reads has verdicts that per-page
+        re-evaluation can maintain exactly.  Under GATEKEEPER_DEVPAGES
+        the reference also admits a kind whose only cross-row
+        dependency is a lowered inventory join (its device kernel sees
+        the whole table every delta sweep); that join (B7) is not
+        ported, so such a kind keeps the legacy route here with the
+        reason ``inventory-join-not-ported`` — equal audit results, but
+        no ledger events for it."""
+        if compiled.vectorized is None:
+            return "scalar-pin"
+        fp = st.footprints.get(kind)
+        if fp is None:
+            return "no-footprint"
+        dev_ij = self._devpages_active(compiled) \
+            and self._inv_join_only(fp, compiled)
+        if not fp.row_local and not dev_ij:
+            return "cross-row"
+        if fp.providers:
+            return "external-providers"
+        if dev_ij:
+            return "inventory-join-not-ported"
+        if compiled.uses_inventory:
+            return "inventory-read"
+        return None
+
+    @staticmethod
+    def _observable_kinds(compiled: CompiledTemplate,
+                          constraints: list[dict]) -> frozenset | None:
+        """Resource kinds whose churn can change this template kind's
+        verdicts: the union of every constraint's ``spec.match.kinds``
+        plus the kinds its inventory joins read.  None = wildcard
+        (some constraint matches every kind — cannot scope).  Drives
+        the per-kind widen scoping: a dirty-log widen marker whose
+        churned-kind union is disjoint from this set is skippable."""
+        out: set[str] = set()
+        if compiled.vectorized is not None:
+            for ij in getattr(compiled.vectorized.spec, "inv_joins", ()):
+                out.add(ij.kind)
+        for c in constraints:
+            match = (c.get("spec") or {}).get("match") or {}
+            kl = match.get("kinds")
+            if not isinstance(kl, list):
+                return None         # absent/malformed kinds: wildcard
+            for ks in kl:
+                knames = (ks or {}).get("kinds") or []
+                if "*" in knames:
+                    return None
+                out.update(k for k in knames if isinstance(k, str))
+        return frozenset(out)
+
+    def _devpages_reject(self, dv: dict, kind: str, reason: str) -> None:
+        """Record one kind falling back from the device-resident path
+        (stats + flight recorder + labeled counter)."""
+        dv["kinds_fallback"] += 1
+        dv["fallback_reasons"][kind] = reason
+        self.metrics.counter("devpages_fallbacks", kind=kind).inc()
+        from gatekeeper_tpu_torch.obs.flightrecorder import record_event
+        record_event("devpages_fallback", kind=kind, reason=reason)
+
+    def _devpaged_kind(self, st, target, handler, compiled, constraints,
+                       kind, led, ent, conver, rcache, pg, dv,
+                       refresh_only: bool = False) -> bool:
+        """One kind's sweep on the device-resident paged store.
+
+        The kind's columns stay resident on the device (the bindings
+        delta chain scatters row-sized records to dirty rows, K4), and
+        ``eval_mask_delta`` computes the violation mask (K3, K1),
+        gathers it through the on-device page table and returns the
+        compact appear/clear delta stream against the previous resident
+        mask (K6).  Consumption keeps the ledger's exact-event contract:
+
+          * dirty rows with any candidate bit, and every ``+`` delta
+            row, re-confirm through the exact scalar path
+            (_ledger_apply_row) — messages stay oracle-identical;
+          * dirty rows with NO candidate bit are direct full-row clears
+            (mask bit 0 = definitely no violation — sound by the
+            over-approximation contract);
+          * ``-`` deltas on non-dirty rows drop just that constraint's
+            verdicts — same identity, so no phantom clear+appear pair.
+
+        Returns True when the ledger was brought current (or, with
+        ``refresh_only``, the resident state rebuilt after a host full
+        build); False = the caller falls back to the host page loop,
+        for the reference's host-side reasons (external-data failure,
+        f32-unsafe bindings, a delta stream that overflows twice).  An
+        error raised by the kernel layer propagates: the reference's
+        catch-all fallback would hide a kernel that does not build or
+        launch."""
+        from gatekeeper_tpu_torch.enforce import devpages as _dvp
+        table = st.table
+        ex = self.executor
+        kp = st.devpages.get(kind)
+        if kp is None:
+            kp = st.devpages[kind] = _dvp.KindPages(kind=kind)
+        h2d0 = ex.h2d_bytes
+        sc0, sr0 = ex.h2d_scatter_bytes, ex.h2d_scatter_rows
+        try:
+            bindings = self._kind_bindings(st, kind, compiled, constraints)
+        except ExternalDataError:
+            self._devpages_reject(dv, kind, "external-data-failure")
+            return False
+        if bindings.f32_unsafe:
+            self._devpages_reject(dv, kind, "f32-unsafe")
+            return False
+        r_pad, c_pad = bindings.r_pad, bindings.c_pad
+        # on-device page table: row -> slot indirection ([r_pad] int32,
+        # identity while row ids are stable); rebuilt — rebound, not
+        # written — on remap or slot-capacity change
+        if kp.page_table is None or kp.slots != r_pad \
+                or kp.remap != table.remap_generation:
+            kp.page_table = ex._put("__pagetable__",
+                                    np.arange(r_pad, dtype=np.int32))
+            kp.slots = r_pad
+            kp.page_rows = table.page_rows
+            kp.n_pages = table.n_pages
+        kp.free = tuple(table.free_slots())
+        # a budget needs the residency planner (B8): raises, not ported
+        _dvp.residency_budget_bytes()
+        have_mask = kp.mask is not None \
+            and tuple(kp.mask.shape) == (c_pad, r_pad)
+        mask_valid = (have_mask and kp.gen == ent.gen
+                      and kp.remap == table.remap_generation
+                      and kp.conver == conver
+                      and kp.c_pad == c_pad and kp.slots == r_pad)
+        if refresh_only or not mask_valid:
+            # cold rebuild after a geometry/generation change
+            old_mask = torch.zeros((c_pad, r_pad), dtype=torch.bool,
+                                   device=ex.device)
+        else:
+            old_mask = kp.mask
+        k = max(kp.k, _dvp.DELTA_K_MIN)
+        dirty = table.dirty_rows_since(ent.gen) \
+            if not refresh_only else np.empty((0,), dtype=np.int64)
+        program = compiled.vectorized.program
+        new_mask, idx, signs, count, row_any = ex.eval_mask_delta(
+            program, bindings, None, old_mask, kp.page_table, k)
+        if count > k and not refresh_only:
+            # the compact stream overflowed its width: widen to the
+            # next bucket and re-dispatch
+            dv["delta_overflows"] += 1
+            k = min(_dvp.delta_bucket(count) * _dvp.DELTA_K_LADDER,
+                    c_pad * r_pad)
+            kp.k = k
+            new_mask, idx, signs, count, row_any = ex.eval_mask_delta(
+                program, bindings, None, old_mask, kp.page_table, k)
+            if count > k:
+                self._devpages_reject(dv, kind, "delta-overflow")
+                return False
+        if not refresh_only:
+            n_rows = table.n_rows
+            cnames = [(c.get("metadata") or {}).get("name", "")
+                      for c in constraints]
+            valid = int(min(count, k))
+            plus_rows: set[int] = set()
+            plus_bits: set[tuple[int, int]] = set()
+            minus_by_row: dict[int, list[str]] = {}
+            for i in range(valid):
+                flat = int(idx[i])
+                if flat < 0:
+                    continue
+                ci, row = flat // r_pad, flat % r_pad
+                if ci >= len(cnames) or row >= n_rows:
+                    continue    # padded constraint/row space
+                if bool(signs[i]):
+                    plus_rows.add(row)
+                    plus_bits.add((ci, row))
+                else:
+                    minus_by_row.setdefault(row, []).append(cnames[ci])
+            dirty_set = set(int(r) for r in dirty)
+            confirm = {r for r in dirty_set if bool(row_any[r])} \
+                | plus_rows
+            involved = sorted(dirty_set | plus_rows | set(minus_by_row))
+            for row in involved:
+                if row in confirm:
+                    self._ledger_apply_row(st, target, handler, compiled,
+                                           constraints, kind, led, rcache,
+                                           row, pg)
+                elif row in dirty_set:
+                    # no candidate bit anywhere on a dirty row: the
+                    # device proved no constraint can violate — direct
+                    # full-row clear, no scalar eval
+                    meta = table.meta_at(row)
+                    ident = () if meta is None \
+                        else (meta.namespace, meta.name)
+                    pg["events"] += len(led.set_row(kind, row, ident, {}))
+                    dv["direct_clears"] += 1
+                else:
+                    # '-' delta on a clean row: that constraint's bit
+                    # went definitely-no-violation — drop exactly its
+                    # verdicts, same identity (no clear+appear pair)
+                    old = ent.rows.get(row)
+                    if old is None:
+                        continue
+                    ident, by_c = old
+                    drop = set(minus_by_row[row])
+                    new_by_c = {cn: rs for cn, rs in by_c.items()
+                                if cn not in drop}
+                    if len(new_by_c) != len(by_c):
+                        pg["events"] += len(
+                            led.set_row(kind, row, ident, new_by_c))
+                        dv["direct_clears"] += 1
+            if not mask_valid and ent.rows:
+                # reconcile sweep (resize/toggle): the previous resident
+                # mask is unknown, so '-' deltas don't exist — prune
+                # stale ledger verdicts by the new mask's bits instead
+                # (vs zeros, every 1-bit is in the '+' stream)
+                cset = set(cnames)
+                cidx = {cn: i for i, cn in enumerate(cnames)}
+                for row, (ident, by_c) in list(ent.rows.items()):
+                    if row in confirm or row in dirty_set:
+                        continue
+                    new_by_c = {cn: rs for cn, rs in by_c.items()
+                                if cn in cset
+                                and (cidx[cn], row) in plus_bits}
+                    if len(new_by_c) != len(by_c):
+                        pg["events"] += len(
+                            led.set_row(kind, row, ident, new_by_c))
+                        dv["direct_clears"] += 1
+            dv["delta_events"] += int(count)
+            dv["scatter_rows"] += ex.h2d_scatter_rows - sr0
+            dv["rows_confirmed"] += len(confirm)
+            pg["rows_reevaluated"] += len(confirm)
+            pg["evaluations_saved"] += \
+                max(0, n_rows - len(confirm)) * len(constraints)
+            pg["pages_skipped"] += max(
+                0, table.n_pages
+                - len({r // table.page_rows for r in involved}))
+        else:
+            dv["mask_builds"] += 1
+        kp.mask = new_mask
+        kp.gen = table.generation
+        kp.remap = table.remap_generation
+        kp.conver = conver
+        kp.c_pad = c_pad
+        kp.n_pages = table.n_pages
+        kp.page_rows = table.page_rows
+        dv["kinds_device"] += 1
+        dv["h2d_bytes"] += (ex.h2d_bytes - h2d0) \
+            + (ex.h2d_scatter_bytes - sc0)
+        dv["h2d_scatter_bytes"] += ex.h2d_scatter_bytes - sc0
+        return True
+
+    def _paged_kind(self, st, target, handler, compiled, constraints,
+                    ordered_rows, row_order, kind, limit, tagged, rcache,
+                    pg, dirty_pages_out, dv=None) -> None:
+        """Serve one kind from the VerdictLedger, first applying the
+        deltas for every page dirtied since the entry's generation.
+        Rows re-evaluate through the exact scalar path (match + oracle
+        + fmt memo), so the ledger holds exactly the confirmed
+        violating rows; capped output walks them in rank order —
+        bit-identical to the full path's top-k + refill emission."""
+        from gatekeeper_tpu_torch.analysis.footprint import (MATCH_PATHS,
+                                                             paths_intersect)
+        from gatekeeper_tpu_torch.enforce.ledger import (VerdictLedger,
+                                                         constraints_digest)
+        table = st.table
+        if st.ledger is None:
+            st.ledger = VerdictLedger(target)
+        led = st.ledger
+        ent = led.entry(kind)
+        conver = self.con_version_of(st, kind)
+        condigest = constraints_digest(constraints)
+        rebuild = None
+        if ent.gen < 0:
+            rebuild = "cold"
+        elif ent.conver != conver or ent.condigest != condigest:
+            rebuild = "constraints-changed"
+        elif ent.remap != table.remap_generation:
+            rebuild = "rows-remapped"
+        elif table.namespaces_dirty_since(ent.gen):
+            # namespace label edits shift namespaceSelector matching of
+            # OTHER rows — page locality doesn't hold
+            rebuild = "namespace-churn"
+        entries = None
+        if rebuild is None and table.generation != ent.gen:
+            entries = table.dirty_page_entries_since(ent.gen)
+            if entries is None:
+                # window predates the log floor: the dirty PAGES are
+                # unattributable, but the row space itself is intact
+                # (a shrink would have bumped remap_generation), so
+                # re-evaluate every page through the delta path below
+                pg["widen_fallbacks"] += 1
+                self.metrics.counter("widen_fallbacks", kind=kind).inc()
+                entries = [(table.generation, None,
+                            frozenset(range(table.n_pages)), None)]
+        dev_done = False
+        if rebuild is None and entries and dv is not None \
+                and self._devpages_active(compiled):
+            # device-resident delta path; falls back to the host page
+            # loop when it returns False (host-side reasons only)
+            dev_done = self._devpaged_kind(
+                st, target, handler, compiled, constraints, kind, led,
+                ent, conver, rcache, pg, dv)
+        if dev_done:
+            pass        # ledger brought current on the device path
+        elif rebuild is not None:
+            # full build: clear rows that died since (sorted — the
+            # canonical event order puts dead-row clears first), then
+            # every live row in rank order
+            for row in sorted(ent.rows):
+                if row >= table.n_rows or table.meta_at(row) is None:
+                    pg["events"] += len(led.set_row(kind, row, (), {}))
+            for row in ordered_rows:
+                self._ledger_apply_row(st, target, handler, compiled,
+                                       constraints, kind, led, rcache, row,
+                                       pg)
+            ent.full_builds += 1
+            pg["full_builds"] += 1
+            pg["pages_evaluated"] += table.n_pages
+            pg["rows_reevaluated"] += len(ordered_rows)
+            if dv is not None and self._devpages_active(compiled):
+                # refresh the device-resident mask after a host full
+                # build so the NEXT sweep deltas instead of reconciling
+                self._devpaged_kind(st, target, handler, compiled,
+                                    constraints, kind, led, ent, conver,
+                                    rcache, pg, dv, refresh_only=True)
+        elif entries:
+            fp = st.footprints[kind]
+            read = set(fp.object_paths()) | set(MATCH_PATHS)
+            obs_kinds = self._observable_kinds(compiled, constraints)
+            kgen_changed = ent.kgen != table.key_generation
+            pages: set[int] = set()
+            for _g, paths, pgs, ekinds in entries:
+                if paths is None:
+                    # cap-overflow widen marker: its paths are
+                    # unattributable, but its resource-kind union is
+                    # exact — a template whose observable kinds are
+                    # disjoint skips the dropped half outright
+                    if ekinds is not None and obs_kinds is not None \
+                            and not (obs_kinds & ekinds):
+                        continue
+                    pg["widen_fallbacks"] += 1
+                    self.metrics.counter("widen_fallbacks",
+                                         kind=kind).inc()
+                    pages |= pgs
+                    continue
+                # page filtering by read-set intersection is only exact
+                # for pure replaces: key-set churn includes every
+                # touched page
+                if kgen_changed or not paths or any(
+                        paths_intersect(p, r) for p in paths
+                        for r in read):
+                    pages |= pgs
+            R = table.page_rows
+            n_rows = table.n_rows
+            rows_seen = 0
+            for p in sorted(pages):
+                start, end = p * R, (p + 1) * R
+                if start >= n_rows:
+                    continue    # stale page beyond the row space
+                pg["rows_padded"] += max(0, end - n_rows)
+                for row in range(start, min(end, n_rows)):
+                    self._ledger_apply_row(st, target, handler, compiled,
+                                           constraints, kind, led, rcache,
+                                           row, pg)
+                    rows_seen += 1
+            dirty_pages_out |= pages
+            pg["pages_evaluated"] += len(pages)
+            pg["pages_skipped"] += max(0, table.n_pages - len(pages))
+            pg["rows_reevaluated"] += rows_seen
+            pg["evaluations_saved"] += \
+                max(0, len(ordered_rows) - rows_seen) * len(constraints)
+        else:
+            # generation unchanged (or every entry already applied):
+            # the ledger is current — pure serve
+            pg["pages_skipped"] += table.n_pages
+            pg["evaluations_saved"] += len(ordered_rows) * len(constraints)
+        ent.gen = table.generation
+        ent.kgen = table.key_generation
+        ent.remap = table.remap_generation
+        ent.n_rows = table.n_rows
+        ent.conver = conver
+        ent.condigest = condigest
+        self._ledger_serve(ent, constraints, row_order, kind, limit, tagged)
+
+    def _ledger_apply_row(self, st, target, handler, compiled, constraints,
+                          kind, led, rcache, row, pg) -> int:
+        """Re-evaluate one row against the kind's constraints through
+        the exact scalar path and replace its ledger verdicts, emitting
+        the delta events.  Returns evaluations performed."""
+        table = st.table
+        meta = table.meta_at(row)
+        if meta is None:
+            pg["events"] += len(led.set_row(kind, row, (), {}))
+            return 0
+        pair = self._row_review(st, handler, row, rcache)
+        if pair is None:
+            pg["events"] += len(led.set_row(kind, row, (), {}))
+            return 0
+        review, frozen, shared = pair
+        by_c: dict[str, list] = {}
+        n_evals = 0
+        for c in constraints:
+            if not any(True for _ in handler.matching_constraints(
+                    review, [c], table)):
+                continue
+            n_evals += 1
+            results = self._pair_results(st, target, kind, compiled, c,
+                                         row, review, frozen, None, shared)
+            if results:
+                by_c[(c.get("metadata") or {}).get("name", "")] = results
+        pg["events"] += len(led.set_row(kind, row,
+                                        (meta.namespace, meta.name), by_c))
+        return n_evals
+
+    def _ledger_serve(self, ent, constraints, row_order, kind, limit,
+                      tagged) -> None:
+        """Emit capped results from the ledger's confirmed rows.  Rank
+        order + whole-row emission with the cap checked at the top of
+        the loop reproduces _format_topk/_scalar_kind exactly (top-k by
+        rank plus full-mask refill IS "walk confirmed rows in rank
+        order until the result count reaches the cap")."""
+        for c in constraints:
+            cname = (c.get("metadata") or {}).get("name", "")
+            rows = [row for row, (_ident, by_c) in ent.rows.items()
+                    if cname in by_c and row in row_order]
+            rows.sort(key=row_order.__getitem__)
+            emitted = 0
+            for row in rows:
+                if limit is not None and emitted >= limit:
+                    break
+                results = ent.rows[row][1][cname]
+                for r in results:
+                    # fresh copies: downstream sets .resource and owns
+                    # result.metadata; the ledger's canon stays pristine
+                    tagged.append(((row_order[row], kind, cname),
+                                   dataclasses.replace(
+                                       r, metadata=dict(r.metadata))))
+                emitted += len(results)
+
+    # ------------------------------------------------------------------
     # the audit sweep
 
     @locked_read
@@ -523,16 +1037,46 @@ class TorchDriver(LocalDriver):
 
         ordered_rows, row_order = self._ensure_order(st)
         rank = self._row_rank(st, row_order)
+        # continuous enforcement (enforce/): on non-full, untraced
+        # sweeps eligible kinds skip the per-kind device sweep — only
+        # dirty pages (or, under GATEKEEPER_DEVPAGES, the device's delta
+        # stream) update the VerdictLedger, which serves the capped
+        # results.  GATEKEEPER_PAGES=off is the oracle (the legacy path)
+        from gatekeeper_tpu_torch.enforce.devpages import (
+            devpages_mode, fresh_stats)
+        from gatekeeper_tpu_torch.enforce.ledger import pages_mode
+        pg_on = pages_mode()
+        pg_kinds: list[str] = []
+        pg_fallback: dict[str, str] = {}
+        pg_stats = {"pages_evaluated": 0, "pages_skipped": 0,
+                    "rows_padded": 0, "rows_reevaluated": 0,
+                    "evaluations_saved": 0, "widen_fallbacks": 0,
+                    "full_builds": 0, "events": 0}
+        pg_dirty_pages: set[int] = set()
+        dv_on = pg_on and devpages_mode() and not self.scalar_only
+        dv_stats = fresh_stats() if dv_on else None
         # phase 1, on the sweep thread: host prep and dispatch per kind.
         # Launches are asynchronous, so kind N's device work overlaps
         # kind N+1's host prep.
         specs: list[tuple] = []
         with self._prep_lock:
+            self._prefetch_axes(st)
             for kind in sorted(st.templates):
                 compiled = st.templates[kind]
                 constraints = self._kind_constraints(st, kind)
                 if not constraints:
                     continue
+                if pg_on and not full and trace is None:
+                    reason = self._pages_ineligible(st, kind, compiled)
+                    if reason is None:
+                        # no dispatch: the paged serve runs in phase 2
+                        # (sorted-kind order — deterministic ledger
+                        # event order)
+                        specs.append(("pages", kind, compiled, constraints,
+                                      None, None, None, None))
+                        pg_kinds.append(kind)
+                        continue
+                    pg_fallback[kind] = reason
                 mask, mask_delta, padded = self._kind_mask(
                     st, target, kind, constraints)
                 small = len(ordered_rows) * len(constraints) \
@@ -579,7 +1123,15 @@ class TorchDriver(LocalDriver):
         tagged: list[tuple[tuple, Result]] = []
         for mode, kind, compiled, constraints, prog, bindings, mask, \
                 handle in specs:
-            if mode == "topk":
+            if mode == "pages":
+                # the devpages path fills the reader-side caches
+                # (_kind_bindings) that _prep_lock serializes
+                with self._prep_lock:
+                    self._paged_kind(st, target, handler, compiled,
+                                     constraints, ordered_rows, row_order,
+                                     kind, limit, tagged, rcache, pg_stats,
+                                     pg_dirty_pages, dv_stats)
+            elif mode == "topk":
                 self._format_topk(st, target, handler, compiled,
                                   constraints, prog, bindings, row_order,
                                   kind, limit, trace, tagged, handle,
@@ -599,6 +1151,47 @@ class TorchDriver(LocalDriver):
         m.counter("audit_results").inc(len(tagged))
         m.timer("audit_sweep_wall").observe(time.perf_counter() - t_start)
         m.gauge("audit_resources").set(len(ordered_rows))
+        # continuous-enforcement stanzas: which kinds served from the
+        # ledger vs fell back (with reasons), page-level work, the delta
+        # events emitted, and the device-resident path's accounting
+        led = st.ledger
+        self.last_sweep_phases = {"full": full}
+        self.last_sweep_phases["pages"] = {
+            "enabled": pg_on,
+            "page_rows": st.table.page_rows,
+            "n_pages": st.table.n_pages,
+            "kinds_paged": len(pg_kinds),
+            "kinds_fallback": len(pg_fallback),
+            "fallback_reasons": dict(pg_fallback),
+            "pages_evaluated": int(pg_stats["pages_evaluated"]),
+            "pages_skipped": int(pg_stats["pages_skipped"]),
+            "rows_padded": int(pg_stats["rows_padded"]),
+            "rows_reevaluated": int(pg_stats["rows_reevaluated"]),
+            "evaluations_saved": int(pg_stats["evaluations_saved"]),
+            "widen_fallbacks": int(pg_stats["widen_fallbacks"]),
+            "ledger_full_builds": int(pg_stats["full_builds"]),
+            "ledger_violations": led.total_violations()
+            if led is not None else 0,
+            "events": int(pg_stats["events"]),
+        }
+        self.last_sweep_phases["devpages"] = {"enabled": dv_on} \
+            if dv_stats is None else {"enabled": True, **dv_stats}
+        if dv_stats is not None:
+            m.counter("store_h2d_bytes_total").inc(int(dv_stats["h2d_bytes"]))
+            m.gauge("devpages_scatter_rows").set(
+                float(dv_stats["scatter_rows"]))
+            m.gauge("devpages_delta_events").set(
+                float(dv_stats["delta_events"]))
+        m.gauge("store_pages_total").set(float(st.table.n_pages))
+        if pg_kinds:
+            m.gauge("store_pages_dirty").set(float(len(pg_dirty_pages)))
+        if led is not None:
+            m.gauge("ledger_violations").set(float(led.total_violations()))
+        overflows = st.table.dirtylog_overflows
+        if overflows > st.dirtylog_overflows_seen:
+            m.counter("store_dirtylog_overflow_total").inc(
+                overflows - st.dirtylog_overflows_seen)
+            st.dirtylog_overflows_seen = overflows
         return [r for _, r in tagged], \
             ("\n".join(trace) if trace is not None else None)
 

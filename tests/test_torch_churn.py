@@ -334,13 +334,15 @@ def _full_builds(td) -> int:
 
 
 @pytest.mark.parametrize("scenario", ["north_star", "library"])
-def test_churn_rounds_match_reference(scenario):
+def test_churn_rounds_match_reference(scenario, monkeypatch):
     """Every round: equal results at caps None, 20 and 2 (LocalDriver
     uncapped).  Pure-upsert rounds take the delta plan on every device
     kind whose host bindings were delta-updated: delta evaluations rise,
     and full evaluations rise only by the kinds whose bindings had to be
     rebuilt (update_bindings bails out when, say, the interner outgrew a
-    kind's table bucket; the reference's prep is the same code)."""
+    kind's table bucket; the reference's prep is the same code).  The
+    counters are the legacy sweep's: the paged route is switched off."""
+    monkeypatch.setenv("GATEKEEPER_PAGES", "off")
     sc = _Scenario(scenario)
     ex = sc.td.executor
     _assert_parity(sc.clients)
@@ -392,11 +394,13 @@ def test_scatter_rows_count_matches_reference(monkeypatch):
             assert tex_.h2d_bytes == before[2], (what, r)
 
 
-def test_old_generations_are_freed():
+def test_old_generations_are_freed(monkeypatch):
     """After each churned sweep the newest bindings of every kind have
     no base left, and a generation three sweeps old is gone: the driver
     keeps only the current and the retired one (with their device
-    arrays and stored masks)."""
+    arrays and stored masks).  Along the legacy sweep, which keeps the
+    stored masks (the paged route is switched off)."""
+    monkeypatch.setenv("GATEKEEPER_PAGES", "off")
     objs = make_resources(300, random.Random(4))
     td = TorchDriver(device="cpu")
     client = setup_north_star(td, objs, random.Random(5), c_per_kind=3)

@@ -120,8 +120,11 @@ def _jax_north_star(driver, resources, rng, c_per_kind):
     return client
 
 
-def test_small_north_star_matches_reference():
-    """~600 pods x 12 constraints, capped and uncapped; then churn."""
+def test_small_north_star_matches_reference(monkeypatch):
+    """~600 pods x 12 constraints, capped and uncapped; then churn.  The
+    executor counters below are the legacy sweep's, so the paged route
+    (default on) is switched off on both drivers."""
+    monkeypatch.setenv("GATEKEEPER_PAGES", "off")
     resources = make_resources(600, random.Random(1))
     jd, td, ld = JaxDriver(), TorchDriver(device="cpu"), LocalDriver()
     clients = (_jax_north_star(jd, resources, random.Random(2), 4),
@@ -184,9 +187,12 @@ def test_large_caps_match_reference():
 
 
 @pytest.mark.parametrize("seed", range(16))
-def test_fuzz_driver_parity(seed):
+def test_fuzz_driver_parity(seed, monkeypatch):
     """The randomized templates and churn rounds of test_fuzz_parity.py
-    through all three drivers."""
+    through all three drivers, along the legacy sweep whose device path
+    the counters below check (tests/test_torch_pages.py runs the same
+    scenario along the paged route)."""
+    monkeypatch.setenv("GATEKEEPER_PAGES", "off")
     rng = random.Random(seed * 7919)
     (_, td, _), clients = _three()
     anchor = ('package fuzzanchor\nviolation[{"msg": msg}] {\n'

@@ -586,7 +586,9 @@ def test_cluster_from_store_state():
     assert rep.kinds_stacked
 
 
-def test_adopt_store_drops_table_caches():
+def test_adopt_store_drops_table_caches(monkeypatch):
+    # the legacy sweep fills the bindings cache (the paged route is off)
+    monkeypatch.setenv("GATEKEEPER_PAGES", "off")
     docs = tall_docs()[:3]
     a, b = _torch_clusters(docs, (30, 60), 11)
     a.client.audit(limit_per_constraint=20)

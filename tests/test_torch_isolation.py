@@ -47,6 +47,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "gatekeeper_tpu_torch.kernels.ir_eval",
                 "gatekeeper_tpu_torch.kernels.topk",
                 "gatekeeper_tpu_torch.kernels.dfa",
+                "gatekeeper_tpu_torch.kernels.devdelta",
+                "gatekeeper_tpu_torch.enforce.ledger",
+                "gatekeeper_tpu_torch.enforce.devpages",
+                "gatekeeper_tpu_torch.obs.flightrecorder",
                 "gatekeeper_tpu_torch.convert",
                 "gatekeeper_tpu_torch.utils.device"):
         assert mod in rep["modules"]

@@ -6,7 +6,7 @@ machine with a CUDA card and no jax:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 On the CPU the wrappers take their plain versions; the ``cuda``-marked
-tests hold K1-K5 and the fleet audit's batched K1, K2 and K3 against
+tests hold K1-K6 and the fleet audit's batched K1, K2 and K3 against
 those plain versions on the card, bit for bit, and skip where there is
 no card.
 """
@@ -22,6 +22,7 @@ from gatekeeper_tpu_torch.engine import executor as tex
 from gatekeeper_tpu_torch.engine import torch_driver
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
 from gatekeeper_tpu_torch.ir.program import Program
+from gatekeeper_tpu_torch.kernels import devdelta
 from gatekeeper_tpu_torch.kernels import dfa as tdfa
 from gatekeeper_tpu_torch.kernels import ir_eval, topk as ttopk
 from gatekeeper_tpu_torch.kernels import scatter as tscatter
@@ -265,6 +266,8 @@ def test_driver_on_card_matches_cpu(card, monkeypatch):
     TorchDriver(device="cpu"): equal results, capped and uncapped, with
     K1 and K2 launched."""
     monkeypatch.setattr(torch_driver, "SMALL_WORKLOAD_EVALS", 0)
+    # K1/K2 launches are the legacy sweep's: the paged route is off
+    monkeypatch.setenv("GATEKEEPER_PAGES", "off")
     resources = make_resources(600, random.Random(1))
     gpu, cpu = TorchDriver(), TorchDriver(device="cpu")
     clients = [setup_north_star(d, resources, random.Random(2), c_per_kind=4)
@@ -431,3 +434,76 @@ def test_batched_k2_matches_plain_on_card(card, n, c_pad, r_pad, k,
     want = ttopk.topk_packed_batched_plain(viol, rank, k).cpu()
     for i in range(n):
         _packed_equal(got[i], want[i], k)
+
+
+# -- K6, the devpages delta (item B6)
+
+
+def _k6_case(c_pad, r_pad, density, pt_kind, seed):
+    """(new, pt, old) with ``old`` the gathered ``new`` flipped at random
+    bits (``density`` of them), so the delta stream is sparse as under
+    churn; ``pt`` identity, a permutation, or a permutation with entries
+    outside [0, r_pad) (negatives count from the end, the rest read
+    True, as jnp.take reads them)."""
+    rng = np.random.default_rng(seed)
+    new = torch.from_numpy(rng.random((c_pad, r_pad)) < 0.4)
+    pt = np.arange(r_pad, dtype=np.int32)
+    if pt_kind != "identity":
+        pt = rng.permutation(r_pad).astype(np.int32)
+    if pt_kind == "out_of_range":
+        n_bad = min(r_pad, 6)
+        pt[rng.choice(r_pad, n_bad, replace=False)] = \
+            [-1, r_pad, -r_pad - 1, 2 * r_pad, -r_pad, r_pad + 3][:n_bad]
+    pt = torch.from_numpy(pt)
+    g = devdelta.mask_delta_plain(new, pt, torch.zeros_like(new), 1)[0]
+    old = g ^ torch.from_numpy(rng.random((c_pad, r_pad)) < density)
+    return new, pt, old
+
+
+def test_k6_plain_fill_and_overflow():
+    """The plain version's contract on the CPU: ascending flat indices,
+    -1 past the count with the first element's sign, the true count
+    when it exceeds k, and row_any of the gathered mask."""
+    new, pt, old = _k6_case(3, 50, 0.1, "permuted", 0)
+    calls = devdelta.mask_delta.plain_calls
+    g, idx, signs, count, row_any = devdelta.mask_delta(new, pt, old, 400)
+    assert devdelta.mask_delta.plain_calls == calls + 1
+    diff = torch.nonzero((g ^ old).reshape(-1)).reshape(-1)
+    n = int(count)
+    assert n == diff.numel() > 0
+    assert torch.equal(idx[:n].long(), diff)
+    assert (idx[n:] == -1).all() and (signs[n:] == g[0, 0]).all()
+    assert torch.equal(signs[:n], g.reshape(-1)[diff])
+    assert torch.equal(row_any, g.any(0))
+    assert torch.equal(g, new[:, pt.long()])
+    g2, idx2, _s, count2, _r = devdelta.mask_delta(new, pt, old, 5)
+    assert int(count2) == n and torch.equal(idx2, idx[:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_pad,r_pad,density,pt_kind,k", [
+    (4, 1 << 17, 1e-3, "identity", 256),       # count > k: overflow
+    (4, 1 << 17, 1e-4, "identity", 256),       # the devpages shape
+    (128, 1 << 17, 1e-4, "permuted", 4096),    # the main phase's shape
+    (128, 1 << 17, 0.0, "identity", 256),      # no change at all
+    (5, 1000, 0.05, "out_of_range", 64),       # ragged tail tile
+    (3, 4097, 0.5, "permuted", 20000),         # k past the flat size
+    (1, 1, 1.0, "identity", 1),
+    (2, 4096, 1.0, "identity", 8192),          # every bit flips, k == n
+])
+def test_k6_matches_plain_on_card(card, c_pad, r_pad, density, pt_kind, k):
+    """K6 against its plain version, all five outputs bit for bit, its
+    inputs untouched."""
+    new, pt, old = (t.to(card) for t in _k6_case(c_pad, r_pad, density,
+                                                 pt_kind, c_pad + r_pad))
+    keep = (new.clone(), pt.clone(), old.clone())
+    launches = devdelta.mask_delta.launches
+    got = devdelta.mask_delta(new, pt, old, k)
+    torch.cuda.synchronize()
+    assert devdelta.mask_delta.launches == launches + 1
+    want = devdelta.mask_delta_plain(new, pt, old, k)
+    for name, a, b in zip(("new_g", "idx", "signs", "count", "row_any"),
+                          got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    for a, b in zip((new, pt, old), keep):
+        assert torch.equal(a, b)
