@@ -5,8 +5,9 @@ against its plain PyTorch version.
 
 Phases (each prints one line of its numbers):
   1. card   — nvidia-smi name/power limit, torch and CUDA versions, TF32 off
-  2. build  — nvcc builds K2 (csrc/topk.cu), K3 (csrc/dfa.cu) and K4
-     (csrc/scatter.cu), all at once
+  2. build  — nvcc builds K2 (csrc/topk.cu), K3 (csrc/dfa.cu), K4
+     (csrc/scatter.cu), K6 (csrc/devdelta.cu) and K7 (csrc/invjoin.cu),
+     all at once
   3. kernels against their plain versions, bit for bit:
        K2 on random [128, 131072] masks at cap 20 and at a cap of 300
        (several passes), and at a ragged r_pad < k;
@@ -55,8 +56,22 @@ Phases (each prints one line of its numbers):
      on A (plus one per overflow) and none on C, every kind on the
      device on A, row-sized transfers, flat device memory, ledger events
      that add up and equal ledger totals on A and C, and K6 on the
-     phase's own inputs
-  8. the kernels JSON line, the card line, and the final JSON line.
+     phase's own inputs; each churned sweep's host time on A split into
+     the scalar confirm, the direct clears and the ledger serve (the
+     script wraps the driver's methods)
+  8. devpages ingress — the inventory-join kind (B7): K8sUniqueIngressHost
+     alone, one constraint on Ingress (extensions, networking.k8s.io),
+     over 100,000 pods and 2,000 Ingresses in 200 namespaces (50 hosts
+     shared by two, one same-name pair, the rest unique) on driver A
+     (pages and devpages on), B (GATEKEEPER_PAGES=off) and
+     TorchDriver(device="cpu"): a cold sweep and 3 rounds that delete 20
+     Ingresses (10 breaking a shared host), add 20 (10 on a unique host)
+     and relabel 1,000 pods.  Results equal on all three, ledger totals
+     equal to the duplicates the script counts, appears minus clears
+     equal to the change, one K7 launch per delta evaluation (plus one
+     per overflow), K7 equal to plain on the sweeps' own inputs and
+     timed there, flat device memory, the host split as in 7
+  9. the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages sweeps with GATEKEEPER_PAGES=off: they measure
 the legacy sweep and assert its launch counts, and the port, like the
 reference, defaults to the paged route.
@@ -120,7 +135,7 @@ def packed_err(got, want, k: int) -> int:
                int((got[:, 1:1 + k] * gv - want[:, 1:1 + k] * wv).abs().max()))
 
 
-def kernel_fns(ir_eval, topk, dfa, scatter, devdelta) -> dict:
+def kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin) -> dict:
     """Each kernel's wrapper as (module, name): a wrapper counts on the
     function its module's name refers to at the time of the call."""
     return {"K1": (ir_eval, "eval_mask"), "K2": (topk, "topk_packed"),
@@ -129,7 +144,8 @@ def kernel_fns(ir_eval, topk, dfa, scatter, devdelta) -> dict:
             "K1b": (ir_eval, "eval_mask_batched"),
             "K2b": (topk, "topk_packed_batched"),
             "K3b": (dfa, "dfa_table_batched"),
-            "K6": (devdelta, "mask_delta")}
+            "K6": (devdelta, "mask_delta"),
+            "K7": (invjoin, "inv_join_mask")}
 
 
 def reset_counts(fns: dict) -> None:
@@ -766,6 +782,7 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
     led_c = c._state(TARGET).ledger
     ops_c = collections.Counter()
     led_c.subscribe(lambda ev: ops_c.update([ev["op"]]))
+    split = HostSplit(a, led)
     if led_c.total_violations() != led.total_violations():
         fail(f"devpages cold sweep: C's ledger holds "
              f"{led_c.total_violations()} violations, A's "
@@ -803,9 +820,11 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
         total0_c = led_c.total_violations()
         if rep == 0:
             devdelta.mask_delta = recording(orig, calls)
+        split.take()
         reset_counts(fns)
         res_a, a_s = sweep(a, True)
         counts = launch_counts(fns)
+        parts = split.take()
         devdelta.mask_delta = orig
         dv = dict(a.last_sweep_phases["devpages"])
         pg = dict(a.last_sweep_phases["pages"])
@@ -844,7 +863,8 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
                  f"{ops['clear']} clear events, ledger violations "
                  f"{total0} -> {led.total_violations()}")
         print(f"phase devpages churn {rep + 1}: relabel {n_churn} pods; A "
-              f"capped sweep {a_s:.4f}s, oracle B {b_s:.4f}s, {len(res_a)} "
+              f"capped sweep {a_s:.4f}s ({split_text(parts, a_s)}), oracle "
+              f"B {b_s:.4f}s, {len(res_a)} "
               f"results equal; rows_confirmed {dv['rows_confirmed']}, "
               f"direct_clears {dv['direct_clears']}, delta_events "
               f"{dv['delta_events']}, delta_overflows {over}, scatter_rows "
@@ -890,7 +910,340 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
           f"{mask_bytes}); K6 launches over the phase {k6_launches}",
           flush=True)
     os.environ.pop("GATEKEEPER_DEVPAGES", None)
-    del a, b, c, ca, cb, cc, led, led_c
+    del a, b, c, ca, cb, cc, led, led_c, split
+
+
+class HostSplit:
+    """The host time of one driver's paged sweeps split by wrapping its
+    methods from outside: the scalar confirm (``_ledger_apply_row``),
+    the ledger serve (``_ledger_serve``), the direct clears (the
+    ledger's ``set_row`` calls made outside a confirm) and, inside the
+    confirm, the rebuild of the frozen inventory document that
+    inventory-reading templates evaluate against (the target state's
+    ``inventory_doc``, rebuilt once per table generation).  ``take()``
+    returns the seconds since the last call and starts again."""
+
+    PARTS = ("confirm", "clears", "serve", "inventory")
+
+    def __init__(self, drv, led):
+        self.t = dict.fromkeys(self.PARTS, 0.0)
+        self.n = dict.fromkeys(self.PARTS, 0)
+        self.inside = 0
+        st = drv._state(TARGET)
+        apply_row, serve, set_row, inv_doc = (
+            drv._ledger_apply_row, drv._ledger_serve, led.set_row,
+            st.inventory_doc)
+
+        def timed(part, fn, mode: str):
+            """mode "confirm" marks its extent, "outside" counts only
+            outside a confirm, "always" counts every call."""
+            def run(*a, **k):
+                if self.inside and mode == "outside":
+                    return fn(*a, **k)
+                mark = mode == "confirm"
+                self.inside += mark
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.t[part] += time.perf_counter() - t0
+                    self.n[part] += 1
+                    self.inside -= mark
+            return run
+
+        drv._ledger_apply_row = timed("confirm", apply_row, "confirm")
+        drv._ledger_serve = timed("serve", serve, "always")
+        led.set_row = timed("clears", set_row, "outside")
+        st.inventory_doc = timed("inventory", inv_doc, "always")
+
+    def take(self) -> dict:
+        out = {**{p: self.t[p] for p in self.PARTS},
+               **{f"n_{p}": self.n[p] for p in self.PARTS}}
+        self.t = dict.fromkeys(self.PARTS, 0.0)
+        self.n = dict.fromkeys(self.PARTS, 0)
+        return out
+
+
+def split_text(split: dict, wall: float) -> str:
+    rest = wall - split["confirm"] - split["clears"] - split["serve"]
+    return (f"scalar confirm {split['confirm']:.4f}s ({split['n_confirm']} "
+            f"rows; of it the inventory document {split['inventory']:.4f}s)"
+            f", direct clears {split['clears']:.4f}s ({split['n_clears']}), "
+            f"ledger serve {split['serve']:.4f}s, rest (bindings, "
+            f"transfers, device, stream) {rest:.4f}s")
+
+
+INGRESS_PODS = 100_000
+INGRESS_COUNT = 2_000
+INGRESS_NAMESPACES = 200
+INGRESS_SHARED_HOSTS = 50
+INGRESS_KIND = "K8sUniqueIngressHost"
+INGRESS_MATCH = {"kinds": [{"apiGroups": ["extensions", "networking.k8s.io"],
+                            "kinds": ["Ingress"]}]}
+
+
+def ingress(name: str, ns: str, host: str, i: int) -> dict:
+    api = "networking.k8s.io/v1" if i % 2 else "extensions/v1beta1"
+    return {"apiVersion": api, "kind": "Ingress",
+            "metadata": {"name": name, "namespace": ns},
+            "spec": {"host": host, "rules": [{"host": host}]}}
+
+
+def make_ingresses() -> list[dict]:
+    """INGRESS_COUNT Ingresses in INGRESS_NAMESPACES namespaces: the
+    first 2 x INGRESS_SHARED_HOSTS in pairs that share a host (in two
+    namespaces), then one pair of the same name in two namespaces on one
+    host (the same-name exclusion: neither violates), every other host
+    unique."""
+    out = []
+    for i in range(INGRESS_COUNT):
+        ns = f"ing-ns{i % INGRESS_NAMESPACES}"
+        if i < 2 * INGRESS_SHARED_HOSTS:
+            host = f"shared{i // 2}.example.com"
+            name = f"ing{i:05d}"
+        elif i < 2 * INGRESS_SHARED_HOSTS + 2:
+            host, name = "same-name.example.com", "web"
+        else:
+            host, name = f"unique{i}.example.com", f"ing{i:05d}"
+        out.append(ingress(name, ns, host, i))
+    return out
+
+
+def expected_duplicates(live: dict) -> int:
+    """Ingresses that violate by the template's definition: another live
+    Ingress has the host and a different name."""
+    by_host = collections.defaultdict(list)
+    for o in live.values():
+        by_host[o["spec"]["host"]].append(o["metadata"]["name"])
+    return sum(1 for names in by_host.values() for nm in names
+               if any(other != nm for other in names))
+
+
+def k7_numbers(invjoin, ins) -> dict:
+    """K7 and its plain version timed on one recorded input ``ins`` (src,
+    inv, sel, names, exclude, n_ids), with the bound from the function's
+    own traffic: the three int32 columns and sel read once, the bool
+    column written once (14 bytes a row; the per-value tables are the
+    kernel's scratch, not the function's).  K7 is timed as the sweep
+    calls it, with a caller's error flag (read once, after the timing),
+    so no launch waits for the device."""
+    n_rows, n_ids = ins[0].shape[0], ins[5]
+    b, by = bound(14 * n_rows, 8 * n_rows)
+    err = invjoin.error_flag(ins[0].device)
+    ms = cuda_ms(lambda: invjoin.inv_join_mask(*ins, err))
+    invjoin.check_error(err, n_ids)
+    return {"ms": ms,
+            "plain_ms": cuda_ms(lambda: invjoin.inv_join_mask_plain(*ins),
+                                iters=5),
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
+def ingress_phase(rec: dict, fns: dict, dev) -> None:
+    """The inventory-join kind under devpages (B7): K8sUniqueIngressHost
+    alone over INGRESS_PODS north-star pods and INGRESS_COUNT Ingresses,
+    on driver A (GATEKEEPER_PAGES=on, GATEKEEPER_DEVPAGES=on) beside
+    driver B (GATEKEEPER_PAGES=off) and TorchDriver(device="cpu") (legacy
+    route, plain versions): a cold sweep and 3 rounds that each delete
+    20 Ingresses (10 holding a shared host, so their partners clear
+    without churning), add 20 (10 reusing a unique host, so the partner
+    appears without churning) and relabel 1,000 pods.  Results equal on
+    all three and equal to the duplicates the script counts itself, one
+    K7 launch per delta evaluation, K7 equal to plain on the sweeps' own
+    inputs, ledger events that add up, flat device memory."""
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import invjoin
+    from gatekeeper_tpu_torch.library.north_star import make_resources
+    from gatekeeper_tpu_torch.library.templates import (LIBRARY,
+                                                        constraint_doc,
+                                                        template_doc)
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+
+    opts = QueryOpts(limit_per_constraint=CAP)
+    pods = make_resources(INGRESS_PODS, random.Random(3))
+    ings = make_ingresses()
+    live = {(o["metadata"]["namespace"], o["metadata"]["name"]): o
+            for o in ings}
+
+    def sweep(drv, paged: bool):
+        os.environ["GATEKEEPER_PAGES"] = "on" if paged else "off"
+        os.environ["GATEKEEPER_DEVPAGES"] = "on" if paged else "off"
+        try:
+            t0 = time.perf_counter()
+            res, _ = drv.query_audit(TARGET, opts)
+            if drv.device.type == "cuda":
+                torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+        finally:
+            os.environ["GATEKEEPER_PAGES"] = "off"
+            os.environ["GATEKEEPER_DEVPAGES"] = "off"
+
+    t0 = time.perf_counter()
+    drivers = (TorchDriver(device=dev), TorchDriver(device=dev),
+               TorchDriver(device="cpu"))
+    clients = []
+    for d in drivers:
+        c = Backend(d).new_client([K8sValidationTarget()])
+        c.add_template(template_doc(INGRESS_KIND, LIBRARY[INGRESS_KIND][0]))
+        c.add_constraint(constraint_doc(INGRESS_KIND, "unique-ingress-host",
+                                        match=INGRESS_MATCH))
+        c.add_data_batch(pods + ings)
+        clients.append(c)
+    a, b, cpu = drivers
+    ingest_s = time.perf_counter() - t0
+
+    def check(what: str, res_a, res_b, res_c) -> None:
+        if norm(res_a) != norm(res_b) or norm(res_a) != norm(res_c):
+            fail(f"devpages ingress {what}: A's results differ from B's or "
+                 "the CPU driver's")
+        want = min(expected_duplicates(live), CAP)
+        if len(res_a) != want:
+            fail(f"devpages ingress {what}: {len(res_a)} results, the "
+                 f"script counts {want} (cap {CAP})")
+
+    reset_counts(fns)
+    res_a, cold_s = sweep(a, True)
+    cold_counts = launch_counts(fns)
+    cold_dv = dict(a.last_sweep_phases["devpages"])
+    cold_pg = dict(a.last_sweep_phases["pages"])
+    res_b, cold_b_s = sweep(b, False)
+    res_c, cold_c_s = sweep(cpu, False)
+    check("cold sweep", res_a, res_b, res_c)
+    led = a._state(TARGET).ledger
+    if cold_pg["kinds_paged"] != 1 or cold_dv["kinds_device"] != 1 \
+            or cold_dv["inv_joins_device"] != 1 or cold_counts["K7"] != 1 \
+            or led.total_violations() != expected_duplicates(live):
+        fail(f"devpages ingress cold sweep: pages {cold_pg}, devpages "
+             f"{cold_dv}, launches {cold_counts}, ledger "
+             f"{led.total_violations()} violations, expected "
+             f"{expected_duplicates(live)}")
+    kp = a._state(TARGET).devpages[INGRESS_KIND]
+    r_pad, mask_bytes = kp.slots, kp.c_pad * kp.slots
+    print(f"phase devpages ingress cold: {INGRESS_PODS} pods + "
+          f"{INGRESS_COUNT} Ingresses in {INGRESS_NAMESPACES} namespaces "
+          f"({INGRESS_SHARED_HOSTS} shared hosts, one same-name pair), "
+          f"{INGRESS_KIND} x 1 constraint (R_pad {r_pad}), cap {CAP}: "
+          f"ingest A, B and CPU {ingest_s:.3f}s; cold ledger build "
+          f"{cold_s:.4f}s on A, B's cold sweep {cold_b_s:.4f}s, the CPU "
+          f"driver's {cold_c_s:.4f}s; {len(res_a)} results equal; ledger "
+          f"{led.total_violations()} violations as counted; launches "
+          f"{ {k: v for k, v in cold_counts.items() if v} }", flush=True)
+
+    ops = collections.Counter()
+    led.subscribe(lambda ev: ops.update([ev["op"]]))
+    split = HostSplit(a, led)
+    rng = random.Random(4321)
+    label_pool = [f"l{j}" for j in range(10)]
+    orig = invjoin.inv_join_mask
+    calls: list = []
+    k7_launches = cold_counts["K7"]
+    mem = []
+    serial = INGRESS_COUNT
+    for rep in range(3):
+        by_host = collections.defaultdict(list)
+        for key, o in live.items():
+            by_host[o["spec"]["host"]].append(key)
+        pairs = [ks for h, ks in sorted(by_host.items())
+                 if len(ks) == 2 and h.startswith("shared")]
+        singles = [ks[0] for h, ks in sorted(by_host.items())
+                   if len(ks) == 1 and h.startswith("unique")]
+        drop = [rng.choice(ks) for ks in rng.sample(pairs, 10)]
+        picked = rng.sample(singles, 20)
+        drop += picked[:10]
+        batch = [("remove", live.pop(key)) for key in drop]
+        for key in picked[10:20]:
+            host = live[key]["spec"]["host"]
+            o = ingress(f"ing{serial:05d}", f"ing-ns{serial % 200}", host,
+                        serial)
+            serial += 1
+            live[(o["metadata"]["namespace"], o["metadata"]["name"])] = o
+            batch.append(("add", o))
+        for _ in range(10):
+            o = ingress(f"ing{serial:05d}", f"ing-ns{serial % 200}",
+                        f"unique{serial}.example.com", serial)
+            serial += 1
+            live[(o["metadata"]["namespace"], o["metadata"]["name"])] = o
+            batch.append(("add", o))
+        for i in rng.sample(range(INGRESS_PODS), 1000):
+            o = copy.deepcopy(pods[i])
+            o["metadata"]["labels"] = {k: "v" for k in label_pool
+                                       if rng.random() < 0.35}
+            pods[i] = o
+            batch.append(("add", o))
+        for c in clients:
+            for op, o in batch:
+                (c.add_data if op == "add" else c.remove_data)(o)
+        ops.clear()
+        total0 = led.total_violations()
+        if rep == 0:
+            invjoin.inv_join_mask = recording(orig, calls)
+        split.take()
+        reset_counts(fns)
+        res_a, a_s = sweep(a, True)
+        counts = launch_counts(fns)
+        parts = split.take()
+        invjoin.inv_join_mask = orig
+        dv = dict(a.last_sweep_phases["devpages"])
+        res_b, b_s = sweep(b, False)
+        res_c, c_s = sweep(cpu, False)
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        check(f"churn {rep + 1}", res_a, res_b, res_c)
+        k7_launches += counts["K7"]
+        over = dv["delta_overflows"]
+        if dv["kinds_device"] != 1 or dv["kinds_fallback"] \
+                or dv["inv_joins_device"] != 1 or counts["K7"] != 1 + over \
+                or counts["K6"] != 1 + over:
+            fail(f"devpages ingress churn {rep + 1}: devpages {dv}, "
+                 f"launches {counts}")
+        if ops["appear"] - ops["clear"] != led.total_violations() - total0 \
+                or led.total_violations() != expected_duplicates(live):
+            fail(f"devpages ingress churn {rep + 1}: {ops['appear']} appear "
+                 f"- {ops['clear']} clear, ledger violations {total0} -> "
+                 f"{led.total_violations()}, expected "
+                 f"{expected_duplicates(live)}")
+        print(f"phase devpages ingress churn {rep + 1}: delete 20 Ingresses "
+              f"(10 breaking a shared host), add 20 (10 on a unique host), "
+              f"relabel 1000 pods; A capped sweep {a_s:.4f}s ("
+              f"{split_text(parts, a_s)}), B {b_s:.4f}s, CPU {c_s:.4f}s; "
+              f"{len(res_a)} results equal; rows_confirmed "
+              f"{dv['rows_confirmed']}, direct_clears {dv['direct_clears']}, "
+              f"delta_events {dv['delta_events']}, delta_overflows {over}, "
+              f"scatter_rows {dv['scatter_rows']}, h2d_bytes "
+              f"{dv['h2d_bytes']}; ledger {ops['appear']} appear / "
+              f"{ops['clear']} clear, {led.total_violations()} violations "
+              f"as counted; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; "
+              f"memory_allocated {mem[-1]}", flush=True)
+        if rep:
+            continue
+        # K7 on the sweep's own inputs, bit for bit, and timed there
+        k7_err = 0.0
+        for args, got in calls:
+            want = invjoin.inv_join_mask_plain(*args[:6])
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                fail("K7 mismatch on a churned ingress sweep's input")
+            k7_err = max(k7_err, max_err(got, want))
+        ins = calls[0][0][:6]
+        rec["K7"] = {"max_abs_err": k7_err, **k7_numbers(invjoin, ins)}
+        print(f"phase devpages ingress kernels: K7 equal to plain on the "
+              f"sweep's {len(calls)} joins ([{ins[0].shape[0]}] rows, "
+              f"n_ids {ins[5]}, {int(ins[2].sum())} selected): "
+              f"{rec['K7']['ms']:.4f} ms (plain {rec['K7']['plain_ms']:.4f}"
+              f", bound {rec['K7']['bound_ms']:.6f} "
+              f"{rec['K7']['bound_by']}; no single PyTorch call computes "
+              f"it)", flush=True)
+        del calls, args, got, want, ins
+    rec["K7"]["launches"] = k7_launches
+    if mem[2] - mem[1] >= mask_bytes:
+        fail(f"devpages ingress: device memory grew by {mem[2] - mem[1]} "
+             f"bytes from the second churned sweep to the third (one "
+             f"[{kp.c_pad}, {r_pad}] mask is {mask_bytes})")
+    print(f"phase devpages ingress memory: memory_allocated after each "
+          f"round {mem}; third - second {mem[2] - mem[1]} bytes; K7 "
+          f"launches over the phase {k7_launches}", flush=True)
+    del a, b, cpu, drivers, clients, led, kp
 
 
 def main() -> int:
@@ -911,8 +1264,8 @@ def main() -> int:
     from gatekeeper_tpu_torch.engine import executor as ex
     from gatekeeper_tpu_torch.engine import torch_driver
     from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-    from gatekeeper_tpu_torch.kernels import (build, devdelta, dfa, ir_eval,
-                                              scatter, topk)
+    from gatekeeper_tpu_torch.kernels import (build, devdelta, dfa, invjoin,
+                                              ir_eval, scatter, topk)
     from gatekeeper_tpu_torch.kernels.op_cases import every_op_case
     from gatekeeper_tpu_torch.library import all_docs, make_mixed
     from gatekeeper_tpu_torch.library.north_star import (make_resources,
@@ -952,7 +1305,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rec: dict[str, dict] = {}
-    fns = kernel_fns(ir_eval, topk, dfa, scatter, devdelta)
+    fns = kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin)
 
     def counts_of(*keys) -> dict:
         return {k: v for k, v in launch_counts(fns).items() if k in keys}
@@ -1395,7 +1748,10 @@ def main() -> int:
     devpages_phase(rec, fns, dev, main_masks)
     del main_masks
 
-    # ---- 8. kernels line, card line, final line
+    # ---- 8. devpages ingress: the inventory-join kind on the device (B7)
+    ingress_phase(rec, fns, dev)
+
+    # ---- 9. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -1417,9 +1773,12 @@ def main() -> int:
                 "gatekeeper_tpu/whatif/fleet.py:47"),
         "K6": ("devdelta", "cuda", "gatekeeper_tpu_torch/csrc/devdelta.cu",
                "gatekeeper_tpu/engine/veval.py:1185"),
+        "K7": ("invjoin", "cuda", "gatekeeper_tpu_torch/csrc/invjoin.cu",
+               "gatekeeper_tpu/engine/veval.py:545"),
     }
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K1b", "K2b", "K3b", "K6"):
+    for key in ("K1", "K2", "K3", "K4", "K5", "K1b", "K2b", "K3b", "K6",
+                "K7"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -1,11 +1,13 @@
 # Copied from gatekeeper_tpu/analysis/__init__.py for the PyTorch port.
-"""Install-time static analysis: the Stage-1 template vetter.
+"""Install-time static analysis: the template vetter's two stages.
 
-Only the stages the audit slice runs are ported: :mod:`.vetter` walks
-the parsed Rego AST and emits :class:`.diagnostics.Diagnostic` records;
-:mod:`.purity` is the impure-builtin gate shared with the closure
-compiler.  The policy-set, translation-validation and cost-model
-stages of the JAX package are not part of the port yet.
+Stage 1 (:mod:`.vetter`) walks the parsed Rego AST; Stage 2
+(:mod:`.ir_verifier`) validates lowered device programs against their
+PrepSpec before a kernel runs them.  Both emit
+:class:`.diagnostics.Diagnostic` records; :mod:`.purity` is the
+impure-builtin gate shared with the closure compiler.  The policy-set
+and translation-validation stages of the JAX package, and most of its
+cost model, are not part of the port yet.
 """
 
 from gatekeeper_tpu_torch.analysis.diagnostics import (   # noqa: F401
@@ -15,3 +17,6 @@ from gatekeeper_tpu_torch.analysis.purity import (        # noqa: F401
     is_impure_builtin, is_impure_call,
 )
 from gatekeeper_tpu_torch.analysis.vetter import vet_module        # noqa: F401
+from gatekeeper_tpu_torch.analysis.ir_verifier import (   # noqa: F401
+    verify_program,
+)

@@ -1,11 +1,14 @@
 # Copied from gatekeeper_tpu/analysis/costmodel.py for the PyTorch port.
-"""The IR axis walks the Stage-5 and Stage-6 certifiers read.
+"""The IR axis walks the Stage-5 and Stage-6 certifiers read, and the
+devpages scatter price.
 
-Only :func:`node_axes` and :func:`reachable_nodes` of the JAX package's
-static cost model are ported: the footprint (:mod:`.footprint`) and the
-partition plan (:mod:`.shardplan`) walk the nodes reachable from a
-program's rule conjuncts.  The cost vector, its op-class weights and the
-install-time cost budget are not part of the port yet.
+Of the JAX package's static cost model only :func:`node_axes`,
+:func:`reachable_nodes` and :func:`scatter_worthwhile` are ported: the
+footprint (:mod:`.footprint`) and the partition plan (:mod:`.shardplan`)
+walk the nodes reachable from a program's rule conjuncts, and the
+devpages sweep prices the inventory join's input records with the
+third.  The cost vector, its op-class weights and the install-time cost
+budget are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -59,3 +62,22 @@ def reachable_nodes(program) -> set[int]:
         seen.add(i)
         stack.extend(program.nodes[i].args)
     return seen
+
+
+def scatter_worthwhile(n_changed: int, n_total: int,
+                       row_bytes: int = 4,
+                       dispatch_rows: int = 64) -> bool:
+    """Price a row-sized scatter against a full re-upload for one
+    device-resident column (the devpages churn seam).
+
+    A scatter moves ``n_changed * row_bytes`` over H2D plus a fixed
+    per-dispatch cost (index staging + scatter kernel launch, priced in
+    row-equivalents); a re-upload moves ``n_total * row_bytes`` in one
+    transfer.  The scatter wins while the churned fraction stays under
+    ~50% after the dispatch overhead — at higher churn the dense copy's
+    bandwidth beats the gather/scatter addressing."""
+    if n_changed <= 0:
+        return True
+    if n_total <= 0:
+        return False
+    return (n_changed + dispatch_rows) * 2 <= n_total

@@ -23,12 +23,17 @@ confirm covers it — and the [C, R] match matrix never rides H2D.
 
 ``GATEKEEPER_DEVPAGES=off`` (the default) keeps the host-paged oracle.
 
+A kind whose only cross-row dependency is a lowered inventory join
+(K8sUniqueIngressHost) is paged here too: the join's input records
+(:func:`build_inv_join_inputs`) stay resident beside the columns, and
+``eval_mask_delta`` recomputes the join over the whole table on every
+delta sweep (K7, kernels/invjoin.py), so a verdict that flips on a row
+that did not churn still arrives as a delta.
+
 Ported in part.  Not ported yet: the Stage-8 residency planner
 (``ResidencyPlanner``, kernel B8), which needs the Stage-8 memory
 certificate — setting ``GATEKEEPER_DEVPAGES_BUDGET_BYTES`` raises
-instead of being ignored — and the in-kernel inventory join
-(``inv_join_binding_names``, ``build_inv_join_inputs``, kernel B7), so
-inventory-join kinds stay on the legacy sweep under devpages.
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -37,7 +42,10 @@ import dataclasses
 import os
 from typing import Any
 
+import numpy as np
+
 from gatekeeper_tpu_torch.errors import ClientError
+from gatekeeper_tpu_torch.ir.prep import inv_join_binding_names
 
 BUDGET_NOT_PORTED = (
     "GATEKEEPER_DEVPAGES_BUDGET_BYTES: the devpages residency budget (B8) "
@@ -106,6 +114,10 @@ class KindPages:
     remap: int = -1
     conver: int = -1
     k: int = DELTA_K_MIN          # delta-stream width
+    ij_dev: dict = dataclasses.field(default_factory=dict)
+    #   inv-join input records: name -> device array (r:ij.<join>.*)
+    ij_host: dict = dataclasses.field(default_factory=dict)
+    #   the numpy twins the scatter staged from (value-compared)
     geometry_adopted: bool = False
 
     def geometry(self) -> dict:
@@ -133,10 +145,41 @@ class KindPages:
             return False
 
 
+def build_inv_join_inputs(req, table, r_pad: int) -> dict[str, np.ndarray]:
+    """Host twins of one join's device input records, padded to the
+    slot capacity.  Column extraction is table-cached (O(dirty) after
+    the first build); padding fills MISSING / False so padded slots can
+    never join."""
+    from gatekeeper_tpu_torch.store.columns import ColSpec
+    from gatekeeper_tpu_torch.store.interner import MISSING
+    n = table.n_rows
+    ident = table.identity()
+    kid = table.interner.lookup(req.kind)
+
+    def _pad(a: np.ndarray, fill) -> np.ndarray:
+        out = np.full((r_pad,), fill, dtype=a.dtype)
+        out[:n] = a[:n]
+        return out
+
+    src = table.column(ColSpec(req.src_path, "val")).ids
+    inv = table.column(ColSpec(req.inv_path, "val")).ids
+    sel = ident.alive & (ident.kind_ids == kid)
+    if req.namespaced_only:
+        sel = sel & (ident.ns_ids != MISSING)
+    if kid == MISSING:
+        sel = np.zeros_like(sel)
+    names = ident.name_ids
+    s, i, f, m = inv_join_binding_names(req.name)
+    return {s: _pad(src.astype(np.int32), MISSING),
+            i: _pad(inv.astype(np.int32), MISSING),
+            f: _pad(sel.astype(bool), False),
+            m: _pad(names.astype(np.int32), MISSING)}
+
+
 def fresh_stats() -> dict:
     """Per-sweep devpages accounting (the ``devpages`` stanza).  The
-    keys are the JAX package's; ``inv_joins_device`` and the
-    ``resident_*`` counters stay 0 until B7 and B8 are ported."""
+    keys are the JAX package's; the ``resident_*`` counters stay 0
+    until B8 is ported."""
     return {"kinds_device": 0, "kinds_fallback": 0,
             "fallback_reasons": {}, "scatter_rows": 0,
             "h2d_bytes": 0, "h2d_scatter_bytes": 0,

@@ -17,9 +17,10 @@ On CUDA tensors it calls the port's
 hand-written kernels — K1 (``kernels/ir_eval.py``, the IR evaluator),
 K2 (``kernels/topk.py``, count + top-k), K3 (``kernels/dfa.py``, the
 regex byte scan), K4 (``kernels/scatter.py``, the dirty-row scatter),
-K5 (``kernels/ir_eval.delta_mask``, the dirty-row evaluation) and K6
-(``kernels/devdelta.py``, the devpages delta of ``eval_mask_delta``); on
-CPU tensors the same wrappers run the plain versions.
+K5 (``kernels/ir_eval.delta_mask``, the dirty-row evaluation), K6
+(``kernels/devdelta.py``, the devpages delta of ``eval_mask_delta``) and
+K7 (``kernels/invjoin.py``, the inventory join that ``eval_mask_delta``
+runs first); on CPU tensors the same wrappers run the plain versions.
 
 The violation mask stays on the device across sweeps (``_viol_plan``):
 a sweep over unchanged bindings only reduces ("reduce"); bindings that
@@ -35,10 +36,12 @@ import numpy as np
 import torch
 
 from gatekeeper_tpu_torch.ir.prep import (_STR_PREFIX, Bindings,
-                                          binding_axes, bucket)
+                                          binding_axes, bucket,
+                                          inv_join_binding_names)
 from gatekeeper_tpu_torch.ir.program import Node, Program
 from gatekeeper_tpu_torch.kernels import devdelta as _devdelta
 from gatekeeper_tpu_torch.kernels import dfa as _dfa
+from gatekeeper_tpu_torch.kernels import invjoin as _invjoin
 from gatekeeper_tpu_torch.kernels import ir_eval as _ir_eval
 from gatekeeper_tpu_torch.kernels import scatter as _scatter
 from gatekeeper_tpu_torch.kernels import topk as _topk
@@ -737,15 +740,21 @@ class ProgramExecutor:
 
     def eval_mask_delta(self, program: Program, bindings: Bindings,
                         match: np.ndarray | None, old_mask: torch.Tensor,
-                        page_table: torch.Tensor, k: int):
+                        page_table: torch.Tensor, k: int,
+                        ij_specs: tuple = (), ij_arrays: dict | None = None,
+                        n_ids: int = 0):
         """Violation mask AND its delta against the previous resident
-        mask — the devpages sweep (the reference's ``eval_mask_delta``,
-        without its in-kernel inventory joins, item B7).
+        mask — the devpages sweep (the reference's ``eval_mask_delta``).
 
-        Evaluates the program over the bindings' device arrays into a
-        fresh mask (K3 for regex tables, then K1; never through the
-        stored-mask plans, whose mask it leaves alone), then K6 gathers
-        it through ``page_table`` (row -> slot), XORs it with
+        First each inventory join of ``ij_specs`` ((join name,
+        exclude_same_name) pairs) runs over the whole ``r_pad`` from its
+        ``r:ij.<join>.*`` input records in ``ij_arrays`` (K7, with
+        per-value tables of ``n_ids`` entries, the interner's size), and
+        its column replaces the host-built one of the same binding name.
+        Then the program is evaluated over the bindings' device arrays
+        into a fresh mask (K3 for regex tables, then K1; never through
+        the stored-mask plans, whose mask it leaves alone), and K6
+        gathers it through ``page_table`` (row -> slot), XORs it with
         ``old_mask`` and compacts the changed bits.  The resident mask
         excludes ``__match__``: with ``match`` None a ``__match__`` that
         an earlier legacy sweep installed into these bindings (and that
@@ -756,12 +765,16 @@ class ProgramExecutor:
         [c_pad * r_pad] (-1 = fill), ``signs`` [k] bool (True =
         appeared), ``count`` the true changed-bit count (> k means the
         stream overflowed) and ``row_any`` [r_pad] bool come back as
-        numpy and int."""
+        numpy and int.  A join input id at or past ``n_ids`` raises
+        IndexError once those copies have synchronised."""
         arrays = self._arrays(bindings, match)
         if match is None:
             arrays = {nm: a for nm, a in arrays.items() if nm != "__match__"}
+        if ij_arrays:
+            arrays = {**arrays, **ij_arrays}
         names = tuple(sorted(arrays))
-        key = ("devdelta", program.cache_key(), k, (), R_CHUNK,
+        ij_sig = tuple((nm, bool(ex)) for nm, ex in ij_specs)
+        key = ("devdelta", program.cache_key(), k, ij_sig, R_CHUNK,
                tuple((nm,) + tuple(arrays[nm].shape)
                      + (str(arrays[nm].dtype),) for nm in names))
         if key in self._devdelta_keys:
@@ -769,11 +782,29 @@ class ProgramExecutor:
         else:
             self._devdelta_keys.add(key)
             self.compiles += 1
+        err = None
+        if ij_sig:
+            # every join over the whole row space before the evaluator
+            # reads (or the plain one chunks) any r-axis array; the input
+            # records themselves are no binding of the program
+            err = _invjoin.error_flag(old_mask.device)
+            inputs = set()
+            for nm, ex in ij_sig:
+                rec = inv_join_binding_names(nm)
+                inputs.update(rec)
+                src, inv, sel, nms = (arrays[r] for r in rec)
+                arrays[nm] = _invjoin.inv_join_mask(
+                    _widen(src), _widen(inv), sel, _widen(nms), ex, n_ids,
+                    err)
+            arrays = {nm: a for nm, a in arrays.items() if nm not in inputs}
         new = self._full_mask(program, arrays)
         new_mask, idx, signs, count, row_any = _devdelta.mask_delta(
             new, page_table, old_mask, k)
-        return (new_mask, idx.cpu().numpy(), signs.cpu().numpy(),
-                int(count), row_any.cpu().numpy())
+        out = (new_mask, idx.cpu().numpy(), signs.cpu().numpy(),
+               int(count), row_any.cpu().numpy())
+        if err is not None:
+            _invjoin.check_error(err, n_ids)
+        return out
 
     # ------------------------------------------------------------------
     # the fleet audit: N clusters' bindings stacked along a leading axis

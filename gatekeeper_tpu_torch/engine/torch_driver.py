@@ -19,7 +19,10 @@ served from the target's VerdictLedger (enforce/ledger.py), which the
 sweep first brings current by re-evaluating only the rows of dirty
 pages through the scalar oracle (``_paged_kind``), or, under
 ``GATEKEEPER_DEVPAGES=on``, by consuming the device's delta stream
-against the resident mask (``_devpaged_kind``: K4, K3, K1, then K6).
+against the resident mask (``_devpaged_kind``: K4, K7, K3, K1, then
+K6).  Under devpages a kind whose only cross-row dependency is a lowered
+inventory join (K8sUniqueIngressHost) is paged too: K7 recomputes the
+join over the whole table on every delta sweep.
 Every other kind, and every kind under ``GATEKEEPER_PAGES=off``, takes
 the legacy full-kind sweep — the path JaxDriver takes with
 ``GATEKEEPER_PAGES=off GATEKEEPER_FOOTPRINT=off GATEKEEPER_DEDUP=off``,
@@ -30,13 +33,14 @@ the scalar oracle.  Under churn the host masks and bindings are
 delta-maintained, and the executor keeps the violation mask on the
 device: dirty rows are scattered into the device columns and
 re-evaluated into the stored mask (engine/executor.py "delta" plan).
-Template install runs the Stage-5 footprint and Stage-6 partition-plan
-certifiers (analysis/footprint.py, analysis/shardplan.py): the paged
-route reads the first, the fleet audit (whatif/fleet.py) both.
-Admission review batches, the watch-driven reactor, the inventory join
-and residency planner of the device pages (B7, B8), shadow and replay
-what-if and sharding are not part of this port yet; the review path is
-the scalar engine's (LocalDriver).
+Template install runs the Stage-2 IR verifier (analysis/ir_verifier.py:
+a malformed lowered program is pinned to the scalar oracle) and the
+Stage-5 footprint and Stage-6 partition-plan certifiers
+(analysis/footprint.py, analysis/shardplan.py): the paged route reads
+the first, the fleet audit (whatif/fleet.py) both.  Admission review
+batches, the watch-driven reactor, the residency planner of the device
+pages (B8), shadow and replay what-if and sharding are not part of this
+port yet; the review path is the scalar engine's (LocalDriver).
 """
 
 from __future__ import annotations
@@ -221,6 +225,9 @@ class TorchDriver(LocalDriver):
                                                      compiled.interp)
             except CannotLower:
                 compiled.vectorized = None  # scalar fallback
+            if compiled.vectorized is not None:
+                compiled.vectorized = self._verify_lowered(
+                    kind, compiled.vectorized)
         st = self._state(target)
         if isinstance(st, TorchTargetState):
             # stage 5 (dependency footprint), then stage 6 (partition
@@ -241,6 +248,32 @@ class TorchDriver(LocalDriver):
                 st.shardplans.pop(kind, None)
         st.templates[kind] = compiled
         st.bump(kind)
+
+    @staticmethod
+    def _verify_lowered(kind: str, lowered):
+        """Stage-2 IR verification (analysis/ir_verifier.py) on every
+        program before a kernel can run it.  Structural checks only —
+        the engine has no provider registry in scope.  A malformed
+        program falls back to the scalar oracle (identical semantics,
+        no device path) unless GATEKEEPER_IR_VERIFY=strict, which raises
+        VetError instead; GATEKEEPER_IR_VERIFY=off skips the pass."""
+        import os
+        mode = os.environ.get("GATEKEEPER_IR_VERIFY", "fallback")
+        if mode == "off":
+            return lowered
+        from gatekeeper_tpu_torch.analysis import verify_program
+        from gatekeeper_tpu_torch.analysis.diagnostics import format_all
+        diags = verify_program(lowered, providers=None, file=kind)
+        if not diags:
+            return lowered
+        if mode == "strict":
+            from gatekeeper_tpu_torch.errors import VetError
+            raise VetError(diags)
+        import logging
+        logging.getLogger(__name__).warning(
+            "IR verification failed for %s; falling back to the scalar "
+            "oracle:\n%s", kind, format_all(diags))
+        return None
 
     def _footprint_lowered(self, kind: str, compiled: CompiledTemplate):
         """Stage-5 dependency analysis (analysis/footprint.py) behind
@@ -564,8 +597,10 @@ class TorchDriver(LocalDriver):
     def _inv_join_only(fp, compiled: CompiledTemplate) -> bool:
         """True when a template is cross-row SOLELY through lowered
         inventory joins (spec.inv_joins) — the one cross-row shape the
-        reference's devpages kernel evaluates on the device (B7), which
-        makes e.g. K8sUniqueIngressHost page-eligible there."""
+        devpages sweep evaluates on the device (K7), which is what makes
+        e.g. K8sUniqueIngressHost page-eligible.  Any other cross-row
+        reason (or an inventory read the lowering did not capture as a
+        join) keeps the kind ineligible."""
         if compiled.vectorized is None:
             return False
         if not getattr(compiled.vectorized.spec, "inv_joins", ()):
@@ -580,12 +615,11 @@ class TorchDriver(LocalDriver):
         the fallback reason: only a row-local template with no
         provider/inventory reads has verdicts that per-page
         re-evaluation can maintain exactly.  Under GATEKEEPER_DEVPAGES
-        the reference also admits a kind whose only cross-row
-        dependency is a lowered inventory join (its device kernel sees
-        the whole table every delta sweep); that join (B7) is not
-        ported, so such a kind keeps the legacy route here with the
-        reason ``inventory-join-not-ported`` — equal audit results, but
-        no ledger events for it."""
+        one relaxation: a kind whose only cross-row dependency is a
+        lowered inventory join is admitted — the device join (K7) sees
+        the whole table every delta sweep, so page locality is not
+        assumed (and on a devpages fallback such a kind takes a full
+        rebuild, never the host page loop)."""
         if compiled.vectorized is None:
             return "scalar-pin"
         fp = st.footprints.get(kind)
@@ -597,9 +631,7 @@ class TorchDriver(LocalDriver):
             return "cross-row"
         if fp.providers:
             return "external-providers"
-        if dev_ij:
-            return "inventory-join-not-ported"
-        if compiled.uses_inventory:
+        if compiled.uses_inventory and not dev_ij:
             return "inventory-read"
         return None
 
@@ -643,11 +675,13 @@ class TorchDriver(LocalDriver):
         """One kind's sweep on the device-resident paged store.
 
         The kind's columns stay resident on the device (the bindings
-        delta chain scatters row-sized records to dirty rows, K4), and
-        ``eval_mask_delta`` computes the violation mask (K3, K1),
-        gathers it through the on-device page table and returns the
-        compact appear/clear delta stream against the previous resident
-        mask (K6).  Consumption keeps the ledger's exact-event contract:
+        delta chain scatters row-sized records to dirty rows, K4), the
+        inventory joins' input records ride the same discipline, and
+        ``eval_mask_delta`` computes the joins (K7) and the violation
+        mask (K3, K1), gathers it through the on-device page table and
+        returns the compact appear/clear delta stream against the
+        previous resident mask (K6).  Consumption keeps the ledger's
+        exact-event contract:
 
           * dirty rows with any candidate bit, and every ``+`` delta
             row, re-confirm through the exact scalar path
@@ -655,17 +689,20 @@ class TorchDriver(LocalDriver):
           * dirty rows with NO candidate bit are direct full-row clears
             (mask bit 0 = definitely no violation — sound by the
             over-approximation contract);
-          * ``-`` deltas on non-dirty rows drop just that constraint's
-            verdicts — same identity, so no phantom clear+appear pair.
+          * ``-`` deltas on non-dirty rows (cross-row inventory-join
+            flips) drop just that constraint's verdicts — same
+            identity, so no phantom clear+appear pair.
 
         Returns True when the ledger was brought current (or, with
         ``refresh_only``, the resident state rebuilt after a host full
-        build); False = the caller falls back to the host page loop,
-        for the reference's host-side reasons (external-data failure,
-        f32-unsafe bindings, a delta stream that overflows twice).  An
-        error raised by the kernel layer propagates: the reference's
-        catch-all fallback would hide a kernel that does not build or
-        launch."""
+        build); False = the caller falls back to the host page loop (a
+        full rebuild for a kind that is not row-local), for the
+        reference's host-side reasons (external-data failure, f32-unsafe
+        bindings, a delta stream that overflows twice).  An error raised
+        by the kernel layer propagates: the reference's catch-all
+        fallback would hide a kernel that does not build or launch."""
+        from gatekeeper_tpu_torch.analysis.costmodel import \
+            scatter_worthwhile
         from gatekeeper_tpu_torch.enforce import devpages as _dvp
         table = st.table
         ex = self.executor
@@ -683,6 +720,36 @@ class TorchDriver(LocalDriver):
             self._devpages_reject(dv, kind, "f32-unsafe")
             return False
         r_pad, c_pad = bindings.r_pad, bindings.c_pad
+        # inventory-join device input records (r:ij.<join>.*): cold
+        # upload once, then row-sized scatters of just the changed
+        # entries — rebound per update, never written in place
+        ij_specs_raw = tuple(getattr(compiled.vectorized.spec, "inv_joins",
+                                     ()))
+        ij_dev: dict = {}
+        for req in ij_specs_raw:
+            host = _dvp.build_inv_join_inputs(req, table, r_pad)
+            for nm, arr in host.items():
+                prev_h = kp.ij_host.get(nm)
+                prev_d = kp.ij_dev.get(nm)
+                if prev_h is None or prev_d is None \
+                        or prev_h.shape != arr.shape:
+                    dev = ex._put(nm, arr)
+                elif np.array_equal(prev_h, arr):
+                    dev = prev_d
+                else:
+                    changed = np.nonzero(prev_h != arr)[0]
+                    if scatter_worthwhile(len(changed), arr.shape[0]):
+                        dev = ex._scatter_rows(nm, prev_d, arr, changed)
+                    else:
+                        dev = ex._put(nm, arr)
+                kp.ij_host = {**kp.ij_host, nm: arr}
+                kp.ij_dev = {**kp.ij_dev, nm: dev}
+                ij_dev[nm] = dev
+        if ij_specs_raw:
+            dv["inv_joins_device"] += len(ij_specs_raw)
+        ij_sig = tuple((req.name, bool(req.exclude_same_name))
+                       for req in ij_specs_raw)
+        n_ids = len(table.interner)
         # on-device page table: row -> slot indirection ([r_pad] int32,
         # identity while row ids are stable); rebuilt — rebound, not
         # written — on remap or slot-capacity change
@@ -713,7 +780,8 @@ class TorchDriver(LocalDriver):
             if not refresh_only else np.empty((0,), dtype=np.int64)
         program = compiled.vectorized.program
         new_mask, idx, signs, count, row_any = ex.eval_mask_delta(
-            program, bindings, None, old_mask, kp.page_table, k)
+            program, bindings, None, old_mask, kp.page_table, k, ij_sig,
+            ij_dev, n_ids)
         if count > k and not refresh_only:
             # the compact stream overflowed its width: widen to the
             # next bucket and re-dispatch
@@ -722,7 +790,8 @@ class TorchDriver(LocalDriver):
                     c_pad * r_pad)
             kp.k = k
             new_mask, idx, signs, count, row_any = ex.eval_mask_delta(
-                program, bindings, None, old_mask, kp.page_table, k)
+                program, bindings, None, old_mask, kp.page_table, k,
+                ij_sig, ij_dev, n_ids)
             if count > k:
                 self._devpages_reject(dv, kind, "delta-overflow")
                 return False
@@ -866,11 +935,17 @@ class TorchDriver(LocalDriver):
         dev_done = False
         if rebuild is None and entries and dv is not None \
                 and self._devpages_active(compiled):
-            # device-resident delta path; falls back to the host page
-            # loop when it returns False (host-side reasons only)
+            # device-resident delta path; when it returns False (host-side
+            # reasons only) a row-local kind falls back to the host page
+            # loop, and a cross-row (inventory-join) kind, whose verdicts
+            # the page loop cannot maintain, to one full rebuild
             dev_done = self._devpaged_kind(
                 st, target, handler, compiled, constraints, kind, led,
                 ent, conver, rcache, pg, dv)
+            if not dev_done:
+                fp = st.footprints.get(kind)
+                if fp is None or not fp.row_local:
+                    rebuild = "devpages-fallback"
         if dev_done:
             pass        # ledger brought current on the device path
         elif rebuild is not None:

@@ -69,6 +69,15 @@ def audit_pads(n_rows: int, n_constraints: int) -> tuple[int, int]:
     return bucket(max(n_rows, 1)), bucket(max(n_constraints, 1), minimum=4)
 
 
+def inv_join_binding_names(join_name: str) -> tuple[str, str, str, str]:
+    """The four device input records backing one inventory join (src
+    ids, inventory ids, inventory-side row filter, name ids).  The
+    ``r:`` prefix keys them into :func:`binding_axes` as row-axis
+    arrays, so the row scatter sees them."""
+    return (f"r:ij.{join_name}.src", f"r:ij.{join_name}.inv",
+            f"r:ij.{join_name}.sel", f"r:ij.{join_name}.names")
+
+
 def binding_axes(name: str) -> tuple:
     """Logical axes of one bound array, by the prep naming convention:
     'c' (constraints), 'r' (resources), or None (replicated/table) per

@@ -6,7 +6,7 @@ machine with a CUDA card and no jax:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 On the CPU the wrappers take their plain versions; the ``cuda``-marked
-tests hold K1-K6 and the fleet audit's batched K1, K2 and K3 against
+tests hold K1-K7 and the fleet audit's batched K1, K2 and K3 against
 those plain versions on the card, bit for bit, and skip where there is
 no card.
 """
@@ -24,7 +24,7 @@ from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
 from gatekeeper_tpu_torch.ir.program import Program
 from gatekeeper_tpu_torch.kernels import devdelta
 from gatekeeper_tpu_torch.kernels import dfa as tdfa
-from gatekeeper_tpu_torch.kernels import ir_eval, topk as ttopk
+from gatekeeper_tpu_torch.kernels import invjoin, ir_eval, topk as ttopk
 from gatekeeper_tpu_torch.kernels import scatter as tscatter
 from gatekeeper_tpu_torch.kernels.op_cases import (every_op_case,
                                                    stacked_every_op_case)
@@ -507,3 +507,183 @@ def test_k6_matches_plain_on_card(card, c_pad, r_pad, density, pt_kind, k):
         assert a.dtype == b.dtype and torch.equal(a, b), name
     for a, b in zip((new, pt, old), keep):
         assert torch.equal(a, b)
+
+
+# -- K7, the inventory join
+
+
+def _k7_case(n, n_vals, seed, missing=0.2, sel_p=0.6, n_names=None):
+    """int32 src / inv / names and bool sel of ``n`` rows: values from
+    ``n_vals`` ids (so they repeat), names from ``n_names`` (few names:
+    equal (value, name) pairs), ``missing`` of each id column -1."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_vals, n).astype(np.int32)
+    inv = rng.integers(0, n_vals, n).astype(np.int32)
+    names = rng.integers(0, n_names or 4 * n + 8, n).astype(np.int32)
+    for a in (src, inv, names):
+        a[rng.random(n) < missing] = -1
+    sel = rng.random(n) < sel_p
+    return tuple(torch.from_numpy(a) for a in (src, inv, sel, names))
+
+
+def _k7_direct(src, inv, sel, names, exclude):
+    """The join by its definition, pair by pair: row r violates iff some
+    selected inventory row j has inv[j] == src[r] >= 0 and, with the
+    exclusion, names[r] < 0 or names[j] != names[r]."""
+    out = []
+    for s, nm in zip(src.tolist(), names.tolist()):
+        out.append(s >= 0 and any(
+            sj and v == s and (not exclude or nm < 0 or nj != nm)
+            for sj, v, nj in zip(sel.tolist(), inv.tolist(),
+                                 names.tolist())))
+    return torch.tensor(out, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("exclude", [True, False])
+@pytest.mark.parametrize("n,n_vals,n_names,sel_p", [
+    (1, 2, None, 1.0), (9, 3, 3, 0.6), (64, 8, 4, 0.6), (200, 40, None, 0.7),
+    (50, 5, 5, 0.0)])
+def test_k7_plain_is_the_join_by_definition(n, n_vals, n_names, sel_p,
+                                            exclude):
+    """The plain version's per-value form (count, least and greatest
+    name per value) equals the pair-by-pair definition on the CPU, and
+    the CPU wrapper counts a plain call, never a launch."""
+    ins = _k7_case(n, n_vals, n * 13 + n_vals, n_names=n_names,
+                   sel_p=sel_p)
+    calls, launches = (invjoin.inv_join_mask.plain_calls,
+                       invjoin.inv_join_mask.launches)
+    got = invjoin.inv_join_mask(*ins, exclude, n_vals,
+                                invjoin.error_flag("cpu"))
+    assert invjoin.inv_join_mask.plain_calls == calls + 1
+    assert invjoin.inv_join_mask.launches == launches
+    assert torch.equal(got, _k7_direct(*ins, exclude))
+    assert torch.equal(invjoin.inv_join_mask_plain(*ins, exclude, n_vals),
+                       got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclude", [True, False])
+@pytest.mark.parametrize("n,n_vals,n_names,missing,sel_p", [
+    (1, 1, None, 0.0, 1.0),
+    (7, 3, 2, 0.2, 0.6),
+    (1 << 17, 20_000, None, 0.05, 0.02),    # the devpages ingress shape
+    (1 << 17, 50, 30, 0.3, 0.9),            # heavy atomic contention
+    (4099, 100, None, 0.5, 0.0),            # sel all False
+    (1 << 20, 300_000, None, 0.1, 0.5),
+])
+def test_k7_matches_plain_on_card(card, n, n_vals, n_names, missing, sel_p,
+                                  exclude):
+    """K7 against its plain version bit for bit, its inputs untouched,
+    one launch."""
+    ins = tuple(t.to(card) for t in _k7_case(n, n_vals, n + n_vals,
+                                             missing, sel_p, n_names))
+    keep = tuple(t.clone() for t in ins)
+    launches = invjoin.inv_join_mask.launches
+    err = invjoin.error_flag(card)
+    got = invjoin.inv_join_mask(*ins, exclude, n_vals, err)
+    invjoin.check_error(err, n_vals)
+    assert invjoin.inv_join_mask.launches == launches + 1
+    want = invjoin.inv_join_mask_plain(*ins, exclude, n_vals)
+    assert got.dtype == want.dtype == torch.bool
+    assert torch.equal(got, want)
+    for a, b in zip(ins, keep):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k7_out_of_range_id_raises_on_card(card):
+    """A value id at or past n_ids never indexes the kernel's tables: the
+    launch sets the caller's flag and check_error raises, and a smaller
+    n_ids than the interner's is caught the same way; an id on an
+    unselected inventory row is never read."""
+    src, inv, sel, names = (t.to(card) for t in _k7_case(4096, 64, 5))
+
+    def join(s, i, exclude, n_ids):
+        err = invjoin.error_flag(card)
+        out = invjoin.inv_join_mask(s, i, sel, names, exclude, n_ids, err)
+        invjoin.check_error(err, n_ids)
+        return out
+
+    join(src, inv, True, 64)
+    bad = src.clone()
+    bad[17] = 64
+    with pytest.raises(IndexError, match="outside"):
+        join(bad, inv, True, 64)
+    bad = inv.clone()
+    bad[sel.nonzero()[0, 0]] = 1 << 30
+    with pytest.raises(IndexError, match="outside"):
+        join(src, bad, False, 64)
+    with pytest.raises(IndexError, match="outside"):
+        join(src, inv, True, 10)
+    bad = inv.clone()
+    bad[(~sel).nonzero()[0, 0]] = 1 << 30
+    got = join(src, bad, True, 64)
+    assert torch.equal(got, invjoin.inv_join_mask_plain(src, inv, sel,
+                                                        names, True, 64))
+
+
+@pytest.mark.cuda
+def test_k7_follows_the_interner_growth_on_card(card):
+    """The per-value tables are sized per call: a second call with more
+    ids (new hosts interned between sweeps) and values past the first
+    call's size is exact."""
+    small = tuple(t.to(card) for t in _k7_case(5000, 100, 1))
+    big = tuple(t.to(card) for t in _k7_case(5000, 90_000, 2))
+    for ins, n_ids in ((small, 100), (big, 90_000), (small, 100)):
+        err = invjoin.error_flag(card)
+        got = invjoin.inv_join_mask(*ins, True, n_ids, err)
+        invjoin.check_error(err, n_ids)
+        assert torch.equal(got,
+                           invjoin.inv_join_mask_plain(*ins, True, n_ids))
+
+
+@pytest.mark.cuda
+def test_invjoin_devpages_on_card_matches_cpu(card, monkeypatch):
+    """K8sUniqueIngressHost under devpages through TorchDriver() on the
+    card and TorchDriver(device="cpu"): equal results and ledger events
+    over a cold sweep and churn that clears and re-appears duplicates
+    on rows that never churned, one K7 launch per delta evaluation."""
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.library import all_docs
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    monkeypatch.setattr(torch_driver, "SMALL_WORKLOAD_EVALS", 0)
+    monkeypatch.setenv("GATEKEEPER_PAGES", "on")
+    monkeypatch.setenv("GATEKEEPER_DEVPAGES", "on")
+    monkeypatch.setenv("GATEKEEPER_PAGE_ROWS", "16")
+
+    def ingress(name, host):
+        return {"apiVersion": "networking.k8s.io/v1", "kind": "Ingress",
+                "metadata": {"name": name, "namespace": "default"},
+                "spec": {"host": host}}
+
+    gpu, cpu = TorchDriver(), TorchDriver(device="cpu")
+    clients = []
+    for d in (gpu, cpu):
+        c = Backend(d).new_client([K8sValidationTarget()])
+        for tdoc, cdoc in all_docs():
+            if tdoc["spec"]["crd"]["spec"]["names"]["kind"] == \
+                    "K8sUniqueIngressHost":
+                c.add_template(tdoc)
+                c.add_constraint(cdoc)
+        c.add_data_batch(make_resources(200, random.Random(1))
+                         + [ingress(f"ing{i}", f"h{i % 7}.example.com")
+                            for i in range(20)])
+        clients.append(c)
+    steps = [[], [("remove", ingress("ing0", "h0.example.com"))],
+             [("add", ingress("ing-new", "h6.example.com"))]]
+    for step in steps:
+        for c in clients:
+            for op, o in step:
+                (c.add_data if op == "add" else c.remove_data)(dict(o))
+        launches = invjoin.inv_join_mask.launches
+        a, b = ([(r.constraint["metadata"]["name"], r.msg,
+                  r.resource["metadata"]["name"])
+                 for r in c.audit().results()] for c in clients)
+        assert a == b and a
+        dv = gpu.last_sweep_phases["devpages"]
+        assert dv["inv_joins_device"] == 1 and dv["kinds_device"] == 1
+        assert invjoin.inv_join_mask.launches - launches == \
+            1 + dv["delta_overflows"]
+    ga, ca = (d._state("admission.k8s.gatekeeper.sh").ledger.export()
+              for d in (gpu, cpu))
+    assert ga == ca

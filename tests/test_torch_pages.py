@@ -16,14 +16,14 @@ against the JAX reference, on the CPU.
   stanzas' bytes are equal but for the scatter row ids: the port ships
   them as int32 where the reference counts int64 ones, 4 bytes fewer per
   scattered row (ROADMAP Queue C).
-- The one named gap: under devpages the reference serves the
-  inventory-join kind K8sUniqueIngressHost from its ledger (kernel B7);
-  the port keeps it on the legacy sweep (reason
-  ``inventory-join-not-ported``) with equal results and no ledger events.
+- Under devpages both drivers page the inventory-join kind
+  K8sUniqueIngressHost (kernel B7, the port's K7) beside row-local kinds,
+  with equal events (tests/test_torch_invjoin.py ports
+  ``TestCrossRowInventoryJoin``).
 
-The snapshot, reactor and B7 scenarios of those files
-(``TestPagemapSnapshot``, ``TestWatchWatermark``, ``TestGeometrySnapshot``,
-``TestCrossRowInventoryJoin``) wait for the slices that port them.
+The snapshot and reactor scenarios of those files
+(``TestPagemapSnapshot``, ``TestWatchWatermark``, ``TestGeometrySnapshot``)
+wait for the slices that port them.
 """
 
 import collections
@@ -66,7 +66,6 @@ EVENT_KEYS = ("seq", "target", "op", "kind", "constraint", "resource", "msg")
 # ones: 4 bytes fewer per scattered row, all other bytes equal
 BYTE_KEYS = ("h2d_bytes", "h2d_scatter_bytes")
 ROW_ID_BYTES_SAVED = 4
-INV_JOIN_GAP = "inventory-join-not-ported"
 ROUTE_ENV = ("GATEKEEPER_PAGES", "GATEKEEPER_DEVPAGES",
              "GATEKEEPER_PAGE_ROWS", "GATEKEEPER_FOOTPRINT",
              "GATEKEEPER_SNAPSHOT_DIR", "GATEKEEPER_DEVPAGES_BUDGET_BYTES")
@@ -365,33 +364,9 @@ class Harness:
         evs, ref_evs = self.t.new_events(), self.j.new_events()
         (tp, tdv, t_rows), (jp, jdv, j_rows) = \
             self.t.stanzas(), self.j.stanzas()
-        gap = sorted(k for k, why in tp["fallback_reasons"].items()
-                     if why == INV_JOIN_GAP)
-        if not gap:
-            assert evs == ref_evs
-            assert tp == jp
-            assert_devpages_stanza_equal(tdv, jdv, t_rows, j_rows)
-            return got, evs, oracle
-        # the named gap: the reference pages these inventory-join kinds
-        # under devpages, the port sweeps them legacy — every other
-        # kind's events in the reference's order, and the routing
-        # accounted kind by kind
-        assert self.devpages
-        assert [e for e in evs if e["kind"] in gap] == []
-        drop = ("seq",)
-        assert [{k: v for k, v in e.items() if k not in drop}
-                for e in evs] == \
-            [{k: v for k, v in e.items() if k not in drop}
-             for e in ref_evs if e["kind"] not in gap]
-        assert [e["seq"] for e in evs] == sorted({e["seq"] for e in evs})
-        assert tp["fallback_reasons"] == {
-            **jp["fallback_reasons"], **{k: INV_JOIN_GAP for k in gap}}
-        assert tp["kinds_paged"] == jp["kinds_paged"] - len(gap)
-        for key in ("enabled", "page_rows", "n_pages", "widen_fallbacks"):
-            assert tp[key] == jp[key], key
-        assert tdv["fallback_reasons"] == {
-            k: why for k, why in jdv["fallback_reasons"].items()
-            if k not in gap}
+        assert evs == ref_evs
+        assert tp == jp
+        assert_devpages_stanza_equal(tdv, jdv, t_rows, j_rows)
         return got, evs, oracle
 
     @property
@@ -633,7 +608,8 @@ def test_observable_kinds_match_reference():
 
 
 # ---------------------------------------------------------------------------
-# the named gap, the __match__ hazard, and what must not be hidden
+# the inventory-join kind, the __match__ hazard, and what must not be
+# hidden
 
 
 def _ingress(name, host, ns="default"):
@@ -643,45 +619,40 @@ def _ingress(name, host, ns="default"):
                      "tls": [{"secretName": "tls"}]}}
 
 
-def test_inventory_join_kind_stays_legacy_under_devpages(monkeypatch):
-    """K8sUniqueIngressHost (cross-row through one inventory join): the
-    reference pages it under devpages (B7); the port keeps it on the
-    legacy sweep, reason inventory-join-not-ported, with results equal
-    to the reference's and the oracle's, and no ledger entry."""
+def test_inventory_join_kind_is_paged_under_devpages(monkeypatch):
+    """K8sUniqueIngressHost (cross-row through one inventory join) beside
+    a row-local kind: under devpages both drivers page both kinds (the
+    port through K7) with equal results, ledger events and stanzas, and
+    both ledgers hold the join kind."""
     kinds = ("K8sUniqueIngressHost", "K8sAllowedRepos")
     resources = make_mixed(random.Random(5), 40) + [
         _ingress("dup-a", "same.example.com"),
         _ingress("dup-b", "same.example.com"),
         _ingress("solo", "solo.example.com")]
-    jd, jc, td, tc = _pair(kinds, resources)
-    oracle = TorchDriver(device="cpu")
-    oc = _client(oracle, TBackend, TTarget, tall_docs, kinds)
-    oc.add_data_batch(copy.deepcopy(resources))
-    monkeypatch.setenv("GATEKEEPER_DEVPAGES", "on")
-    for batch in ([], [("remove", _ingress("dup-b", "same.example.com"))]):
-        for c in (jc, tc, oc):
-            for _op, o in batch:
-                c.remove_data(copy.deepcopy(o))
-        monkeypatch.setenv("GATEKEEPER_PAGES", "on")
-        want = _results(jd.query_audit(TARGET, JOpts(
-            limit_per_constraint=20))[0])
-        got = _results(td.query_audit(TARGET, TOpts(
-            limit_per_constraint=20))[0])
-        monkeypatch.setenv("GATEKEEPER_PAGES", "off")
-        base = _results(oracle.query_audit(TARGET, TOpts(
-            limit_per_constraint=20))[0])
-        assert got == want and sorted(got) == sorted(base)
-        # dup-a violates beside dup-b, and clears once dup-b is gone
+    h = library_harness(monkeypatch, kinds, resources, True)
+    steps = [([], True, ()),
+             ([("remove", _ingress("dup-b", "same.example.com"))], False,
+              ("dup-a", "dup-b")),
+             ([("upsert", _ingress("dup-c", "same.example.com"))], True,
+              ("dup-a", "dup-c"))]
+    for batch, dup_a, changed in steps:
+        h.apply(batch)
+        got, evs, _ = h.sweep()
+        # dup-a violates beside dup-b, clears once dup-b is gone and
+        # violates again beside dup-c, its own row never churning
         assert any(k == "K8sUniqueIngressHost" and name == "dup-a"
-                   for k, _c, _ns, name, _m in got) == (not batch)
-        jp, tp = (d.last_sweep_phases["pages"] for d in (jd, td))
-        assert jp["kinds_paged"] == 2 and jp["kinds_fallback"] == 0
-        assert tp["kinds_paged"] == 1
-        assert tp["fallback_reasons"] == {
-            "K8sUniqueIngressHost": "inventory-join-not-ported"}
-        led = td._state(TARGET).ledger
-        assert "K8sUniqueIngressHost" not in led.entries
-        assert "K8sUniqueIngressHost" in jd._state(TARGET).ledger.entries
+                   for k, _c, _ns, name, _m in _results(got)) == dup_a
+        assert h.pages["kinds_paged"] == 2
+        assert h.pages["kinds_fallback"] == 0
+        assert h.dv["kinds_device"] == 2
+        assert h.dv["mask_builds"] == (0 if batch else 2)
+        assert h.dv["inv_joins_device"] == 1
+        if batch:
+            assert sorted(e["resource"] for e in evs
+                          if e["kind"] == "K8sUniqueIngressHost") == \
+                [f"default/{name}" for name in changed]
+        for d in (h.j.drv, h.t.drv):
+            assert "K8sUniqueIngressHost" in d._state(TARGET).ledger.entries
 
 
 def test_resident_mask_excludes_a_stale_match_gate(monkeypatch):
