@@ -6,8 +6,8 @@ against its plain PyTorch version.
 Phases (each prints one line of its numbers):
   1. card   — nvidia-smi name/power limit, torch and CUDA versions, TF32 off
   2. build  — nvcc builds K2 (csrc/topk.cu), K3 (csrc/dfa.cu), K4
-     (csrc/scatter.cu), K6 (csrc/devdelta.cu) and K7 (csrc/invjoin.cu),
-     all at once
+     (csrc/scatter.cu), K6 (csrc/devdelta.cu), K7 (csrc/invjoin.cu) and
+     K8 (csrc/residency.cu), all at once
   3. kernels against their plain versions, bit for bit:
        K2 on random [128, 131072] masks at cap 20 and at a cap of 300
        (several passes), and at a ragged r_pad < k;
@@ -59,7 +59,21 @@ Phases (each prints one line of its numbers):
      phase's own inputs; each churned sweep's host time on A split into
      the scalar confirm, the direct clears and the ledger serve (the
      script wraps the driver's methods)
-  8. devpages ingress — the inventory-join kind (B7): K8sUniqueIngressHost
+  8. devpages budget — the residency planner (B8): drivers A and B of 7
+     (C released) go on for 3 more rounds of 1% relabels with
+     GATEKEEPER_DEVPAGES_BUDGET_BYTES=131072, under each kind's certified
+     resident claim (1,572,864 bytes): A keeps 1,024 of each mask's 4,096
+     32-row pages on the device.  Results equal B's, ledger events add
+     up, every kind on the device with 3 x 1,024 resident pages, spills
+     and restores in rounds 2 and 3, one K8 gather per kind per sweep and
+     one K8 scatter per kind from round 2, K8 equal to plain on every
+     store and expand and timed at [4, 131072] beside torch.index_select
+     / torch.index_copy, device memory flat and lower than unbudgeted by
+     the 3 masks less the 3 slot buffers, each kind's delta high-water
+     and device bindings within its Stage-8 certificate, the card's
+     total_memory (the default budget), and the planner's host time in
+     the split
+  9. devpages ingress — the inventory-join kind (B7): K8sUniqueIngressHost
      alone, one constraint on Ingress (extensions, networking.k8s.io),
      over 100,000 pods and 2,000 Ingresses in 200 namespaces (50 hosts
      shared by two, one same-name pair, the rest unique) on driver A
@@ -70,8 +84,9 @@ Phases (each prints one line of its numbers):
      equal to the duplicates the script counts, appears minus clears
      equal to the change, one K7 launch per delta evaluation (plus one
      per overflow), K7 equal to plain on the sweeps' own inputs and
-     timed there, flat device memory, the host split as in 7
-  9. the kernels JSON line, the card line, and the final JSON line.
+     timed there, flat device memory, the host split as in 7, the join
+     kind's delta high-water and device bindings within its certificate
+ 10. the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages sweeps with GATEKEEPER_PAGES=off: they measure
 the legacy sweep and assert its launch counts, and the port, like the
 reference, defaults to the paged route.
@@ -135,7 +150,8 @@ def packed_err(got, want, k: int) -> int:
                int((got[:, 1:1 + k] * gv - want[:, 1:1 + k] * wv).abs().max()))
 
 
-def kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin) -> dict:
+def kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin,
+               residency) -> dict:
     """Each kernel's wrapper as (module, name): a wrapper counts on the
     function its module's name refers to at the time of the call."""
     return {"K1": (ir_eval, "eval_mask"), "K2": (topk, "topk_packed"),
@@ -145,7 +161,9 @@ def kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin) -> dict:
             "K2b": (topk, "topk_packed_batched"),
             "K3b": (dfa, "dfa_table_batched"),
             "K6": (devdelta, "mask_delta"),
-            "K7": (invjoin, "inv_join_mask")}
+            "K7": (invjoin, "inv_join_mask"),
+            "K8g": (residency, "page_gather"),
+            "K8s": (residency, "page_scatter")}
 
 
 def reset_counts(fns: dict) -> None:
@@ -909,8 +927,283 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
           f"{mem}; third - second {mem[2] - mem[1]} bytes (< one mask, "
           f"{mask_bytes}); K6 launches over the phase {k6_launches}",
           flush=True)
+    del c, cc, led_c
+    budget_phase(rec, fns, a, b, ca, cb, resources, churn_rng, label_pool,
+                 led, ops, split)
+    split.close()
     os.environ.pop("GATEKEEPER_DEVPAGES", None)
-    del a, b, c, ca, cb, cc, led, led_c, split
+    del a, b, ca, cb, led, split
+
+
+DEVPAGES_BUDGET = 131_072
+
+
+class DeltaHighWater:
+    """Wraps one driver's ``executor.eval_mask_delta`` to measure each
+    delta evaluation's device high-water: ``max_memory_allocated`` over
+    the call less ``memory_allocated`` before it, plus the resident mask
+    and the page table it reads (the terms the certificate's devpages
+    claim counts beside the new mask).  Keeps the largest per program,
+    with the call's [C_pad, R_pad] and k."""
+
+    def __init__(self, drv):
+        self.ex = drv.executor
+        orig = self.ex.eval_mask_delta
+        self.peaks: dict[int, tuple] = {}
+
+        def run(program, bindings, match, old_mask, page_table, k, *rest):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = orig(program, bindings, match, old_mask, page_table, k,
+                       *rest)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base \
+                + old_mask.nbytes + page_table.nbytes
+            prev = self.peaks.get(id(program))
+            if prev is None or peak > prev[0]:
+                self.peaks[id(program)] = (peak, *old_mask.shape, k)
+            return out
+
+        self.ex.eval_mask_delta = run
+
+    def close(self) -> None:
+        del self.ex.eval_mask_delta
+
+
+def check_certificates(drv, watch: DeltaHighWater, what: str) -> str:
+    """Each kind's measured delta high-water against its Stage-8
+    certificate's ``transient_bytes + devpages_bytes`` at the sweep's own
+    pads and k, and its built device bindings (the executor's arrays and
+    the inventory-join input records) against ``resident_bytes`` at the
+    built shapes; fails past either."""
+    st = drv._state(TARGET)
+    out = []
+    for kind, compiled in sorted(st.templates.items()):
+        got = watch.peaks.get(id(compiled.vectorized.program)) \
+            if compiled.vectorized is not None else None
+        if got is None:
+            continue
+        peak, c_pad, r_pad, k = got
+        cert = st.memsurfaces[kind]
+        dims = {"c": c_pad, "r": r_pad}
+        claim = cert.transient_bytes(dims) + cert.devpages_bytes(
+            dims, delta_k=k)
+        b = st.bindings_cache[kind][1]
+        devs = [t for _h, t in
+                b.__dict__["_device_caches"][id(drv.executor)].values()]
+        shapes = {n: a.shape for n, a in b.arrays.items()}
+        kp = st.devpages.get(kind)
+        if kp is not None:
+            devs += list(kp.ij_dev.values())
+            shapes.update({n: tuple(t.shape) for n, t in kp.ij_dev.items()})
+        built = sum(t.numel() * t.element_size() for t in devs)
+        model = cert.resident_bytes(dims, shapes)
+        if peak > claim or built > model:
+            fail(f"{what}: {kind}'s delta evaluation held {peak} bytes "
+                 f"(certificate transient + devpages {claim}), its device "
+                 f"bindings {built} bytes (certificate resident {model})")
+        out.append(f"{kind} high-water {peak} <= {claim}, bindings {built} "
+                   f"<= {model}")
+    return "; ".join(out)
+
+
+def k8_check(residency, gathers, scatters, what: str) -> float:
+    """K8's recorded gathers and scatters against their plain versions
+    on the same inputs, bit for bit; returns max_abs_err."""
+    err = 0.0
+    for args, got in gathers:
+        for x, y in zip(got, residency.page_gather_plain(*args)):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"K8 gather mismatch in {what}")
+            err = max(err, max_err(x, y))
+    for args, got in scatters:
+        want = residency.page_scatter_plain(*args)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            fail(f"K8 scatter mismatch in {what}")
+        err = max(err, max_err(got, want))
+    return err
+
+
+def k8_numbers(residency, gather_ins, scatter_ins) -> tuple[dict, dict]:
+    """K8's gather and scatter, their plain versions and one PyTorch
+    call each (``torch.index_select`` of every gathered row;
+    ``torch.index_copy`` into zeros), timed on one store's and one
+    expand's inputs, with the bounds: the gather reads the mask and the
+    page tables and writes the slot and staging buffers once; the
+    scatter reads the slot buffer and the table and writes the whole
+    mask once."""
+    mask, slot, cold, page_rows = gather_ins
+    buf, slot_s, r_pad, _p = scatter_ins
+    c_pad = mask.shape[0]
+    n_g = slot.numel() + cold.numel()
+    rows_g = torch.cat([residency._page_rows(slot, page_rows, r_pad),
+                        residency._page_rows(cold, page_rows, r_pad)])
+    rows_s = residency._page_rows(slot_s, page_rows, r_pad)
+    zeros = torch.zeros((c_pad, r_pad), dtype=torch.bool, device=buf.device)
+    g = {"ms": cuda_ms(lambda: residency.page_gather(*gather_ins)),
+         "plain_ms": cuda_ms(lambda: residency.page_gather_plain(
+             *gather_ins)),
+         "library_ms": cuda_ms(lambda: torch.index_select(mask, 1, rows_g))}
+    g["bound_ms"], g["bound_by"] = bound(
+        mask.numel() + 4 * n_g + c_pad * n_g * page_rows, 0)
+    sc = {"ms": cuda_ms(lambda: residency.page_scatter(*scatter_ins)),
+          "plain_ms": cuda_ms(lambda: residency.page_scatter_plain(
+              *scatter_ins)),
+          "library_ms": cuda_ms(lambda: torch.index_copy(zeros, 1, rows_s,
+                                                         buf))}
+    sc["bound_ms"], sc["bound_by"] = bound(
+        buf.numel() + 4 * slot_s.numel() + c_pad * r_pad, 0)
+    return g, sc
+
+
+def budget_phase(rec: dict, fns: dict, a, b, ca, cb, resources, churn_rng,
+                 label_pool, led, ops, split) -> None:
+    """The devpages budget (item B8): driver A and oracle B of the
+    devpages phase, driver C released, go on for 3 rounds of 1% relabels
+    with GATEKEEPER_DEVPAGES_BUDGET_BYTES=DEVPAGES_BUDGET, below each
+    kind's certified resident claim: A's residency planners keep 1,024
+    pages of each [4, 131072] mask on the device and spill the rest to
+    the host.  Results equal B's, ledger events add up, K8 (page gather
+    on every store, page scatter on every expand) equals its plain
+    version on the rounds' own inputs and is timed there, the device
+    memory held between sweeps drops by the masks less the slot buffers
+    and stays flat, and each kind's delta high-water and device
+    bindings stay inside its Stage-8 certificate."""
+    import gc
+
+    from gatekeeper_tpu_torch.analysis import memsurface
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.kernels import residency
+
+    opts = QueryOpts(limit_per_constraint=CAP)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_unbudgeted = torch.cuda.memory_allocated()
+    os.environ["GATEKEEPER_DEVPAGES_BUDGET_BYTES"] = str(DEVPAGES_BUDGET)
+    watch = DeltaHighWater(a)
+    n_churn = max(len(resources) // 100, 1)
+    orig_g, orig_s = residency.page_gather, residency.page_scatter
+    k8_launches = {"K8g": 0, "K8s": 0}
+    k8_err = 0.0
+    mem = []
+    kp = a._state(TARGET).devpages
+    mask_bytes = sum(p.c_pad * p.slots for p in kp.values())
+    try:
+        for rep in range(3):
+            for i in churn_rng.sample(range(len(resources)), n_churn):
+                o = copy.deepcopy(resources[i])
+                o["metadata"]["labels"] = {k: "v" for k in label_pool
+                                           if churn_rng.random() < 0.35}
+                resources[i] = o
+                ca.add_data(o)
+                cb.add_data(o)
+            ops.clear()
+            total0 = led.total_violations()
+            gathers, scatters = [], []
+            residency.page_gather = recording(orig_g, gathers)
+            residency.page_scatter = recording(orig_s, scatters)
+            split.take()
+            reset_counts(fns)
+            os.environ["GATEKEEPER_PAGES"] = "on"
+            os.environ["GATEKEEPER_DEVPAGES"] = "on"
+            t0 = time.perf_counter()
+            res_a, _ = a.query_audit(TARGET, opts)
+            torch.cuda.synchronize()
+            a_s = time.perf_counter() - t0
+            counts = launch_counts(fns)
+            parts = split.take()
+            residency.page_gather, residency.page_scatter = orig_g, orig_s
+            os.environ["GATEKEEPER_PAGES"] = "off"
+            os.environ["GATEKEEPER_DEVPAGES"] = "off"
+            t0 = time.perf_counter()
+            res_b, _ = b.query_audit(TARGET, opts)
+            b_s = time.perf_counter() - t0
+            dv = dict(a.last_sweep_phases["devpages"])
+            if norm(res_a) != norm(res_b):
+                fail(f"devpages budget {rep + 1}: A's results differ "
+                     f"from B's")
+            if ops["appear"] - ops["clear"] \
+                    != led.total_violations() - total0:
+                fail(f"devpages budget {rep + 1}: {ops['appear']} appear "
+                     f"- {ops['clear']} clear, ledger violations {total0} "
+                     f"-> {led.total_violations()}")
+            planners = [(p.resident.active, p.resident.n_slots)
+                        if p.resident is not None else None
+                        for p in kp.values()]
+            if planners != [(True, 1024)] * 3 \
+                    or dv["kinds_device"] != 3 or dv["kinds_fallback"] \
+                    or dv["resident_pages_device"] != 3 * 1024 \
+                    or (rep and (dv["resident_spills"] <= 0
+                                 or dv["resident_restores"] <= 0)) \
+                    or counts["K8g"] != 3 \
+                    or counts["K8s"] != (3 if rep else 0) \
+                    or any(p.mask is not None for p in kp.values()):
+                fail(f"devpages budget {rep + 1}: devpages {dv}, launches "
+                     f"{counts}, planners (active, n_slots) {planners}")
+            for key in k8_launches:
+                k8_launches[key] += counts[key]
+            k8_err = max(k8_err, k8_check(residency, gathers, scatters,
+                                          f"budget round {rep + 1}"))
+            if rep == 1:
+                rec["K8g"], rec["K8s"] = k8_numbers(
+                    residency, gathers[0][0], scatters[0][0])
+                shape = tuple(gathers[0][0][0].shape)
+                n_cold = gathers[0][0][2].numel()
+            del gathers, scatters
+            torch.cuda.synchronize()
+            mem.append(torch.cuda.memory_allocated())
+            print(f"phase devpages budget {rep + 1}: relabel {n_churn} "
+                  f"pods, budget {DEVPAGES_BUDGET} bytes; A capped sweep "
+                  f"{a_s:.4f}s ({split_text(parts, a_s)}), oracle B "
+                  f"{b_s:.4f}s, {len(res_a)} results equal; "
+                  f"resident_spills {dv['resident_spills']}, "
+                  f"resident_restores {dv['resident_restores']}, "
+                  f"resident_pages_device {dv['resident_pages_device']}, "
+                  f"rows_confirmed {dv['rows_confirmed']}, scatter_rows "
+                  f"{dv['scatter_rows']}, h2d_scatter_bytes "
+                  f"{dv['h2d_scatter_bytes']}; ledger {ops['appear']} "
+                  f"appear / {ops['clear']} clear; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; "
+                  f"memory_allocated {mem[-1]}", flush=True)
+    finally:
+        residency.page_gather, residency.page_scatter = orig_g, orig_s
+        watch.close()
+        os.environ.pop("GATEKEEPER_DEVPAGES_BUDGET_BYTES", None)
+    for key in k8_launches:
+        rec[key].update(launches=k8_launches[key], max_abs_err=k8_err)
+    slots = sum(p.resident.dev_buf.numel() for p in kp.values())
+    drop = mask_bytes - slots
+    if mem[2] - mem[1] >= mask_bytes // 3 \
+            or mem_unbudgeted - mem[1] < drop \
+            or mem_unbudgeted - mem[2] < drop:
+        fail(f"devpages budget: memory_allocated {mem_unbudgeted} after the "
+             f"last unbudgeted round, {mem} after the budgeted ones: not "
+             f"flat, or not {drop} bytes lower (3 masks of "
+             f"{mask_bytes // 3} less the slot buffers)")
+    certs = check_certificates(a, watch, "devpages budget")
+    dev = torch.device("cuda", 0)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"phase devpages budget kernels: K8 equal to plain on every "
+          f"store and expand of the 3 rounds; at [{shape[0]}, "
+          f"{shape[1]}] ({1024} slots, {n_cold} cold pages of 32 rows) "
+          f"gather {rec['K8g']['ms']:.4f} ms (plain "
+          f"{rec['K8g']['plain_ms']:.4f}, torch.index_select "
+          f"{rec['K8g']['library_ms']:.4f}, bound "
+          f"{rec['K8g']['bound_ms']:.6f} bytes), scatter "
+          f"{rec['K8s']['ms']:.4f} ms (plain {rec['K8s']['plain_ms']:.4f}, "
+          f"torch.index_copy {rec['K8s']['library_ms']:.4f}, bound "
+          f"{rec['K8s']['bound_ms']:.6f} bytes); launches {k8_launches}",
+          flush=True)
+    print(f"phase devpages budget memory: memory_allocated "
+          f"{mem_unbudgeted} after the last unbudgeted round (driver C "
+          f"released), {mem} after the budgeted ones: "
+          f"{mem_unbudgeted - mem[1]} bytes lower (3 masks {mask_bytes} "
+          f"less 3 slot buffers {slots} = {drop}), third - second "
+          f"{mem[2] - mem[1]}; the card's total_memory {total} bytes = "
+          f"the Stage-8 default budget {memsurface.default_budget_bytes(dev)}"
+          f"; certificates: {certs}",
+          flush=True)
 
 
 class HostSplit:
@@ -921,11 +1214,17 @@ class HostSplit:
     confirm, the rebuild of the frozen inventory document that
     inventory-reading templates evaluate against (the target state's
     ``inventory_doc``, rebuilt once per table generation).  ``take()``
-    returns the seconds since the last call and starts again."""
+    returns the seconds since the last call and starts again.  The
+    residency planner's calls (``touch``, ``store``, ``expand`` of every
+    ``ResidencyPlanner``, wrapped on the class until ``close()``) count
+    as the part "planner": its host bookkeeping, the copy of the cold
+    pages to the host and the restore uploads, with K8's launches."""
 
-    PARTS = ("confirm", "clears", "serve", "inventory")
+    PARTS = ("confirm", "clears", "serve", "inventory", "planner")
+    PLANNER_CALLS = ("touch", "store", "expand")
 
     def __init__(self, drv, led):
+        from gatekeeper_tpu_torch.enforce.devpages import ResidencyPlanner
         self.t = dict.fromkeys(self.PARTS, 0.0)
         self.n = dict.fromkeys(self.PARTS, 0)
         self.inside = 0
@@ -933,6 +1232,9 @@ class HostSplit:
         apply_row, serve, set_row, inv_doc = (
             drv._ledger_apply_row, drv._ledger_serve, led.set_row,
             st.inventory_doc)
+        self.planner_cls = ResidencyPlanner
+        self.planner_fns = {name: getattr(ResidencyPlanner, name)
+                            for name in self.PLANNER_CALLS}
 
         def timed(part, fn, mode: str):
             """mode "confirm" marks its extent, "outside" counts only
@@ -955,6 +1257,13 @@ class HostSplit:
         drv._ledger_serve = timed("serve", serve, "always")
         led.set_row = timed("clears", set_row, "outside")
         st.inventory_doc = timed("inventory", inv_doc, "always")
+        for name, fn in self.planner_fns.items():
+            setattr(ResidencyPlanner, name, timed("planner", fn, "always"))
+
+    def close(self) -> None:
+        """Put the planner's methods back."""
+        for name, fn in self.planner_fns.items():
+            setattr(self.planner_cls, name, fn)
 
     def take(self) -> dict:
         out = {**{p: self.t[p] for p in self.PARTS},
@@ -965,12 +1274,14 @@ class HostSplit:
 
 
 def split_text(split: dict, wall: float) -> str:
-    rest = wall - split["confirm"] - split["clears"] - split["serve"]
+    rest = wall - split["confirm"] - split["clears"] - split["serve"] \
+        - split["planner"]
     return (f"scalar confirm {split['confirm']:.4f}s ({split['n_confirm']} "
             f"rows; of it the inventory document {split['inventory']:.4f}s)"
             f", direct clears {split['clears']:.4f}s ({split['n_clears']}), "
-            f"ledger serve {split['serve']:.4f}s, rest (bindings, "
-            f"transfers, device, stream) {rest:.4f}s")
+            f"ledger serve {split['serve']:.4f}s, residency planner "
+            f"{split['planner']:.4f}s ({split['n_planner']} calls), rest "
+            f"(bindings, transfers, device, stream) {rest:.4f}s")
 
 
 INGRESS_PODS = 100_000
@@ -1133,6 +1444,7 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
     ops = collections.Counter()
     led.subscribe(lambda ev: ops.update([ev["op"]]))
     split = HostSplit(a, led)
+    watch = DeltaHighWater(a)
     rng = random.Random(4321)
     label_pool = [f"l{j}" for j in range(10)]
     orig = invjoin.inv_join_mask
@@ -1240,9 +1552,12 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
         fail(f"devpages ingress: device memory grew by {mem[2] - mem[1]} "
              f"bytes from the second churned sweep to the third (one "
              f"[{kp.c_pad}, {r_pad}] mask is {mask_bytes})")
+    split.close()
+    watch.close()
     print(f"phase devpages ingress memory: memory_allocated after each "
           f"round {mem}; third - second {mem[2] - mem[1]} bytes; K7 "
-          f"launches over the phase {k7_launches}", flush=True)
+          f"launches over the phase {k7_launches}; certificates: "
+          f"{check_certificates(a, watch, 'devpages ingress')}", flush=True)
     del a, b, cpu, drivers, clients, led, kp
 
 
@@ -1265,7 +1580,8 @@ def main() -> int:
     from gatekeeper_tpu_torch.engine import torch_driver
     from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
     from gatekeeper_tpu_torch.kernels import (build, devdelta, dfa, invjoin,
-                                              ir_eval, scatter, topk)
+                                              ir_eval, residency, scatter,
+                                              topk)
     from gatekeeper_tpu_torch.kernels.op_cases import every_op_case
     from gatekeeper_tpu_torch.library import all_docs, make_mixed
     from gatekeeper_tpu_torch.library.north_star import (make_resources,
@@ -1305,7 +1621,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rec: dict[str, dict] = {}
-    fns = kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin)
+    fns = kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin,
+                     residency)
 
     def counts_of(*keys) -> dict:
         return {k: v for k, v in launch_counts(fns).items() if k in keys}
@@ -1744,14 +2061,15 @@ def main() -> int:
     # per kind (B9)
     fleet_phase(rec, fns, dev)
 
-    # ---- 7. devpages: the paged audit with device-resident deltas (B6)
+    # ---- 7. devpages: the paged audit with device-resident deltas (B6),
+    # then 8. devpages budget: the residency planner (B8)
     devpages_phase(rec, fns, dev, main_masks)
     del main_masks
 
-    # ---- 8. devpages ingress: the inventory-join kind on the device (B7)
+    # ---- 9. devpages ingress: the inventory-join kind on the device (B7)
     ingress_phase(rec, fns, dev)
 
-    # ---- 9. kernels line, card line, final line
+    # ---- 10. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -1775,10 +2093,16 @@ def main() -> int:
                "gatekeeper_tpu/engine/veval.py:1185"),
         "K7": ("invjoin", "cuda", "gatekeeper_tpu_torch/csrc/invjoin.cu",
                "gatekeeper_tpu/engine/veval.py:545"),
+        "K8g": ("residency_page_gather", "cuda",
+                "gatekeeper_tpu_torch/csrc/residency.cu",
+                "gatekeeper_tpu/enforce/devpages.py:233"),
+        "K8s": ("residency_page_scatter", "cuda",
+                "gatekeeper_tpu_torch/csrc/residency.cu",
+                "gatekeeper_tpu/enforce/devpages.py:271"),
     }
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K5", "K1b", "K2b", "K3b", "K6",
-                "K7"):
+                "K7", "K8g", "K8s"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

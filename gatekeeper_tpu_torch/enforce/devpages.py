@@ -30,38 +30,38 @@ A kind whose only cross-row dependency is a lowered inventory join
 delta sweep (K7, kernels/invjoin.py), so a verdict that flips on a row
 that did not churn still arrives as a delta.
 
-Ported in part.  Not ported yet: the Stage-8 residency planner
-(``ResidencyPlanner``, kernel B8), which needs the Stage-8 memory
-certificate — setting ``GATEKEEPER_DEVPAGES_BUDGET_BYTES`` raises
-instead of being ignored.
+Under ``GATEKEEPER_DEVPAGES_BUDGET_BYTES`` a kind whose certified
+resident claim (Stage 8, analysis/memsurface.py) exceeds the budget keeps
+only an LRU-hot subset of its mask's pages on the device between sweeps
+(:class:`ResidencyPlanner`: K8, kernels/residency.py, splits and rebuilds
+the mask; cold pages live in a host mirror and come back through K4).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 from typing import Any
 
 import numpy as np
+import torch
 
-from gatekeeper_tpu_torch.errors import ClientError
 from gatekeeper_tpu_torch.ir.prep import inv_join_binding_names
-
-BUDGET_NOT_PORTED = (
-    "GATEKEEPER_DEVPAGES_BUDGET_BYTES: the devpages residency budget (B8) "
-    "is not yet ported (it needs the Stage-8 memory certificate); unset it "
-    "to keep every kind's resident mask on the device")
+from gatekeeper_tpu_torch.kernels import residency as _residency
 
 
 def residency_budget_bytes() -> int | None:
     """GATEKEEPER_DEVPAGES_BUDGET_BYTES: device memory the resident
-    verdict masks may claim per kind.  None (unset) = unbounded — every
-    page stays device-resident.  A budget needs the residency planner,
-    which is not ported: setting one raises ClientError."""
+    verdict masks may claim per kind.  None (unset or not an integer) =
+    unbounded — every page stays device-resident."""
     raw = os.environ.get("GATEKEEPER_DEVPAGES_BUDGET_BYTES")
     if not raw:
         return None
-    raise ClientError(BUDGET_NOT_PORTED)
+    try:
+        return int(raw)
+    except ValueError:
+        return None
 
 
 DELTA_K_MIN = 256
@@ -119,6 +119,7 @@ class KindPages:
     ij_host: dict = dataclasses.field(default_factory=dict)
     #   the numpy twins the scatter staged from (value-compared)
     geometry_adopted: bool = False
+    resident: Any = None          # ResidencyPlanner under a budget
 
     def geometry(self) -> dict:
         """Plain-data device-pagemap geometry for a snapshot tier: slot
@@ -177,9 +178,8 @@ def build_inv_join_inputs(req, table, r_pad: int) -> dict[str, np.ndarray]:
 
 
 def fresh_stats() -> dict:
-    """Per-sweep devpages accounting (the ``devpages`` stanza).  The
-    keys are the JAX package's; the ``resident_*`` counters stay 0
-    until B8 is ported."""
+    """Per-sweep devpages accounting (the ``devpages`` stanza), with the
+    JAX package's keys."""
     return {"kinds_device": 0, "kinds_fallback": 0,
             "fallback_reasons": {}, "scatter_rows": 0,
             "h2d_bytes": 0, "h2d_scatter_bytes": 0,
@@ -189,3 +189,166 @@ def fresh_stats() -> dict:
             "mask_builds": 0,
             "resident_spills": 0, "resident_restores": 0,
             "resident_pages_device": 0}
+
+
+class ResidencyPlanner:
+    """Certificate-driven resident-set planner for one kind's verdict
+    mask (the JAX package's spill ladder).
+
+    When the Stage-8 certificate's devpages claim at the ACTUAL sweep
+    geometry exceeds ``GATEKEEPER_DEVPAGES_BUDGET_BYTES``, the full
+    [c_pad, r_pad] resident mask no longer lives on the device between
+    sweeps.  Instead the planner keeps an LRU-chosen *hot* subset of
+    pages in a compact device buffer of ``n_slots`` page-sized slots
+    (the largest power-of-two slot count whose bytes fit the budget —
+    the slot ladder), spills cold pages' bits to a host mirror, and
+    reconstructs the exact full mask on demand before the next delta
+    sweep: hot pages scatter back from the slot buffer (K8's
+    ``page_scatter``), spilled pages restore through the executor's row
+    scatter (``ProgramExecutor._scatter_rows``, K4), and pages that never
+    violate are zeros by the over-approximation contract.  Freed slots
+    are reused in place when the working set shifts.  ``expand`` after
+    ``store`` is bit-identical to the always-resident mask.
+
+    The bookkeeping (``slot_of``, ``free``, the ``lru`` order,
+    ``spilled``, ``spilled_any``, ``host_mask``, ``spills``,
+    ``restores``) follows the JAX package's planner step for step; the
+    LRU is an ordered dict (``list(lru)`` is the reference's list).
+
+    Inactive (``active`` False) whenever the claim fits the budget:
+    ``kp.mask`` then holds the full mask exactly as without a budget.
+    """
+
+    def __init__(self, budget: int, c_pad: int, r_pad: int,
+                 page_rows: int, cert=None):
+        self.budget = int(budget)
+        self.c_pad = int(c_pad)
+        self.r_pad = int(r_pad)
+        self.page_rows = max(int(page_rows), 1)
+        self.n_pages = -(-self.r_pad // self.page_rows)
+        dims = {"c": self.c_pad, "r": self.r_pad}
+        if cert is not None and getattr(cert, "has_r", False):
+            claim = cert.devpages_bytes(dims, delta_k=0)
+        else:
+            claim = 2 * self.c_pad * self.r_pad + 4 * self.r_pad
+        self.active = claim > self.budget
+        page_bytes = self.c_pad * self.page_rows
+        n_slots = 1
+        while (n_slots * 2 * page_bytes <= self.budget
+               and n_slots * 2 < self.n_pages):
+            n_slots *= 2
+        self.n_slots = n_slots
+        self.slot_of: dict[int, int] = {}     # page -> slot
+        self.free: list[int] = list(range(n_slots - 1, -1, -1))
+        self.lru: collections.OrderedDict[int, None] = \
+            collections.OrderedDict()         # pages, most-recent last
+        self.dev_buf = None                   # [c_pad, n_slots*page_rows]
+        self.host_mask = np.zeros((self.c_pad, self.r_pad), dtype=bool)
+        self.spilled: set[int] = set()        # pages living host-side
+        self.spilled_any: set[int] = set()    # spilled pages with a bit
+        self.has_mask = False
+        self.spills = 0                       # pages spilled to host
+        self.restores = 0                     # pages restored to device
+
+    def compatible(self, c_pad: int, r_pad: int, page_rows: int) -> bool:
+        return (self.c_pad == c_pad and self.r_pad == r_pad
+                and self.page_rows == max(int(page_rows), 1))
+
+    def holds(self, c_pad: int, r_pad: int) -> bool:
+        """True when expand() can reproduce a stored full mask at this
+        geometry."""
+        return (self.active and self.has_mask
+                and self.c_pad == c_pad and self.r_pad == r_pad)
+
+    def _page_rows_abs(self, pages) -> np.ndarray:
+        """int64 rows of ``pages`` in order, each page's rows ascending;
+        the tail page pads by repeating the last real row (a gather reads
+        one bit twice, a scatter writes the same bit twice)."""
+        lo = np.asarray(pages, dtype=np.int64)[:, None] * self.page_rows
+        rows = lo + np.arange(self.page_rows, dtype=np.int64)
+        return np.minimum(rows, self.r_pad - 1).reshape(-1)
+
+    def touch(self, pages) -> None:
+        """LRU bump: these pages were involved in the current sweep."""
+        for p in sorted(pages):
+            if 0 <= p < self.n_pages:
+                self.lru[p] = None
+                self.lru.move_to_end(p)
+
+    def _slot_pages(self, device) -> torch.Tensor:
+        """int32 [n_slots] slot -> page table (-1 = empty slot)."""
+        table = np.full((self.n_slots,), -1, dtype=np.int32)
+        for p, s in self.slot_of.items():
+            table[s] = p
+        return torch.from_numpy(table).to(device)
+
+    def store(self, new_mask: torch.Tensor) -> None:
+        """Adopt a freshly computed full mask: keep the ``n_slots``
+        most-recently-touched pages in the device slot buffer, spill
+        the rest to the host mirror, release the full-size device
+        array (K8's ``page_gather``, one copy of the cold pages to the
+        host)."""
+        hot = self._hot_pages()
+        # free slots of pages leaving the hot set (reused below)
+        for p in [p for p in self.slot_of if p not in hot]:
+            self.free.append(self.slot_of.pop(p))
+        for p in hot:
+            if p not in self.slot_of:
+                self.slot_of[p] = self.free.pop()
+        cold = [p for p in range(self.n_pages) if p not in hot]
+        dev = new_mask.device
+        self.dev_buf, staging = _residency.page_gather(
+            new_mask, self._slot_pages(dev),
+            torch.tensor(cold, dtype=torch.int32, device=dev),
+            self.page_rows)
+        newly_spilled = [p for p in cold if p not in self.spilled]
+        self.spills += len(newly_spilled)
+        if cold:
+            bits = staging.cpu().numpy()
+            self.host_mask[:, self._page_rows_abs(cold)] = bits
+            seg_any = bits.reshape(self.c_pad, len(cold),
+                                   self.page_rows).any(axis=(0, 2))
+            for p, any_bit in zip(cold, seg_any.tolist()):
+                if any_bit:
+                    self.spilled_any.add(p)
+                else:
+                    self.spilled_any.discard(p)
+        self.spilled = set(cold)
+        self.has_mask = True
+
+    def expand(self, ex) -> torch.Tensor:
+        """Reconstruct the exact full [c_pad, r_pad] mask: hot pages
+        scatter back from the slot buffer (K8's ``page_scatter``),
+        spilled non-zero pages restore host->device through the
+        executor's row scatter, all-zero pages stay zeros."""
+        if self.slot_of:
+            full = _residency.page_scatter(
+                self.dev_buf, self._slot_pages(self.dev_buf.device),
+                self.r_pad, self.page_rows)
+        else:
+            full = torch.zeros((self.c_pad, self.r_pad), dtype=torch.bool,
+                               device=ex.device)
+        restore = sorted(self.spilled & self.spilled_any)
+        if restore:
+            full = ex._scatter_rows("__resident__", full, self.host_mask,
+                                    self._page_rows_abs(restore), axis=1)
+            self.restores += len(restore)
+        return full
+
+    def _hot_pages(self) -> set[int]:
+        """The ``n_slots`` most-recently-touched pages (LRU order,
+        seeded with the lowest page indices before any touch)."""
+        hot: list[int] = []
+        for p in reversed(self.lru):
+            if len(hot) >= self.n_slots:
+                break
+            hot.append(p)
+        recent = set(hot)
+        for p in range(self.n_pages):
+            if len(hot) >= self.n_slots:
+                break
+            if p not in recent:
+                hot.append(p)
+        # built from the list in the reference's order, so iterating it
+        # assigns the free slots to pages in the reference's order
+        return set(hot)

@@ -22,7 +22,10 @@ pages through the scalar oracle (``_paged_kind``), or, under
 against the resident mask (``_devpaged_kind``: K4, K7, K3, K1, then
 K6).  Under devpages a kind whose only cross-row dependency is a lowered
 inventory join (K8sUniqueIngressHost) is paged too: K7 recomputes the
-join over the whole table on every delta sweep.
+join over the whole table on every delta sweep.  Under
+``GATEKEEPER_DEVPAGES_BUDGET_BYTES`` a kind's resident mask keeps only
+its LRU-hot pages on the device between sweeps (the residency planner,
+enforce/devpages.py, with K8).
 Every other kind, and every kind under ``GATEKEEPER_PAGES=off``, takes
 the legacy full-kind sweep — the path JaxDriver takes with
 ``GATEKEEPER_PAGES=off GATEKEEPER_FOOTPRINT=off GATEKEEPER_DEDUP=off``,
@@ -37,9 +40,11 @@ Template install runs the Stage-2 IR verifier (analysis/ir_verifier.py:
 a malformed lowered program is pinned to the scalar oracle) and the
 Stage-5 footprint and Stage-6 partition-plan certifiers
 (analysis/footprint.py, analysis/shardplan.py): the paged route reads
-the first, the fleet audit (whatif/fleet.py) both.  Admission review
-batches, the watch-driven reactor, the residency planner of the device
-pages (B8), shadow and replay what-if and sharding are not part of this
+the first, the fleet audit (whatif/fleet.py) both; the Stage-8
+memory-surface certificate (analysis/memsurface.py) gates the install
+against the device-memory budget, sizes the residency planner and orders
+a forced full sweep's kinds.  Admission review batches, the watch-driven
+reactor, shadow and replay what-if and sharding are not part of this
 port yet; the review path is the scalar engine's (LocalDriver).
 """
 
@@ -136,6 +141,10 @@ class TorchTargetState(TargetState):
         # route and both gate the fleet audit's stacking
         self.footprints: dict[str, object] = {}
         self.shardplans: dict[str, object] = {}
+        # Stage-8 memory-surface certificates (analysis/memsurface.py):
+        # the devpages residency planner sizes its claim from them and
+        # forced full sweeps order their kinds by them
+        self.memsurfaces: dict[str, object] = {}
         # continuous enforcement (enforce/ledger.py): the target's
         # VerdictLedger (created on the first paged sweep), a restored
         # pagemap awaiting adoption (always None: the port has no
@@ -246,6 +255,13 @@ class TorchDriver(LocalDriver):
                 st.shardplans[kind] = sp
             else:
                 st.shardplans.pop(kind, None)
+            # stage 8 (memory surface): the conservative peak device
+            # bytes; strict rejects an install over the budget
+            ms_cert = self._memsurface_lowered(kind, compiled)
+            if ms_cert is not None:
+                st.memsurfaces[kind] = ms_cert
+            else:
+                st.memsurfaces.pop(kind, None)
         st.templates[kind] = compiled
         st.bump(kind)
 
@@ -321,6 +337,80 @@ class TorchDriver(LocalDriver):
             self.metrics.counter("shardplan_ineligible").inc()
         return plan
 
+    def _memsurface_lowered(self, kind: str, compiled: CompiledTemplate):
+        """Stage-8 memory-surface certification (analysis/memsurface.py)
+        behind GATEKEEPER_HBM_BUDGET=off|warn|strict.  warn (default):
+        certify the conservative peak device bytes and count budget
+        breaches but serve anyway; strict: a template whose
+        worst-signature peak exceeds the budget (GATEKEEPER_HBM_BUDGET_BYTES,
+        else this driver's card's memory) fails the install with
+        ``hbm_budget_exceeded``.  A scalar-pinned template gets the empty
+        certificate.  The analysis is host code: an error in it is
+        counted and leaves the kind without a certificate."""
+        from gatekeeper_tpu_torch.analysis import memsurface
+        if memsurface.mode() == "off":
+            return None
+        if compiled.vectorized is None:
+            return memsurface.scalar_surface(kind)
+        try:
+            cert = memsurface.certify(kind, compiled, compiled.vectorized,
+                                      self.device)
+        except Exception as e:   # noqa: BLE001 — analysis must not take
+            # template install down with it; no certificate just means
+            # no budget gating or residency planning for this kind
+            from gatekeeper_tpu_torch.utils.log import logger
+            logger("engine.torch_driver").warning(
+                "memory-surface analysis errored", kind=kind, err=str(e))
+            self.metrics.counter("memsurface_errors").inc()
+            return None
+        reason = memsurface.budget_reason(cert, self.device)
+        if reason is not None:
+            self.metrics.counter("hbm_budget_exceeded").inc()
+            from gatekeeper_tpu_torch.utils.log import logger
+            logger("engine.torch_driver").warning(
+                "memory surface exceeds the device-memory budget",
+                kind=kind, reason=reason)
+            if memsurface.mode() == "strict":
+                from gatekeeper_tpu_torch.analysis.diagnostics import \
+                    Diagnostic
+                from gatekeeper_tpu_torch.errors import VetError
+                raise VetError([Diagnostic(code="hbm_budget_exceeded",
+                                           severity="error",
+                                           message=f"{kind}: {reason}")])
+        return cert
+
+    def memsurface_sweep_order(self, st, kinds: list[str]) -> list[str]:
+        """Stage-8 consumer: the dispatch order of a forced full sweep.
+        Launches are asynchronous — while kind i's kernels drain, kind
+        i+1's uploads and intermediates are already materializing, so
+        the transient claims of *adjacent* kinds coexist.  Weaving the
+        certified-peak order (largest, smallest, second-largest, ...)
+        minimizes the worst adjacent-pair sum without changing the
+        result: phase 2 re-sorts the tagged results into a total order.
+        Sorted order when the stage is off, below three kinds, or when
+        any kind lacks a certificate."""
+        from gatekeeper_tpu_torch.analysis import memsurface
+        base = sorted(kinds)
+        if memsurface.mode() == "off" or len(base) < 3:
+            return base
+        peaks = {}
+        for k in base:
+            cert = st.memsurfaces.get(k)
+            if not isinstance(cert, memsurface.MemorySurface):
+                return base
+            peaks[k] = 0 if cert.scalar_pin else cert.peak_bytes()
+        ranked = sorted(base, key=lambda k: (-peaks[k], k))
+        woven: list[str] = []
+        lo, hi = 0, len(ranked) - 1
+        while lo <= hi:
+            woven.append(ranked[lo])
+            if lo != hi:
+                woven.append(ranked[hi])
+            lo += 1
+            hi -= 1
+        self.metrics.counter("memsurface_sweep_reorders").inc()
+        return woven
+
     @locked
     def delete_template(self, target: str, kind: str) -> None:
         super().delete_template(target, kind)
@@ -328,6 +418,7 @@ class TorchDriver(LocalDriver):
         if isinstance(st, TorchTargetState):
             st.footprints.pop(kind, None)
             st.shardplans.pop(kind, None)
+            st.memsurfaces.pop(kind, None)
         st.bump(kind)
 
     @locked
@@ -761,10 +852,26 @@ class TorchDriver(LocalDriver):
             kp.page_rows = table.page_rows
             kp.n_pages = table.n_pages
         kp.free = tuple(table.free_slots())
-        # a budget needs the residency planner (B8): raises, not ported
-        _dvp.residency_budget_bytes()
-        have_mask = kp.mask is not None \
-            and tuple(kp.mask.shape) == (c_pad, r_pad)
+        # Stage-8 residency planning: under a devpages budget that the
+        # certified claim of the full resident mask exceeds, the mask
+        # lives split across a hot device slot buffer and a host spill
+        # mirror (enforce/devpages.ResidencyPlanner, K8) and is rebuilt
+        # bit-identically here before the delta sweep
+        planner = kp.resident
+        budget = _dvp.residency_budget_bytes()
+        if budget is None:
+            planner = kp.resident = None
+        elif planner is None \
+                or not planner.compatible(c_pad, r_pad, table.page_rows):
+            planner = kp.resident = _dvp.ResidencyPlanner(
+                budget, c_pad, r_pad, table.page_rows,
+                cert=st.memsurfaces.get(kind))
+        planner_holds = planner is not None \
+            and planner.holds(c_pad, r_pad)
+        spills0 = planner.spills if planner is not None else 0
+        restores0 = planner.restores if planner is not None else 0
+        have_mask = planner_holds or (
+            kp.mask is not None and tuple(kp.mask.shape) == (c_pad, r_pad))
         mask_valid = (have_mask and kp.gen == ent.gen
                       and kp.remap == table.remap_generation
                       and kp.conver == conver
@@ -773,6 +880,8 @@ class TorchDriver(LocalDriver):
             # cold rebuild after a geometry/generation change
             old_mask = torch.zeros((c_pad, r_pad), dtype=torch.bool,
                                    device=ex.device)
+        elif planner_holds:
+            old_mask = planner.expand(ex)
         else:
             old_mask = kp.mask
         k = max(kp.k, _dvp.DELTA_K_MIN)
@@ -876,7 +985,19 @@ class TorchDriver(LocalDriver):
                 - len({r // table.page_rows for r in involved}))
         else:
             dv["mask_builds"] += 1
-        kp.mask = new_mask
+        if planner is not None and planner.active:
+            # LRU bump the pages this sweep touched, then split the
+            # fresh mask across the slot buffer and the host mirror: the
+            # full-size device mask is released
+            if not refresh_only:
+                planner.touch({r // planner.page_rows for r in involved})
+            planner.store(new_mask)
+            kp.mask = None
+            dv["resident_spills"] += planner.spills - spills0
+            dv["resident_restores"] += planner.restores - restores0
+            dv["resident_pages_device"] += len(planner.slot_of)
+        else:
+            kp.mask = new_mask
         kp.gen = table.generation
         kp.remap = table.remap_generation
         kp.conver = conver
@@ -1136,7 +1257,12 @@ class TorchDriver(LocalDriver):
         specs: list[tuple] = []
         with self._prep_lock:
             self._prefetch_axes(st)
-            for kind in sorted(st.templates):
+            sweep_kinds = sorted(st.templates)
+            if full and trace is None and not self.scalar_only:
+                # forced full sweeps (no paged kinds) dispatch in the
+                # Stage-8 order; phase 2's tagged sort keeps the results
+                sweep_kinds = self.memsurface_sweep_order(st, sweep_kinds)
+            for kind in sweep_kinds:
                 compiled = st.templates[kind]
                 constraints = self._kind_constraints(st, kind)
                 if not constraints:

@@ -21,7 +21,8 @@ import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-KERNELS = ("topk", "dfa", "scatter", "devdelta", "invjoin")
+KERNELS = ("topk", "dfa", "scatter", "devdelta", "invjoin",
+           "residency")
 GENCODE = "arch=compute_90a,code=sm_90a"
 
 _LOCK = threading.Lock()

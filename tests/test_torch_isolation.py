@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "gatekeeper_tpu_torch.kernels.dfa",
                 "gatekeeper_tpu_torch.kernels.devdelta",
                 "gatekeeper_tpu_torch.kernels.invjoin",
+                "gatekeeper_tpu_torch.kernels.residency",
                 "gatekeeper_tpu_torch.analysis.ir_verifier",
+                "gatekeeper_tpu_torch.analysis.memsurface",
                 "gatekeeper_tpu_torch.enforce.ledger",
                 "gatekeeper_tpu_torch.enforce.devpages",
                 "gatekeeper_tpu_torch.obs.flightrecorder",

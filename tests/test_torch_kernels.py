@@ -6,7 +6,7 @@ machine with a CUDA card and no jax:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 On the CPU the wrappers take their plain versions; the ``cuda``-marked
-tests hold K1-K7 and the fleet audit's batched K1, K2 and K3 against
+tests hold K1-K8 and the fleet audit's batched K1, K2 and K3 against
 those plain versions on the card, bit for bit, and skip where there is
 no card.
 """
@@ -24,7 +24,8 @@ from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
 from gatekeeper_tpu_torch.ir.program import Program
 from gatekeeper_tpu_torch.kernels import devdelta
 from gatekeeper_tpu_torch.kernels import dfa as tdfa
-from gatekeeper_tpu_torch.kernels import invjoin, ir_eval, topk as ttopk
+from gatekeeper_tpu_torch.kernels import invjoin, ir_eval, residency
+from gatekeeper_tpu_torch.kernels import topk as ttopk
 from gatekeeper_tpu_torch.kernels import scatter as tscatter
 from gatekeeper_tpu_torch.kernels.op_cases import (every_op_case,
                                                    stacked_every_op_case)
@@ -687,3 +688,91 @@ def test_invjoin_devpages_on_card_matches_cpu(card, monkeypatch):
     ga, ca = (d._state("admission.k8s.gatekeeper.sh").ledger.export()
               for d in (gpu, cpu))
     assert ga == ca
+
+
+# -- K8, the residency planner's page gather and page scatter
+
+
+def test_k8_plain_gathers_and_scatters_by_definition():
+    """K8's plain versions against a loop over the pages: an empty slot
+    gathers row 0 and scatters nothing, the tail page repeats the last
+    row, and the scatter leaves every other row zero."""
+    rng = np.random.default_rng(3)
+    mask = torch.from_numpy(rng.random((3, 50)) < 0.5)
+    slot_pages = torch.tensor([2, -1, 6, 0], dtype=torch.int32)
+    cold = torch.tensor([1, 3, 4, 5], dtype=torch.int32)
+    buf, staging = residency.page_gather(mask, slot_pages, cold, 8)
+    assert buf.shape == (3, 32) and staging.shape == (3, 32)
+
+    def rows(p):
+        return [0] * 8 if p < 0 else [min(p * 8 + j, 49) for j in range(8)]
+
+    assert torch.equal(buf, mask[:, sum((rows(p) for p in [2, -1, 6, 0]),
+                                        [])])
+    assert torch.equal(staging, mask[:, sum((rows(p) for p in [1, 3, 4, 5]),
+                                            [])])
+    full = residency.page_scatter(buf, slot_pages, 50, 8)
+    want = torch.zeros_like(mask)
+    for p in (2, 6, 0):
+        want[:, rows(p)] = mask[:, rows(p)]
+    assert torch.equal(full, want)
+    none = residency.page_scatter(buf, torch.full((4,), -1,
+                                                  dtype=torch.int32), 50, 8)
+    assert not none.any()
+
+
+def _k8_case(c_pad, r_pad, page_rows, n_empty, tail, seed):
+    """(mask, slot_pages, cold_pages): half the pages in slots (``tail``
+    "hot" puts the ragged last page in slot 0, "cold" among the cold
+    pages), ``n_empty`` of the other slots emptied (-1)."""
+    rng = np.random.default_rng(seed)
+    mask = torch.from_numpy(rng.random((c_pad, r_pad)) < 0.3)
+    n_pages = -(-r_pad // page_rows)
+    n_slots = n_pages // 2
+    pages = [int(p) for p in rng.permutation(n_pages - 1)]
+    pages = [n_pages - 1] + pages if tail == "hot" \
+        else pages[:n_slots] + [n_pages - 1] + pages[n_slots:]
+    slot = np.array(pages[:n_slots], dtype=np.int32)
+    slot[1 + rng.choice(n_slots - 1, n_empty, replace=False)] = -1
+    cold = np.sort(np.array(pages[n_slots:], dtype=np.int32))
+    return mask, torch.from_numpy(slot), torch.from_numpy(cold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_pad,r_pad,page_rows,n_empty,tail", [
+    (4, 1 << 17, 32, 0, "hot"),       # the devpages budget geometry
+    (4, 1 << 17, 32, 7, "cold"),
+    (1, 1000, 16, 3, "hot"),          # ragged tail page (rows 992-999)
+    (1, 1000, 16, 3, "cold"),
+    (128, 4100, 48, 1, "hot"),        # 48-row pages, ragged tail
+    (128, 1 << 17, 32, 0, "cold"),
+    (4, 64, 1, 5, "hot"),             # one-row pages
+])
+def test_k8_matches_plain_on_card(card, c_pad, r_pad, page_rows, n_empty,
+                                  tail):
+    """K8's gather and scatter against their plain versions, bit for bit
+    (bool outputs, an empty slot's row-0 bits included), inputs
+    untouched."""
+    mask, slot, cold = (t.to(card) for t in _k8_case(
+        c_pad, r_pad, page_rows, n_empty, tail, c_pad + r_pad))
+    keep = (mask.clone(), slot.clone(), cold.clone())
+    gathers = residency.page_gather.launches
+    scatters = residency.page_scatter.launches
+    buf, staging = residency.page_gather(mask, slot, cold, page_rows)
+    full = residency.page_scatter(buf, slot, r_pad, page_rows)
+    torch.cuda.synchronize()
+    assert residency.page_gather.launches == gathers + 1
+    assert residency.page_scatter.launches == scatters + 1
+    want_buf, want_staging = residency.page_gather_plain(mask, slot, cold,
+                                                         page_rows)
+    for got, want in ((buf, want_buf), (staging, want_staging),
+                      (full, residency.page_scatter_plain(
+                          want_buf, slot, r_pad, page_rows))):
+        assert got.dtype == want.dtype == torch.bool
+        assert torch.equal(got, want)
+    for a, b in zip((mask, slot, cold), keep):
+        assert torch.equal(a, b)
+    # no cold pages at all: an empty staging buffer
+    buf2, staging2 = residency.page_gather(
+        mask, slot, cold[:0], page_rows)
+    assert staging2.shape == (c_pad, 0) and torch.equal(buf2, want_buf)

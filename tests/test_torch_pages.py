@@ -52,7 +52,6 @@ from gatekeeper_tpu_torch.engine import torch_driver
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
 from gatekeeper_tpu_torch.enforce import devpages as tdevpages
 from gatekeeper_tpu_torch.enforce.ledger import VerdictLedger as TLedger
-from gatekeeper_tpu_torch.errors import ClientError
 from gatekeeper_tpu_torch.kernels import devdelta
 from gatekeeper_tpu_torch.library import all_docs as tall_docs
 from gatekeeper_tpu_torch.store import table as ttable
@@ -715,18 +714,40 @@ def test_resident_mask_excludes_a_stale_match_gate(monkeypatch):
                                  if r[3] != "late-matcher")
 
 
-def test_budget_env_raises_not_yet_ported(monkeypatch):
-    monkeypatch.setenv("GATEKEEPER_DEVPAGES_BUDGET_BYTES", "4096")
-    with pytest.raises(ClientError, match="not yet ported"):
-        tdevpages.residency_budget_bytes()
-    td = TorchDriver(device="cpu")
+def test_budget_env_runs_the_residency_planner(monkeypatch):
+    """GATEKEEPER_DEVPAGES_BUDGET_BYTES below a kind's certified resident
+    claim: the devpages sweep keeps only the planner's slot buffer on the
+    device between sweeps and serves the host page loop's results, with
+    pages spilled and, after churn, restored."""
+    resources = make_mixed(random.Random(5), 30)
+    td, host = TorchDriver(device="cpu"), TorchDriver(device="cpu")
     tc = _client(td, TBackend, TTarget, tall_docs, KINDS3)
-    tc.add_data_batch(make_mixed(random.Random(5), 30))
-    monkeypatch.setenv("GATEKEEPER_DEVPAGES", "on")
-    with pytest.raises(ClientError, match="B8"):
-        td.query_audit(TARGET, TOpts(limit_per_constraint=20))
-    monkeypatch.setenv("GATEKEEPER_DEVPAGES", "off")
-    td.query_audit(TARGET, TOpts(limit_per_constraint=20))
+    hc = _client(host, TBackend, TTarget, tall_docs, KINDS3)
+    for c in (tc, hc):
+        c.add_data_batch(copy.deepcopy(resources))
+    monkeypatch.setenv("GATEKEEPER_DEVPAGES_BUDGET_BYTES", "256")
+    assert tdevpages.residency_budget_bytes() == 256
+    opts = TOpts(limit_per_constraint=20)
+    spills = restores = 0
+    for rnd in range(2):
+        if rnd:
+            o = copy.deepcopy(resources[7])
+            o.setdefault("metadata", {})["labels"] = {}
+            for c in (tc, hc):
+                c.add_data(copy.deepcopy(o))
+        monkeypatch.setenv("GATEKEEPER_DEVPAGES", "on")
+        got = _results(td.query_audit(TARGET, opts)[0])
+        dv = td.last_sweep_phases["devpages"]
+        monkeypatch.setenv("GATEKEEPER_DEVPAGES", "off")
+        assert got == _results(host.query_audit(TARGET, opts)[0])
+        assert dv["kinds_device"] == 3 and dv["resident_pages_device"] > 0
+        spills += dv["resident_spills"]
+        restores += dv["resident_restores"]
+    assert spills > 0 and restores > 0
+    for kp in td._state(TARGET).devpages.values():
+        assert kp.mask is None and kp.resident.active
+        assert tuple(kp.resident.dev_buf.shape) == \
+            (kp.c_pad, kp.resident.n_slots * kp.page_rows)
 
 
 def test_k6_launch_error_ends_the_sweep(monkeypatch):
