@@ -13,7 +13,8 @@ Phases (each prints one line of its numbers):
        (several passes), and at a ragged r_pad < k;
        K1 and K3 on a synthetic program that uses every IR op;
        K4 on random columns of every dtype and axis layout, with
-       duplicate padding rows; K5 on the every-op programs at random rows;
+       duplicate padding rows, one at a time and all in one batched
+       launch; K5 on the every-op programs at random rows;
        the library set (48 device-lowered templates) over 2,000
        make_mixed rows through TorchDriver on the card — K1 on every
        program, K3 on the regex template — with the sweep's launch counts
@@ -28,9 +29,12 @@ Phases (each prints one line of its numbers):
   5. churn — on the same driver and store, 3 rounds that each upsert 1%
      of the pods (new labels on existing names) and run a capped sweep:
      each sweep's results against TorchDriver(device="cpu") on the same
-     churned store, 3 K5 launches and no full K1 launch per sweep, K4
-     and K5 against their plain versions on the churn's own inputs, their
-     times at the churn's shapes, and device memory that stops growing
+     churned store, 3 K5 launches, no full K1 launch and one batched K4
+     launch per migrating kind (at most 3) per sweep, K4 and K5 against
+     their plain versions on the churn's own inputs, their times at the
+     churn's shapes (K4 per job and per batched call, each per call and
+     device-only from a CUDA graph, beside torch.index_copy timed the
+     same ways), and device memory that stops growing
   6. fleet — the fleet audit (B9): batched K1, K2 and K3 against their
      plain versions on stacked every-op cases (N 1-5, ragged sizes) and
      random masks; (a) 4 north-star clusters (100k, 90k, 80k and 60k
@@ -55,8 +59,9 @@ Phases (each prints one line of its numbers):
      sweep on all three: equal results, 3 K6 launches per churned sweep
      on A (plus one per overflow) and none on C, every kind on the
      device on A, row-sized transfers, flat device memory, ledger events
-     that add up and equal ledger totals on A and C, and K6 on the
-     phase's own inputs; each churned sweep's host time on A split into
+     that add up and equal ledger totals on A and C, K6 on the phase's
+     own inputs and every K4 call of A's churned sweeps against its plain
+     version; each churned sweep's host time on A split into
      the scalar confirm, the direct clears and the ledger serve (the
      script wraps the driver's methods)
   8. devpages budget — the residency planner (B8): drivers A and B of 7
@@ -67,8 +72,10 @@ Phases (each prints one line of its numbers):
      up, every kind on the device with 3 x 1,024 resident pages, spills
      and restores in rounds 2 and 3, one K8 gather per kind per sweep and
      one K8 scatter per kind from round 2, K8 equal to plain on every
-     store and expand and timed at [4, 131072] beside torch.index_select
-     / torch.index_copy, device memory flat and lower than unbudgeted by
+     store and expand and K4 on every restore, K8 timed at [4, 131072]
+     per call and device-only from a CUDA graph beside torch.index_select
+     / torch.index_copy timed the same ways, device memory flat and lower
+     than unbudgeted by
      the 3 masks less the 3 slot buffers, each kind's delta high-water
      and device bindings within its Stage-8 certificate, the card's
      total_memory (the default budget), and the planner's host time in
@@ -84,7 +91,8 @@ Phases (each prints one line of its numbers):
      equal to the duplicates the script counts, appears minus clears
      equal to the change, one K7 launch per delta evaluation (plus one
      per overflow), K7 equal to plain on the sweeps' own inputs and
-     timed there, flat device memory, the host split as in 7, the join
+     timed there, K4 equal to plain on every call of A's churned sweeps,
+     flat device memory, the host split as in 7, the join
      kind's delta high-water and device bindings within its certificate
  10. the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages sweeps with GATEKEEPER_PAGES=off: they measure
@@ -134,6 +142,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device-only ms per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and the graph replayed ``replays`` times between two
+    events, so neither the wrappers' Python nor the launch calls are in
+    the time.  A call that cannot be captured fails the run."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        g.replay()
+    t1.record()
+    t1.synchronize()
+    del g
+    return t0.elapsed_time(t1) / (iters * replays)
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     tb = nbytes / H100_BYTES_PER_S * 1e3
     to = ops / H100_F32_OPS_PER_S * 1e3
@@ -156,6 +188,7 @@ def kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin,
     function its module's name refers to at the time of the call."""
     return {"K1": (ir_eval, "eval_mask"), "K2": (topk, "topk_packed"),
             "K3": (dfa, "dfa_table"), "K4": (scatter, "scatter_rows"),
+            "K4m": (scatter, "scatter_rows_many"),
             "K5": (ir_eval, "delta_mask"),
             "K1b": (ir_eval, "eval_mask_batched"),
             "K2b": (topk, "topk_packed_batched"),
@@ -219,26 +252,116 @@ def max_err(got, want) -> float:
                  .abs().max()) if got.numel() else 0.0
 
 
+def k4_bytes(dev_t, rows, vals) -> int:
+    """K4's bound bytes for one job: the column read and the new column
+    written once (the copy), the values and the int32 rows read once."""
+    return 2 * dev_t.numel() * dev_t.element_size() \
+        + vals.numel() * vals.element_size() + 4 * rows.numel()
+
+
 def k4_numbers(scatter, calls) -> dict:
-    """K4, its plain version (index_copy_ on a clone) and one
-    ``torch.index_copy`` timed on each call (mean), with the bound: the
-    column read and the new column written once (the copy), the values
-    and the int32 rows read once."""
-    out = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+    """The single K4 entry, its plain version (index_copy_ on a clone)
+    and one ``torch.index_copy`` timed on each job (mean): per call with
+    CUDA events (``ms``, ``plain_ms``, ``library_ms``) and device-only
+    from a CUDA graph (``device_ms``, ``library_device_ms``), with the
+    bound (:func:`k4_bytes`)."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+            "library_device_ms")
+    out = dict.fromkeys(keys, 0.0)
     for dev_t, rows, vals, axis in calls:
-        nbytes = 2 * dev_t.numel() * dev_t.element_size() \
-            + vals.numel() * vals.element_size() + 4 * rows.numel()
         idx = rows.to(torch.int64)
-        out["bound_ms"] += bound(nbytes, 0)[0]
+        out["bound_ms"] += bound(k4_bytes(dev_t, rows, vals), 0)[0]
         out["ms"] += cuda_ms(lambda: scatter.scatter_rows(dev_t, rows, vals,
                                                           axis))
         out["plain_ms"] += cuda_ms(lambda: scatter.scatter_rows_plain(
             dev_t, rows, vals, axis))
         out["library_ms"] += cuda_ms(lambda: torch.index_copy(
             dev_t, axis, idx, vals))
+        out["device_ms"] += graph_ms(lambda: scatter.scatter_rows(
+            dev_t, rows, vals, axis))
+        out["library_device_ms"] += graph_ms(lambda: torch.index_copy(
+            dev_t, axis, idx, vals))
     out = {k: v / len(calls) for k, v in out.items()}
     out["bound_by"] = "bytes"
     return out
+
+
+def k4m_numbers(scatter, batches) -> dict:
+    """The batched K4 entry on each recorded batch of jobs (mean over the
+    batches): the call, its plain version and the yardstick, one
+    ``torch.index_copy`` per job, timed per call and device-only as in
+    :func:`k4_numbers`; the bound sums the jobs'."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms",
+            "library_device_ms")
+    out = dict.fromkeys(keys, 0.0)
+    for jobs in batches:
+        idx = [rows.to(torch.int64) for _d, rows, _v, _a in jobs]
+
+        def library():
+            for (dev_t, _r, vals, axis), i in zip(jobs, idx):
+                torch.index_copy(dev_t, axis, i, vals)
+
+        out["bound_ms"] += bound(sum(k4_bytes(d, r, v)
+                                     for d, r, v, _a in jobs), 0)[0]
+        out["ms"] += cuda_ms(lambda: scatter.scatter_rows_many(jobs))
+        out["plain_ms"] += cuda_ms(lambda: scatter.scatter_rows_many_plain(
+            jobs))
+        out["library_ms"] += cuda_ms(library)
+        out["device_ms"] += graph_ms(lambda: scatter.scatter_rows_many(jobs))
+        out["library_device_ms"] += graph_ms(library)
+    out = {k: v / len(batches) for k, v in out.items()}
+    out["bound_by"] = "bytes"
+    return out
+
+
+class K4Calls:
+    """Keeps every K4 call made while installed, through either entry
+    (each entry stands in as :func:`recording` under its module's name,
+    so the launch counts go to the stand-ins): ``check`` holds every
+    recorded job's result against the plain version, bit for bit, and
+    forgets them; ``restore`` puts the entries back."""
+
+    def __init__(self, scatter):
+        self.scatter = scatter
+        self.orig = (scatter.scatter_rows, scatter.scatter_rows_many)
+        self.single: list = []
+        self.many: list = []
+
+    def install(self) -> None:
+        self.scatter.scatter_rows = recording(self.orig[0], self.single)
+        self.scatter.scatter_rows_many = recording(self.orig[1], self.many)
+
+    def restore(self) -> None:
+        self.scatter.scatter_rows, self.scatter.scatter_rows_many = self.orig
+
+    def jobs(self) -> list:
+        """(job args, result) of every recorded job, single or batched."""
+        out = list(self.single)
+        for (jobs,), outs in self.many:
+            out += list(zip(jobs, outs))
+        return out
+
+    def finish(self, what: str, rec: dict) -> int:
+        """Restore the entries, check the recorded jobs and fold their
+        max_abs_err into ``rec["K4"]``; returns the jobs checked."""
+        self.restore()
+        n, err = self.check(what)
+        rec["K4"]["max_abs_err"] = max(rec["K4"]["max_abs_err"], err)
+        return n
+
+    def check(self, what: str) -> tuple[int, float]:
+        """(jobs checked, max_abs_err); forgets the calls after."""
+        err = 0.0
+        done = self.jobs()
+        for (col, rows, vals, axis), got in done:
+            want = self.scatter.scatter_rows_plain(col, rows, vals, axis)
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                fail(f"K4 mismatch in {what}: {list(col.shape)} "
+                     f"{col.dtype} axis {axis}, {rows.numel()} rows")
+            err = max(err, max_err(got, want))
+        self.single.clear()
+        self.many.clear()
+        return len(done), err
 
 
 def k5_numbers(ex, ir_eval, calls) -> dict:
@@ -689,11 +812,13 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
     from gatekeeper_tpu_torch.client.interface import QueryOpts
     from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
     from gatekeeper_tpu_torch.enforce.devpages import delta_bucket
-    from gatekeeper_tpu_torch.kernels import devdelta
+    from gatekeeper_tpu_torch.kernels import devdelta, scatter
     from gatekeeper_tpu_torch.library.north_star import (make_resources,
                                                          setup_north_star)
 
     opts = QueryOpts(limit_per_constraint=CAP)
+    k4_calls = K4Calls(scatter)
+    k4_jobs = 0
 
     def sweep(drv, paged: bool, devpages: bool | None = None):
         os.environ["GATEKEEPER_PAGES"] = "on" if paged else "off"
@@ -838,12 +963,14 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
         total0_c = led_c.total_violations()
         if rep == 0:
             devdelta.mask_delta = recording(orig, calls)
+        k4_calls.install()
         split.take()
         reset_counts(fns)
         res_a, a_s = sweep(a, True)
         counts = launch_counts(fns)
         parts = split.take()
         devdelta.mask_delta = orig
+        k4_jobs += k4_calls.finish(f"devpages churn {rep + 1} on A", rec)
         dv = dict(a.last_sweep_phases["devpages"])
         pg = dict(a.last_sweep_phases["pages"])
         res_b, b_s = sweep(b, False)
@@ -925,8 +1052,8 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
              f"mask is {mask_bytes})")
     print(f"phase devpages memory: memory_allocated after each round "
           f"{mem}; third - second {mem[2] - mem[1]} bytes (< one mask, "
-          f"{mask_bytes}); K6 launches over the phase {k6_launches}",
-          flush=True)
+          f"{mask_bytes}); K6 launches over the phase {k6_launches}; K4 "
+          f"equal to plain on A's {k4_jobs} scatters", flush=True)
     del c, cc, led_c
     budget_phase(rec, fns, a, b, ca, cb, resources, churn_rng, label_pool,
                  led, ops, split)
@@ -1029,7 +1156,8 @@ def k8_numbers(residency, gather_ins, scatter_ins) -> tuple[dict, dict]:
     """K8's gather and scatter, their plain versions and one PyTorch
     call each (``torch.index_select`` of every gathered row;
     ``torch.index_copy`` into zeros), timed on one store's and one
-    expand's inputs, with the bounds: the gather reads the mask and the
+    expand's inputs per call and (kernel and PyTorch call) device-only
+    from a CUDA graph, with the bounds: the gather reads the mask and the
     page tables and writes the slot and staging buffers once; the
     scatter reads the slot buffer and the table and writes the whole
     mask once."""
@@ -1044,14 +1172,20 @@ def k8_numbers(residency, gather_ins, scatter_ins) -> tuple[dict, dict]:
     g = {"ms": cuda_ms(lambda: residency.page_gather(*gather_ins)),
          "plain_ms": cuda_ms(lambda: residency.page_gather_plain(
              *gather_ins)),
-         "library_ms": cuda_ms(lambda: torch.index_select(mask, 1, rows_g))}
+         "library_ms": cuda_ms(lambda: torch.index_select(mask, 1, rows_g)),
+         "device_ms": graph_ms(lambda: residency.page_gather(*gather_ins)),
+         "library_device_ms": graph_ms(lambda: torch.index_select(
+             mask, 1, rows_g))}
     g["bound_ms"], g["bound_by"] = bound(
         mask.numel() + 4 * n_g + c_pad * n_g * page_rows, 0)
     sc = {"ms": cuda_ms(lambda: residency.page_scatter(*scatter_ins)),
           "plain_ms": cuda_ms(lambda: residency.page_scatter_plain(
               *scatter_ins)),
           "library_ms": cuda_ms(lambda: torch.index_copy(zeros, 1, rows_s,
-                                                         buf))}
+                                                         buf)),
+          "device_ms": graph_ms(lambda: residency.page_scatter(*scatter_ins)),
+          "library_device_ms": graph_ms(lambda: torch.index_copy(
+              zeros, 1, rows_s, buf))}
     sc["bound_ms"], sc["bound_by"] = bound(
         buf.numel() + 4 * slot_s.numel() + c_pad * r_pad, 0)
     return g, sc
@@ -1074,9 +1208,11 @@ def budget_phase(rec: dict, fns: dict, a, b, ca, cb, resources, churn_rng,
 
     from gatekeeper_tpu_torch.analysis import memsurface
     from gatekeeper_tpu_torch.client.interface import QueryOpts
-    from gatekeeper_tpu_torch.kernels import residency
+    from gatekeeper_tpu_torch.kernels import residency, scatter
 
     opts = QueryOpts(limit_per_constraint=CAP)
+    k4_calls = K4Calls(scatter)
+    k4_jobs = 0
     gc.collect()
     torch.cuda.synchronize()
     mem_unbudgeted = torch.cuda.memory_allocated()
@@ -1103,6 +1239,7 @@ def budget_phase(rec: dict, fns: dict, a, b, ca, cb, resources, churn_rng,
             gathers, scatters = [], []
             residency.page_gather = recording(orig_g, gathers)
             residency.page_scatter = recording(orig_s, scatters)
+            k4_calls.install()
             split.take()
             reset_counts(fns)
             os.environ["GATEKEEPER_PAGES"] = "on"
@@ -1114,6 +1251,8 @@ def budget_phase(rec: dict, fns: dict, a, b, ca, cb, resources, churn_rng,
             counts = launch_counts(fns)
             parts = split.take()
             residency.page_gather, residency.page_scatter = orig_g, orig_s
+            k4_jobs += k4_calls.finish(f"devpages budget round {rep + 1}",
+                                       rec)
             os.environ["GATEKEEPER_PAGES"] = "off"
             os.environ["GATEKEEPER_DEVPAGES"] = "off"
             t0 = time.perf_counter()
@@ -1168,6 +1307,7 @@ def budget_phase(rec: dict, fns: dict, a, b, ca, cb, resources, churn_rng,
                   f"memory_allocated {mem[-1]}", flush=True)
     finally:
         residency.page_gather, residency.page_scatter = orig_g, orig_s
+        k4_calls.restore()
         watch.close()
         os.environ.pop("GATEKEEPER_DEVPAGES_BUDGET_BYTES", None)
     for key in k8_launches:
@@ -1187,14 +1327,20 @@ def budget_phase(rec: dict, fns: dict, a, b, ca, cb, resources, churn_rng,
     print(f"phase devpages budget kernels: K8 equal to plain on every "
           f"store and expand of the 3 rounds; at [{shape[0]}, "
           f"{shape[1]}] ({1024} slots, {n_cold} cold pages of 32 rows) "
-          f"gather {rec['K8g']['ms']:.4f} ms (plain "
+          f"gather {rec['K8g']['ms']:.4f} ms, device "
+          f"{rec['K8g']['device_ms']:.4f} (plain "
           f"{rec['K8g']['plain_ms']:.4f}, torch.index_select "
-          f"{rec['K8g']['library_ms']:.4f}, bound "
+          f"{rec['K8g']['library_ms']:.4f}, device "
+          f"{rec['K8g']['library_device_ms']:.4f}, bound "
           f"{rec['K8g']['bound_ms']:.6f} bytes), scatter "
-          f"{rec['K8s']['ms']:.4f} ms (plain {rec['K8s']['plain_ms']:.4f}, "
-          f"torch.index_copy {rec['K8s']['library_ms']:.4f}, bound "
-          f"{rec['K8s']['bound_ms']:.6f} bytes); launches {k8_launches}",
-          flush=True)
+          f"{rec['K8s']['ms']:.4f} ms, device "
+          f"{rec['K8s']['device_ms']:.4f} (plain "
+          f"{rec['K8s']['plain_ms']:.4f}, torch.index_copy into zeros "
+          f"{rec['K8s']['library_ms']:.4f}, device "
+          f"{rec['K8s']['library_device_ms']:.4f}, bound "
+          f"{rec['K8s']['bound_ms']:.6f} bytes); launches {k8_launches}; "
+          f"K4 equal to plain on A's {k4_jobs} scatters (migrations and "
+          f"restores)", flush=True)
     print(f"phase devpages budget memory: memory_allocated "
           f"{mem_unbudgeted} after the last unbudgeted round (driver C "
           f"released), {mem} after the budgeted ones: "
@@ -1364,7 +1510,7 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
     from gatekeeper_tpu_torch.client.client import Backend
     from gatekeeper_tpu_torch.client.interface import QueryOpts
     from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-    from gatekeeper_tpu_torch.kernels import invjoin
+    from gatekeeper_tpu_torch.kernels import invjoin, scatter
     from gatekeeper_tpu_torch.library.north_star import make_resources
     from gatekeeper_tpu_torch.library.templates import (LIBRARY,
                                                         constraint_doc,
@@ -1449,6 +1595,8 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
     label_pool = [f"l{j}" for j in range(10)]
     orig = invjoin.inv_join_mask
     calls: list = []
+    k4_calls = K4Calls(scatter)
+    k4_jobs = 0
     k7_launches = cold_counts["K7"]
     mem = []
     serial = INGRESS_COUNT
@@ -1490,12 +1638,15 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
         total0 = led.total_violations()
         if rep == 0:
             invjoin.inv_join_mask = recording(orig, calls)
+        k4_calls.install()
         split.take()
         reset_counts(fns)
         res_a, a_s = sweep(a, True)
         counts = launch_counts(fns)
         parts = split.take()
         invjoin.inv_join_mask = orig
+        k4_jobs += k4_calls.finish(
+            f"devpages ingress churn {rep + 1} on A", rec)
         dv = dict(a.last_sweep_phases["devpages"])
         res_b, b_s = sweep(b, False)
         res_c, c_s = sweep(cpu, False)
@@ -1556,7 +1707,8 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
     watch.close()
     print(f"phase devpages ingress memory: memory_allocated after each "
           f"round {mem}; third - second {mem[2] - mem[1]} bytes; K7 "
-          f"launches over the phase {k7_launches}; certificates: "
+          f"launches over the phase {k7_launches}; K4 equal to plain on "
+          f"A's {k4_jobs} scatters; certificates: "
           f"{check_certificates(a, watch, 'devpages ingress')}", flush=True)
     del a, b, cpu, drivers, clients, led, kp
 
@@ -1668,6 +1820,7 @@ def main() -> int:
     # K5 on the every-op programs at random rows; rows padded to their
     # bucket by repeating the first row (with its values)
     rng = np.random.default_rng(11)
+    rand_jobs = []
     for shape, axis, dtype in (
             ((131072,), 0, torch.bool), ((131072,), 0, torch.int32),
             ((131072,), 0, torch.int8), ((131072,), 0, torch.int16),
@@ -1699,6 +1852,19 @@ def main() -> int:
                     col, rows, vals, axis)) or not torch.equal(col, keep):
                 fail(f"K4 mismatch on {dtype} {list(shape)} axis {axis}, "
                      f"{n_dirty} rows")
+            rand_jobs.append((col, rows, vals, axis))
+    # the same 36 jobs through the batched entry: one launch
+    launched = scatter.scatter_rows_many.launches
+    for (col, rows, vals, axis), got in zip(
+            rand_jobs, scatter.scatter_rows_many(rand_jobs)):
+        torch.cuda.synchronize()
+        if not torch.equal(got, scatter.scatter_rows_plain(col, rows, vals,
+                                                           axis)):
+            fail(f"batched K4 mismatch on {col.dtype} {list(col.shape)} "
+                 f"axis {axis}, {rows.numel()} rows")
+    if scatter.scatter_rows_many.launches != launched + 1:
+        fail("batched K4 took more than one launch for 36 jobs")
+    del rand_jobs, col, vals, keep, got
     # the match-mask shape a churned kind scatters: [C_pad, R_pad] bool
     # along R, 1% of 100k rows (bucket 1024)
     dirty = np.sort(rng.choice(100_000, size=1000, replace=False))
@@ -1724,12 +1890,14 @@ def main() -> int:
                 fail(f"K5 mismatch on the every-op case {seed}, {n_dirty} "
                      "rows")
     print(f"phase K4/K5 random: K4 equal to plain on 12 dtype/axis layouts "
-          f"x 3 row counts with duplicate padding rows; [128, 131072] bool "
-          f"along R, 1024 rows: {k4_mask['ms']:.4f} ms (plain "
-          f"{k4_mask['plain_ms']:.4f}, torch.index_copy "
-          f"{k4_mask['library_ms']:.4f}, bound {k4_mask['bound_ms']:.4f}); "
-          f"K5 equal to plain on 2 every-op programs x 3 row counts",
-          flush=True)
+          f"x 3 row counts with duplicate padding rows, one at a time and "
+          f"all 36 in one batched launch; [128, 131072] bool along R, 1024 "
+          f"rows: {k4_mask['ms']:.4f} ms, device {k4_mask['device_ms']:.4f}"
+          f" (plain {k4_mask['plain_ms']:.4f}, torch.index_copy "
+          f"{k4_mask['library_ms']:.4f}, device "
+          f"{k4_mask['library_device_ms']:.4f}, bound "
+          f"{k4_mask['bound_ms']:.4f}); K5 equal to plain on 2 every-op "
+          f"programs x 3 row counts", flush=True)
 
     # ---- 3d. library set through TorchDriver on the card
     torch_driver.SMALL_WORKLOAD_EVALS = 0
@@ -1904,8 +2072,9 @@ def main() -> int:
     n_churn = max(args.resources // 100, 1)
     churn_rng = random.Random(1234)
     label_pool = [f"l{j}" for j in range(10)]
-    orig = {"K4": scatter.scatter_rows, "K5": ir_eval.delta_mask}
-    calls = {"K4": [], "K5": []}
+    orig = {"K5": ir_eval.delta_mask}
+    calls = {"K5": []}
+    k4_calls = K4Calls(scatter)
     churn_counts = dict.fromkeys(fns, 0)
     x = drv.executor
     mem = []
@@ -1925,7 +2094,7 @@ def main() -> int:
             cpu_client.add_data(o)
         if rep == 0:
             # keep the first sweep's K4/K5 inputs to check them after it
-            scatter.scatter_rows = recording(orig["K4"], calls["K4"])
+            k4_calls.install()
             ir_eval.delta_mask = recording(orig["K5"], calls["K5"])
         before = (x.mask_evals, x.delta_evals, x.h2d_bytes,
                   x.h2d_scatter_bytes, x.h2d_scatter_rows)
@@ -1934,7 +2103,8 @@ def main() -> int:
         res, _ = drv.query_audit(TARGET, opts)
         sweep_s = time.perf_counter() - t0
         swept = launch_counts(fns)
-        scatter.scatter_rows, ir_eval.delta_mask = orig["K4"], orig["K5"]
+        k4_calls.restore()
+        ir_eval.delta_mask = orig["K5"]
         for k, v in swept.items():
             churn_counts[k] += v
         d_mask, d_delta, d_h2d, d_sb, d_sr = (
@@ -1947,10 +2117,10 @@ def main() -> int:
         if norm(res) != norm(want_res):
             fail(f"churn sweep {rep + 1} differs from TorchDriver(cpu)")
         if (swept["K5"], swept["K1"], d_delta, d_mask) != (3, 0, 3, 0) \
-                or swept["K4"] <= 0:
-            fail(f"churn sweep {rep + 1} did not take the delta plan: "
-                 f"launches {swept}, delta_evals {d_delta}, mask_evals "
-                 f"{d_mask}")
+                or not 0 < swept["K4"] <= 3 or swept["K4m"] != swept["K4"]:
+            fail(f"churn sweep {rep + 1} did not take the delta plan with "
+                 f"one batched K4 launch per migrating kind: launches "
+                 f"{swept}, delta_evals {d_delta}, mask_evals {d_mask}")
         print(f"phase churn {rep + 1}: upsert {n_churn} pods {upsert_s:.3f}s,"
               f" capped sweep {sweep_s:.4f}s, {len(res)} results equal "
               f"TorchDriver(cpu); delta_evals {d_delta}, mask_evals "
@@ -1961,30 +2131,35 @@ def main() -> int:
             continue
         main_masks.append(stored_mask(drv._state(TARGET), mask_kind).clone())
         # K4 and K5 on the churn's own inputs, bit for bit, and timed
-        k4_err = k5_err = 0.0
-        for (col, rows, vals, axis), got in calls["K4"]:
-            want = scatter.scatter_rows_plain(col, rows, vals, axis)
-            if not torch.equal(got, want):
-                fail(f"K4 mismatch on a churn scatter {list(col.shape)} "
-                     f"{col.dtype} axis {axis}")
-            k4_err = max(k4_err, max_err(got, want))
+        k4_args = [a for a, _ in k4_calls.jobs()]
+        batches = [a[0] for a, _ in k4_calls.many]
+        n_k4, k4_err = k4_calls.check("a churned sweep")
+        k5_err = 0.0
         for (prog, d, viol_old, rows), got in calls["K5"]:
             want = ex._delta_mask(prog, d, viol_old, rows)
             if not torch.equal(got, want):
                 fail("K5 mismatch on a churn delta")
             k5_err = max(k5_err, max_err(got, want))
-        k4_args = [a for a, _ in calls["K4"]]
         k5_args = [a for a, _ in calls["K5"]]
         shapes = sorted({(tuple(a[0].shape), str(a[0].dtype).replace(
             "torch.", ""), a[1].numel()) for a in k4_args})
         rec["K4"] = {"max_abs_err": k4_err, **k4_numbers(scatter, k4_args)}
+        rec["K4m"] = {"max_abs_err": k4_err,
+                      **k4m_numbers(scatter, batches)}
         rec["K5"] = {"max_abs_err": k5_err, **k5_numbers(ex, ir_eval,
                                                          k5_args)}
+        k4, k4m = rec["K4"], rec["K4m"]
         print(f"phase churn kernels: K4 equal to plain on the sweep's "
-              f"{len(k4_args)} scatters ({shapes}): {rec['K4']['ms']:.4f} ms"
-              f" mean (plain {rec['K4']['plain_ms']:.4f}, torch.index_copy "
-              f"{rec['K4']['library_ms']:.4f}, bound "
-              f"{rec['K4']['bound_ms']:.6f}); K5 equal to plain on its "
+              f"{n_k4} scatters in {len(batches)} batched calls ({shapes});"
+              f" per job through scatter_rows {k4['ms']:.4f} ms mean, "
+              f"device {k4['device_ms']:.4f} (plain {k4['plain_ms']:.4f}, "
+              f"torch.index_copy {k4['library_ms']:.4f}, device "
+              f"{k4['library_device_ms']:.4f}; bound {k4['bound_ms']:.6f});"
+              f" per batched call {k4m['ms']:.4f} ms mean, device "
+              f"{k4m['device_ms']:.4f} (plain {k4m['plain_ms']:.4f}, one "
+              f"torch.index_copy a job {k4m['library_ms']:.4f}, device "
+              f"{k4m['library_device_ms']:.4f}; bound "
+              f"{k4m['bound_ms']:.6f}); K5 equal to plain on its "
               f"{len(k5_args)} deltas (rows {k5_args[0][3].numel()}, mask "
               f"{list(k5_args[0][2].shape)}): {rec['K5']['ms']:.4f} ms mean "
               f"(plain {rec['K5']['plain_ms']:.4f}, bound "
@@ -1992,9 +2167,10 @@ def main() -> int:
               flush=True)
         # drop every reference to the first sweep's tensors before the
         # next sweeps' memory readings
-        del calls, k4_args, k5_args, got, want, col, rows, vals, prog, d, \
+        del calls, k4_args, batches, k5_args, got, want, rows, prog, d, \
             viol_old
     rec["K4"]["launches"] = churn_counts["K4"]
+    rec["K4m"]["launches"] = churn_counts["K4m"]
     rec["K5"]["launches"] = churn_counts["K5"]
     if mem[2] - mem[1] >= c_pad * r_pad:
         fail(f"device memory grew by {mem[2] - mem[1]} bytes from the "
@@ -2079,6 +2255,9 @@ def main() -> int:
                "gatekeeper_tpu/engine/veval.py:227"),
         "K4": ("scatter_rows", "cuda", "gatekeeper_tpu_torch/csrc/scatter.cu",
                "gatekeeper_tpu/engine/veval.py:1049"),
+        "K4m": ("scatter_rows_many", "cuda",
+                "gatekeeper_tpu_torch/csrc/scatter.cu",
+                "gatekeeper_tpu/engine/veval.py:1049"),
         "K5": ("ir_eval_delta", "triton",
                "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:1579"),
@@ -2101,8 +2280,8 @@ def main() -> int:
                 "gatekeeper_tpu/enforce/devpages.py:271"),
     }
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K5", "K1b", "K2b", "K3b", "K6",
-                "K7", "K8g", "K8s"):
+    for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K2b", "K3b",
+                "K6", "K7", "K8g", "K8s"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -275,11 +275,13 @@ class ResidencyPlanner:
                 self.lru[p] = None
                 self.lru.move_to_end(p)
 
-    def _slot_pages(self, device) -> torch.Tensor:
-        """int32 [n_slots] slot -> page table (-1 = empty slot)."""
-        table = np.full((self.n_slots,), -1, dtype=np.int32)
+    def _slot_pages(self, device, cold=()) -> torch.Tensor:
+        """int32 [n_slots] slot -> page table (-1 = empty slot), followed
+        by the pages ``cold``: one host-to-device copy."""
+        table = np.full((self.n_slots + len(cold),), -1, dtype=np.int32)
         for p, s in self.slot_of.items():
             table[s] = p
+        table[self.n_slots:] = cold
         return torch.from_numpy(table).to(device)
 
     def store(self, new_mask: torch.Tensor) -> None:
@@ -296,10 +298,9 @@ class ResidencyPlanner:
             if p not in self.slot_of:
                 self.slot_of[p] = self.free.pop()
         cold = [p for p in range(self.n_pages) if p not in hot]
-        dev = new_mask.device
+        tables = self._slot_pages(new_mask.device, cold)
         self.dev_buf, staging = _residency.page_gather(
-            new_mask, self._slot_pages(dev),
-            torch.tensor(cold, dtype=torch.int32, device=dev),
+            new_mask, tables[: self.n_slots], tables[self.n_slots:],
             self.page_rows)
         newly_spilled = [p for p in cold if p not in self.spilled]
         self.spills += len(newly_spilled)

@@ -515,35 +515,78 @@ class ProgramExecutor:
         """New device array: ``dev`` with ``rows`` along the resource
         axis (or ``axis``: the id axis of append-only interner tables)
         replaced by the host's values.  Ships O(|dirty|) bytes instead of
-        the whole column; the write is K4."""
-        ax = _r_axis(name) if axis is None else axis
-        rows = pad_rows(rows)
-        idx = [slice(None)] * host.ndim
-        idx[ax] = rows
-        vals = torch.from_numpy(np.ascontiguousarray(host[tuple(idx)]))
-        if dev.dtype != vals.dtype:
-            # narrow-transferred column (_put): scatter narrow when the
-            # new values still fit, else re-upload whole (the interner
-            # outgrowing the narrow range)
-            if dev.dtype in (torch.int8, torch.int16) and vals.numel() and \
-                    torch.iinfo(dev.dtype).min <= int(vals.min()) and \
-                    int(vals.max()) <= torch.iinfo(dev.dtype).max:
-                vals = vals.to(dev.dtype)
-            else:
-                return self._put(name, host)
-        rows32 = rows.astype(np.int32)
-        self.h2d_scatter_bytes += int(vals.nbytes) + int(rows32.nbytes)
-        self.h2d_scatter_rows += int(len(rows))
-        return _scatter.scatter_rows(dev, self._upload(rows32),
-                                     vals.to(self.device), ax)
+        the whole column; the write is K4 (``scatter_rows``)."""
+        (out,) = self._scatter_many([(name, dev, host, rows, axis)],
+                                    batched=False)
+        return out
+
+    def _scatter_many(self, specs: list, batched: bool = True) \
+            -> list[torch.Tensor]:
+        """:meth:`_scatter_rows` of each ``(name, dev, host, rows, axis)``
+        in ``specs``, in one K4 call (``scatter_rows_many``, or
+        ``scatter_rows`` for one spec when not ``batched``).  Every
+        array's padded int32 row ids and values go up in one packed
+        host-to-device copy, each at a 16-byte aligned offset.  A
+        narrow-transferred column (``_put``) scatters narrow while the
+        new values fit, else re-uploads whole (the interner outgrowing
+        the narrow range), as the reference's does."""
+        out: list = [None] * len(specs)
+        staged = []          # (index in out, dev, rows32, vals, axis)
+        for i, (name, dev, host, rows, axis) in enumerate(specs):
+            ax = _r_axis(name) if axis is None else axis
+            rows = pad_rows(rows)
+            idx = [slice(None)] * host.ndim
+            idx[ax] = rows
+            vals = np.ascontiguousarray(host[tuple(idx)])
+            if torch.from_numpy(vals).dtype != dev.dtype:
+                if dev.dtype in (torch.int8, torch.int16) and vals.size and \
+                        torch.iinfo(dev.dtype).min <= int(vals.min()) and \
+                        int(vals.max()) <= torch.iinfo(dev.dtype).max:
+                    vals = vals.astype(np.int8 if dev.dtype == torch.int8
+                                       else np.int16)
+                else:
+                    out[i] = self._put(name, host)
+                    continue
+            rows32 = rows.astype(np.int32)
+            self.h2d_scatter_bytes += int(vals.nbytes) + int(rows32.nbytes)
+            self.h2d_scatter_rows += int(len(rows))
+            staged.append((i, dev, rows32, vals, ax))
+        if not staged:
+            return out
+        offsets, end = [], 0
+        for _i, _dev, rows32, vals, _ax in staged:
+            at_rows = end
+            at_vals = -(-(at_rows + rows32.nbytes) // 16) * 16
+            end = -(-(at_vals + vals.nbytes) // 16) * 16
+            offsets.append((at_rows, at_vals))
+        packed = np.empty((end,), dtype=np.uint8)
+        for (at_rows, at_vals), (_i, _dev, rows32, vals, _ax) in zip(
+                offsets, staged):
+            packed[at_rows: at_rows + rows32.nbytes] = rows32.view(np.uint8)
+            packed[at_vals: at_vals + vals.nbytes] = \
+                vals.reshape(-1).view(np.uint8)
+        up = self._upload(packed)
+        jobs = [(dev, up[at_rows: at_rows + rows32.nbytes].view(torch.int32),
+                 up[at_vals: at_vals + vals.nbytes].view(dev.dtype)
+                 .view(vals.shape), ax)
+                for (at_rows, at_vals), (_i, dev, rows32, vals, ax)
+                in zip(offsets, staged)]
+        if batched:
+            news = _scatter.scatter_rows_many(jobs)
+        else:
+            news = [_scatter.scatter_rows(*job) for job in jobs]
+        for (i, *_rest), new in zip(staged, news):
+            out[i] = new
+        return out
 
     def _migrate(self, bindings: Bindings, depth: int = 0) -> dict:
         """Per-name device cache for ``bindings``, seeded from its delta
         base when present: unchanged arrays keep their device copies,
-        dirty arrays are row-scattered on the device, and only new
-        arrays are uploaded whole (by ``_arrays``).  Then the lineage is
-        cut, so a bindings generation and its device arrays and stored
-        masks live only as long as the driver holds it."""
+        dirty arrays are row-scattered on the device (all of them in one
+        K4 call), and only new arrays are uploaded whole (by
+        ``_arrays``).  Then the lineage is cut, so a bindings generation
+        and its device arrays and stored masks live only as long as the
+        driver holds it."""
         caches = bindings.__dict__.setdefault("_device_caches", {})
         cache = caches.get(id(self))
         if cache is not None:
@@ -555,6 +598,7 @@ class ProgramExecutor:
         cache = {}
         if base is not None and depth < MIGRATE_DEPTH:
             base_cache = self._migrate(base, depth + 1)
+            specs = []
             for name, (href, dev) in base_cache.items():
                 cur = arrays.get(name)
                 if cur is None:
@@ -565,13 +609,15 @@ class ProgramExecutor:
                         or href is not base.arrays.get(name):
                     continue
                 elif name in base_dirty:
-                    cache[name] = (cur, self._scatter_rows(
-                        name, dev, cur, base_dirty[name]))
+                    cache[name] = None
+                    specs.append((name, dev, cur, base_dirty[name], None))
                 elif name in append_rows and len(append_rows[name]):
                     # append-only interner-indexed array: only the newly
                     # interned id rows differ from the device copy
-                    cache[name] = (cur, self._scatter_rows(
-                        name, dev, cur, append_rows[name], axis=0))
+                    cache[name] = None
+                    specs.append((name, dev, cur, append_rows[name], 0))
+            for spec, new in zip(specs, self._scatter_many(specs)):
+                cache[spec[0]] = (spec[2], new)
         cache = caches.setdefault(id(self), cache)
         bindings.base = None
         bindings.base_dirty = {}

@@ -5,12 +5,15 @@ library with a plain C interface under :func:`build_dir`,
 named by a hash of the source so an edited kernel rebuilds and an
 unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing
 library, all at once, and waits for them; :func:`load` builds on first
-use and opens the library with ``ctypes``.  Nothing here runs at import
-time: the CPU tests import every module on hosts without ``nvcc``.
+use and opens the library with ``ctypes``; :func:`entry` hands out a C
+entry point with its argument types bound once.  Nothing here runs at
+import time: the CPU tests import every module on hosts without
+``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +21,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -27,6 +32,7 @@ GENCODE = "arch=compute_90a,code=sm_90a"
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict = {}     # (name, symbol) -> bound C function
 
 
 def _nvcc() -> str:
@@ -102,6 +108,34 @@ def load(name: str) -> ctypes.CDLL:
                 build((name,))
             lib = _LIBS[name] = ctypes.CDLL(path)
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: list, restype=ctypes.c_int):
+    """The C function ``symbol`` of ``csrc/<name>.cu``, its ``argtypes``
+    and ``restype`` set once, at its first use, not on every call."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _ENTRIES[(name, symbol)] = fn
+    return fn
+
+
+def on_device(device: torch.device):
+    """Context for a launch on ``device``: ``torch.cuda.device`` only
+    when it is not already the current CUDA device."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``, read
+    without building a ``torch.cuda.Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if device.index is None
+        else device.index)
 
 
 def check(err: int, what: str) -> None:

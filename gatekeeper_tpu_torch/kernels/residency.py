@@ -8,7 +8,8 @@ lives between sweeps as a slot buffer of ``n_slots`` pages of
 ``page_rows`` rows on the device, the other pages in a host mirror.
 :func:`page_gather` splits a full mask into the slot buffer and one
 staging buffer of the cold pages (copied to the host by the caller);
-:func:`page_scatter` writes the slot buffer back into a zeroed full mask.
+:func:`page_scatter` writes the slot buffer back into a full mask whose
+other rows are zeros.
 Page ``p``'s row ``j`` is row ``min(p * page_rows + j, r_pad - 1)``: the
 ragged tail page repeats the last real row.  An empty slot (page -1)
 gathers row 0 and scatters nothing.  The CUDA kernels are
@@ -24,6 +25,11 @@ import ctypes
 import torch
 
 from gatekeeper_tpu_torch.kernels import build
+
+_GATHER_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 \
+    + [ctypes.c_void_p]
+_SCATTER_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 \
+    + [ctypes.c_void_p]
 
 
 def _page_rows(pages: torch.Tensor, page_rows: int,
@@ -92,20 +98,16 @@ def page_gather(mask: torch.Tensor, slot_pages: torch.Tensor,
         raise ValueError(f"page_gather: page_rows {page_rows}")
     c_rows, n_rows = mask.shape
     n_slots, n_cold = slot_pages.shape[0], cold_pages.shape[0]
-    slot_buf = torch.empty((c_rows, n_slots * page_rows), dtype=torch.bool,
-                           device=mask.device)
-    staging = torch.empty((c_rows, n_cold * page_rows), dtype=torch.bool,
-                          device=mask.device)
-    fn = build.load("residency").gk_page_gather
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 \
-        + [ctypes.c_void_p]
-    with torch.cuda.device(mask.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    # two allocations, not views of one: the planner keeps slot_buf
+    # between sweeps and must not pin the staging bytes with it
+    slot_buf = mask.new_empty((c_rows, n_slots * page_rows))
+    staging = mask.new_empty((c_rows, n_cold * page_rows))
+    fn = build.entry("residency", "gk_page_gather", _GATHER_ARGS)
+    with build.on_device(mask.device):
         err = fn(mask.data_ptr(), slot_pages.data_ptr(),
                  cold_pages.data_ptr(), slot_buf.data_ptr(),
                  staging.data_ptr(), c_rows, n_rows, page_rows, n_slots,
-                 n_cold, stream)
+                 n_cold, build.stream(mask.device))
     build.check(err, "page_gather launch")
     page_gather.launches += 1
     return slot_buf, staging
@@ -116,7 +118,10 @@ def page_scatter(slot_buf: torch.Tensor, slot_pages: torch.Tensor,
     """Bool ``[c, n_rows]``: zeros with ``slot_buf`` (bool [c, n_slots *
     page_rows]) written back to the rows of the pages ``slot_pages``
     (int32 [n_slots], -1 = empty) holds.  K8 on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors.  The kernel takes each real row of the tail
+    page from its own place in the slot; the plain version writes row
+    ``n_rows - 1`` once for each repeat, so the two agree where those
+    repeats carry equal bits, as a gathered slot buffer does."""
     if slot_buf.device.type == "cpu":
         page_scatter.plain_calls += 1
         return page_scatter_plain(slot_buf, slot_pages, n_rows, page_rows)
@@ -134,16 +139,13 @@ def page_scatter(slot_buf: torch.Tensor, slot_pages: torch.Tensor,
         raise ValueError(f"page_scatter: slot_buf {tuple(slot_buf.shape)} "
                          f"for {n_slots} slots of {page_rows} rows into "
                          f"{n_rows} rows")
-    out = torch.zeros((c_rows, n_rows), dtype=torch.bool,
-                      device=slot_buf.device)
-    fn = build.load("residency").gk_page_scatter
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 \
-        + [ctypes.c_void_p]
-    with torch.cuda.device(slot_buf.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    # the kernel writes every byte, the rows of pages no slot holds as 0
+    out = slot_buf.new_empty((c_rows, n_rows))
+    fn = build.entry("residency", "gk_page_scatter", _SCATTER_ARGS)
+    with build.on_device(slot_buf.device):
         err = fn(slot_buf.data_ptr(), slot_pages.data_ptr(), out.data_ptr(),
-                 c_rows, n_rows, page_rows, n_slots, stream)
+                 c_rows, n_rows, page_rows, n_slots,
+                 build.stream(slot_buf.device))
     build.check(err, "page_scatter launch")
     page_scatter.launches += 1
     return out

@@ -332,6 +332,110 @@ def test_k4_matches_plain_on_card(card, shape, axis, dtype):
         assert torch.equal(dev, keep)
 
 
+def _k4_on(card, rng, shape, axis, dtype, n_dirty, offset=0):
+    """One K4 job ``(dev, rows, vals, axis)`` on the card, ``dev`` and
+    ``vals`` each starting ``offset`` bytes into a larger buffer (so
+    their addresses are only as aligned as ``offset``); the bucket's
+    padding rows repeat the first row with its values."""
+    n = shape[axis]
+    dirty = np.sort(rng.choice(n, size=min(n_dirty, n), replace=False))
+    rows = tex.pad_rows(dirty).astype(np.int32)
+    vshape = shape[:axis] + (len(rows),) + shape[axis + 1:]
+
+    def place(a):
+        t = torch.from_numpy(np.asarray(a)).to(dtype)
+        size = t.numel() * t.element_size()
+        buf = torch.zeros(size + 32, dtype=torch.uint8, device=card)
+        out = buf[offset: offset + size].view(dtype).view(t.shape)
+        out.copy_(t.to(card))
+        return out
+
+    if dtype == torch.bool:
+        host, vals = rng.random(shape) < 0.5, rng.random(vshape) < 0.5
+    else:
+        host = rng.integers(-100, 100, size=shape)
+        vals = rng.integers(-100, 100, size=vshape)
+    pad = [slice(None)] * len(shape)
+    pad[axis] = slice(len(dirty), None)
+    first = [slice(None)] * len(shape)
+    first[axis] = slice(0, 1)
+    vals[tuple(pad)] = vals[tuple(first)]
+    return (place(host), torch.from_numpy(rows).to(card), place(vals),
+            axis)
+
+
+# (shape, axis, dtype, byte offset of dev and vals): odd inner widths,
+# every word width the kernel picks, and addresses off 16-byte alignment
+K4_MANY_CASES = [
+    ((3, 999, 5), 1, torch.int16, 0),       # 10-byte segments: 2-byte words
+    ((7, 33, 3), 1, torch.bool, 0),         # 3-byte segments: bytes
+    ((101, 12), 0, torch.int32, 0),         # 48-byte segments: 16-byte words
+    ((64, 33), 1, torch.int64, 0),          # one 8-byte element
+    ((128, 4096), 1, torch.bool, 1),        # the mask along R, odd address
+    ((4096, 16), 0, torch.uint8, 3),        # 16-byte rows at an odd address
+    ((999, 8), 0, torch.int16, 2),          # 16-byte rows, 2-aligned
+    ((3, 500, 4), 1, torch.float32, 4),     # 16-byte rows, 4-aligned
+    ((1 << 15,), 0, torch.int8, 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_jobs,dirty", [
+    (1, (1, 7, 300)), (9, (1, 7, 300)),
+    (2 * 64 + 2, (1, 7, 300)),        # more jobs than one launch holds
+    (9, (5, 3000, 300)),              # 4,096-row jobs: copy, then write
+    (70, (2000, 1, 9)),
+])
+def test_k4_many_matches_plain_on_card(card, n_jobs, dirty):
+    """The batched K4 entry against the single plain version job by job,
+    bit for bit: odd inner widths, every word width, unaligned values
+    and columns, more jobs than one launch's parameters hold, and jobs
+    of more rows than a fused launch scans; one launch per 64 jobs (two
+    where one of them has more than FUSED_ROWS rows) on both counters,
+    the old columns as they were."""
+    rng = np.random.default_rng(n_jobs + sum(dirty))
+    jobs = []
+    for k in range(n_jobs):
+        shape, axis, dtype, offset = K4_MANY_CASES[k % len(K4_MANY_CASES)]
+        jobs.append(_k4_on(card, rng, shape, axis, dtype, dirty[k % 3],
+                           offset))
+    keep = [j[0].clone() for j in jobs]
+    single, many = tscatter.scatter_rows.launches, \
+        tscatter.scatter_rows_many.launches
+    got = tscatter.scatter_rows_many(jobs)
+    torch.cuda.synchronize()
+    launches = sum(
+        1 if max(j[1].numel() for j in jobs[k: k + tscatter.MAX_JOBS])
+        <= tscatter.FUSED_ROWS else 2
+        for k in range(0, n_jobs, tscatter.MAX_JOBS))
+    assert tscatter.scatter_rows.launches == single + launches
+    assert tscatter.scatter_rows_many.launches == many + launches
+    for k, (out, job, before) in enumerate(zip(got, jobs, keep)):
+        assert out.dtype == job[0].dtype and out.shape == job[0].shape
+        assert torch.equal(out, tscatter.scatter_rows_plain(*job)), k
+        assert torch.equal(job[0], before), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_MANY_CASES,
+                         ids=[f"{c[0]}-ax{c[1]}-off{c[3]}"
+                              for c in K4_MANY_CASES])
+def test_k4_single_at_unaligned_addresses_on_card(card, case):
+    """The single K4 entry at the same layouts and addresses, with 9
+    rows (one fused launch) and with 3,000 (4,096 with the padding: a
+    copy launch, then a write launch)."""
+    shape, axis, dtype, offset = case
+    rng = np.random.default_rng(offset)
+    for n_dirty, n_launches in ((9, 1), (3000, 2)):
+        job = _k4_on(card, rng, shape, axis, dtype, n_dirty, offset)
+        launches = tscatter.scatter_rows.launches
+        got = tscatter.scatter_rows(*job)
+        torch.cuda.synchronize()
+        want = n_launches if job[1].numel() > tscatter.FUSED_ROWS else 1
+        assert tscatter.scatter_rows.launches == launches + want
+        assert torch.equal(got, tscatter.scatter_rows_plain(*job))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,kw", [
     (0, {}),
@@ -747,6 +851,9 @@ def _k8_case(c_pad, r_pad, page_rows, n_empty, tail, seed):
     (128, 4100, 48, 1, "hot"),        # 48-row pages, ragged tail
     (128, 1 << 17, 32, 0, "cold"),
     (4, 64, 1, 5, "hot"),             # one-row pages
+    (3, 1000, 24, 2, "hot"),          # 24-row pages: 8-byte words
+    (2, 1001, 16, 1, "cold"),         # odd R: byte words
+    (5, 4096, 16, 3, "cold"),         # 16-byte words, no tail
 ])
 def test_k8_matches_plain_on_card(card, c_pad, r_pad, page_rows, n_empty,
                                   tail):
@@ -776,3 +883,31 @@ def test_k8_matches_plain_on_card(card, c_pad, r_pad, page_rows, n_empty,
     buf2, staging2 = residency.page_gather(
         mask, slot, cold[:0], page_rows)
     assert staging2.shape == (c_pad, 0) and torch.equal(buf2, want_buf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 8])
+def test_k8_at_unaligned_addresses_on_card(card, offset):
+    """K8 with the mask and the slot buffer starting ``offset`` bytes
+    into larger buffers (the word narrows to what the addresses allow),
+    bit for bit against the plain versions."""
+    c_pad, r_pad, page_rows = 4, 4096, 32
+    mask, slot, cold = (t.to(card) for t in _k8_case(
+        c_pad, r_pad, page_rows, 3, "cold", offset))
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 32, dtype=torch.bool, device=card)
+        out = buf[offset: offset + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
+    mask = shifted(mask)
+    buf, staging = residency.page_gather(mask, slot, cold, page_rows)
+    want_buf, want_staging = residency.page_gather_plain(mask, slot, cold,
+                                                         page_rows)
+    assert torch.equal(buf, want_buf) and torch.equal(staging, want_staging)
+    buf = shifted(buf)
+    full = residency.page_scatter(buf, slot, r_pad, page_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(full, residency.page_scatter_plain(buf, slot, r_pad,
+                                                          page_rows))
