@@ -1,7 +1,12 @@
 """Drive gatekeeper_tpu_torch on one CUDA card and hold every kernel
 against its plain PyTorch version.
 
-    python3 chip_smoke.py [--resources N]
+    python3 chip_smoke.py [--resources N] [--k2-only]
+
+``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
+then prints the card line; it uses only the K2 wrappers' public names,
+so a copy of this script beside an earlier tree's package times that
+tree's K2 on the same card.
 
 Phases (each prints one line of its numbers):
   1. card   — nvidia-smi name/power limit, torch and CUDA versions, TF32 off
@@ -9,8 +14,10 @@ Phases (each prints one line of its numbers):
      (csrc/scatter.cu), K6 (csrc/devdelta.cu), K7 (csrc/invjoin.cu) and
      K8 (csrc/residency.cu), all at once
   3. kernels against their plain versions, bit for bit:
-       K2 on random [128, 131072] masks at cap 20 and at a cap of 300
-       (several passes), and at a ragged r_pad < k;
+       K2 on random [128, 131072] masks at caps 20 and 300, at a ragged
+       r_pad < k and on [4, 131072] at cap 65,536 (several selects), and
+       K2b on [4, 128, 131072], each timed per call and device-only (a
+       CUDA graph) beside torch.topk timed the same ways;
        K1 and K3 on a synthetic program that uses every IR op;
        K4 on random columns of every dtype and axis layout, with
        duplicate padding rows, one at a time and all in one batched
@@ -120,6 +127,7 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12      # non-tensor-core fp32 peak (ALU proxy)
 TARGET = "admission.k8s.gatekeeper.sh"
 CAP = 20                        # Gatekeeper's default audit cap
+K2_LARGE_CAP = 65536            # past one shared-memory sort of K2
 LIBRARY_ROWS = 2000
 
 
@@ -180,6 +188,93 @@ def packed_err(got, want, k: int) -> int:
     return max(int((got[:, 0] - want[:, 0]).abs().max()),
                int((gv - wv).abs().max()),
                int((got[:, 1:1 + k] * gv - want[:, 1:1 + k] * wv).abs().max()))
+
+
+def k2_numbers(topk, viol, rank, k: int, iters: int = 20) -> dict:
+    """K2 on ``viol`` [C, R] (K2b on [N, C, R], ``rank`` [N, R]) at cap
+    ``k``: the wrapper per call (CUDA events, ``ms``) and device-only (a
+    CUDA graph, ``device_ms``), its plain version per call, and
+    ``torch.topk`` on the same scores timed both ways.  Bound: the mask
+    once, the rank of every row that violates in some mask row, the
+    packed output; 2 element operations a mask byte."""
+    batched = viol.dim() == 3
+    r_pad = viol.shape[-1]
+    rows = viol.numel() // r_pad
+    if batched:
+        def run():
+            return topk.topk_packed_batched(viol, rank, k)
+
+        def plain():
+            return topk.topk_packed_batched_plain(viol, rank, k)
+        score = torch.where(viol, r_pad - rank[:, None, :], 0) \
+            .reshape(rows, r_pad)
+        rank_rows = int(viol.any(dim=1).sum())
+    else:
+        def run():
+            return topk.topk_packed(viol, rank, k)
+
+        def plain():
+            return topk.topk_packed_plain(viol, rank, k)
+        score = torch.where(viol, r_pad - rank[None, :], 0)
+        rank_rows = int(viol.any(dim=0).sum())
+    b, by = bound(rows * r_pad + 4 * rank_rows + 4 * rows * (1 + 2 * k),
+                  2 * rows * r_pad)
+    def lib():
+        return torch.topk(score, k, dim=1)
+    reps = max(1, iters // 4)
+    return {"ms": cuda_ms(run, iters, min(3, iters)),
+            "device_ms": graph_ms(run, iters, reps),
+            "plain_ms": cuda_ms(plain, iters=3), "bound_ms": b,
+            "bound_by": by, "library_ms": cuda_ms(lib, iters, min(3, iters)),
+            "library_device_ms": graph_ms(lib, iters, reps)}
+
+
+def k2_text(n: dict) -> str:
+    return (f"{n['ms']:.4f} ms, device {n['device_ms']:.4f} (plain "
+            f"{n['plain_ms']:.4f}, torch.topk {n['library_ms']:.4f}, device "
+            f"{n['library_device_ms']:.4f}, bound {n['bound_ms']:.4f} "
+            f"{n['bound_by']})")
+
+
+def k2_random(topk, dev) -> None:
+    """K2 on random masks, full and ragged, at caps 20 and 300 and at a
+    cap past one shared-memory sort, against the plain version; then K2b
+    at the fleet's [4, 128, 131072]; each timed by :func:`k2_numbers`.
+    Uses only the wrappers' public names, so it also times an earlier
+    kernel (``--k2-only`` from that tree)."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    times = {}
+    for c_pad, r_pad, dens, caps in (
+            (128, 131072, 0.3, (CAP, 300)), (128, 131072, 1e-4, (CAP, 300)),
+            (4, 8, 0.5, (CAP, 300)), (4, 131072, 0.5, (K2_LARGE_CAP,))):
+        viol = (torch.rand((c_pad, r_pad), generator=g) < dens).to(dev)
+        rank = torch.randperm(r_pad, generator=g).to(torch.int32).to(dev)
+        for k in caps:
+            got = topk.topk_packed(viol, rank, k)
+            want = topk.topk_packed_plain(viol, rank, k)
+            if packed_err(got, want, k):
+                fail(f"K2 mismatch at [{c_pad}, {r_pad}] density {dens} "
+                     f"k {k}")
+            if r_pad == 131072 and dens >= 0.3:
+                # an earlier kernel took a pass over the row per 128
+                # slots: few calls at the large cap
+                times[(c_pad, k)] = k2_numbers(
+                    topk, viol, rank, k, 20 if k < K2_LARGE_CAP else 3)
+    print("phase K2 random: [128,131072] x2 densities and ragged [4,8] at "
+          f"k {CAP} and 300, [4,131072] at k {K2_LARGE_CAP}, equal to "
+          "plain; " + "; ".join(
+              f"[{c}, 131072] k {k}: {k2_text(n)}"
+              for (c, k), n in times.items()), flush=True)
+    viol = (torch.rand((4, 128, 131072), generator=g) < 0.3).to(dev)
+    rank = torch.stack([torch.randperm(131072, generator=g)
+                        for _ in range(4)]).to(torch.int32).to(dev)
+    got = topk.topk_packed_batched(viol, rank, CAP)
+    want = topk.topk_packed_batched_plain(viol, rank, CAP)
+    if max(packed_err(got[i], want[i], CAP) for i in range(4)):
+        fail("batched K2 mismatch on random [4, 128, 131072]")
+    print(f"phase K2b random: [4, 128, 131072] density 0.3 k {CAP}, equal "
+          f"to plain; {k2_text(k2_numbers(topk, viol, rank, CAP))}",
+          flush=True)
 
 
 def kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin,
@@ -604,7 +699,8 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
 
     # batched K1 and K2 on the phase's own stacked inputs, bit for bit,
     # and timed; torch.topk on the same [N * C_pad, R_pad] scores
-    t = {k: 0.0 for k in ("k1", "k1p", "k1b", "k2", "k2p", "k2l", "k2b")}
+    t = {k: 0.0 for k in ("k1", "k1p", "k1b")}
+    k2 = collections.Counter()
     k1_by = k2_by = "bytes"
     k1_err = k2_err = 0
     for program, stacked in inputs.values():
@@ -634,31 +730,23 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
         t["k1"] += cuda_ms(lambda: ir_eval.eval_mask_batched(program, d))
         t["k1p"] += cuda_ms(lambda: ex._eval_mask_batched(program, d),
                             iters=3)
-        b2, k2_by = bound(n_b * c_pad * r_pad + n_b * r_pad * 4
-                          + n_b * c_pad * (1 + 2 * CAP) * 4,
-                          2 * n_b * c_pad * r_pad)
-        t["k2b"] += b2
-        t["k2"] += cuda_ms(lambda: topk.topk_packed_batched(got, rank, CAP))
-        t["k2p"] += cuda_ms(lambda: topk.topk_packed_batched_plain(
-            got, rank, CAP), iters=3)
-        score = torch.where(got, r_pad - rank[:, None, :], 0) \
-            .reshape(n_b * c_pad, r_pad)
-        t["k2l"] += cuda_ms(lambda: torch.topk(score, CAP, dim=1))
+        n2 = k2_numbers(topk, got, rank, CAP)
+        k2_by = n2.pop("bound_by")
+        k2.update(n2)
     nk = len(inputs)
     t = {k: v / nk for k, v in t.items()}
+    k2 = {k: v / nk for k, v in k2.items()}
     rec["K1b"] = {"launches": counts_a["K1b"], "max_abs_err": k1_err,
                   "ms": t["k1"], "plain_ms": t["k1p"], "bound_ms": t["k1b"],
                   "bound_by": k1_by, "library_ms": None}
-    rec["K2b"] = {"launches": counts_a["K2b"], "max_abs_err": k2_err,
-                  "ms": t["k2"], "plain_ms": t["k2p"], "bound_ms": t["k2b"],
-                  "bound_by": k2_by, "library_ms": t["k2l"]}
+    rec["K2b"] = {"launches": counts_a["K2b"], "max_abs_err": k2_err, **k2,
+                  "bound_by": k2_by}
     print(f"phase fleet north star kernels: per launch at [{n_b}, {c_pad}, "
           f"{r_pad}] (mean over {nk} kinds): batched K1 {t['k1']:.4f} ms "
           f"(plain {t['k1p']:.4f}, bound {t['k1b']:.4f} {k1_by}); batched "
-          f"K2 {t['k2']:.4f} ms (plain {t['k2p']:.4f}, torch.topk on "
-          f"[{n_b * c_pad}, {r_pad}] {t['k2l']:.4f}, bound {t['k2b']:.4f} "
-          f"{k2_by}); both equal their plain versions", flush=True)
-    del inputs, d, got, want, g2, w2, score, rank, clusters, warm, rep, exe
+          f"K2 {k2_text(rec['K2b'])}, torch.topk on [{n_b * c_pad}, "
+          f"{r_pad}]; both equal their plain versions", flush=True)
+    del inputs, d, got, want, g2, w2, rank, clusters, warm, rep, exe
     torch.cuda.synchronize()
 
     # -- (b) the library fleet: bench.py's fleet_stack shape
@@ -1716,6 +1804,9 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
+    ap.add_argument("--k2-only", action="store_true",
+                    help="build K2 alone and run only its random-mask "
+                    "phases (K2 random, K2b random)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1765,7 +1856,7 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), "gatekeeper_tpu_torch",
         "_build", "triton_cache"))
     t0 = time.perf_counter()
-    secs = build.build()
+    secs = build.build(("topk",) if args.k2_only else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
           f"{ {k: round(v, 3) for k, v in secs.items()} }, triton "
@@ -1780,24 +1871,11 @@ def main() -> int:
         return {k: v for k, v in launch_counts(fns).items() if k in keys}
 
     # ---- 3a. K2 on random masks, full and ragged, at the default cap
-    # and at one that takes several passes
-    g = torch.Generator(device="cpu").manual_seed(7)
-    for c_pad, r_pad, dens in ((128, 131072, 0.3), (128, 131072, 1e-4),
-                               (4, 8, 0.5)):
-        viol = (torch.rand((c_pad, r_pad), generator=g) < dens).to(dev)
-        rank = torch.randperm(r_pad, generator=g).to(torch.int32).to(dev)
-        for k in (CAP, 300):
-            got = topk.topk_packed(viol, rank, k)
-            want = topk.topk_packed_plain(viol, rank, k)
-            if packed_err(got, want, k):
-                fail(f"K2 mismatch at [{c_pad}, {r_pad}] density {dens} "
-                     f"k {k}")
-        if dens == 0.3:
-            k2_caps = {k: round(cuda_ms(lambda: topk.topk_packed(
-                viol, rank, k)), 4) for k in (CAP, 300)}
-    print(f"phase K2 random: [128,131072] x2 densities and ragged [4,8], k "
-          f"{CAP} and 300, equal to plain; ms per launch at density 0.3 by "
-          f"cap {k2_caps}", flush=True)
+    # and at caps that take a wider sort and several selects; K2b
+    k2_random(topk, dev)
+    if args.k2_only:
+        print(card, flush=True)
+        return 0
 
     # ---- 3b. K1 and K3 on a program using every IR op (the library
     # lowers to a subset: no and/any_e/all_e/count_e/+ - *), random
@@ -1988,20 +2066,26 @@ def main() -> int:
         drv.query_audit(TARGET, opts)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in prof.key_averages()
-                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    by_name = sorted(((getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)), e.key)
+                      for e in prof.key_averages()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                     reverse=True)
+    dev_us = sum(us for us, _ in by_name)
     busy = f"{dev_us / 1e6 / traced_s:.4%}" if dev_us else "not measured"
+    top = "; ".join(f"{name[:60]} {us / 1e3:.4f} ms"
+                    for us, name in by_name[:6] if us)
     print(f"phase main split: timer totals over cold + 3 steady sweeps "
           f"{split}; traced steady sweep {traced_s:.4f}s with device busy "
-          f"{dev_us / 1e3:.3f} ms = {busy} of it", flush=True)
+          f"{dev_us / 1e3:.3f} ms = {busy} of it; top device work by name: "
+          f"{top or 'not measured'}", flush=True)
 
     # K1 and K2 at the main path's own shapes
     st = drv._state(TARGET)
-    k1_ms = k1_plain = k1_bound = k2_ms = k2_plain = k2_lib = k2_bound = 0.0
-    k1_by = k2_by = "bytes"
+    k1_ms = k1_plain = k1_bound = 0.0
+    k1_by = "bytes"
     k2_err = 0
+    k2 = collections.Counter()
     kinds = sorted(st.bindings_cache)
     for kind in kinds:
         b = st.bindings_cache[kind][1]
@@ -2029,25 +2113,17 @@ def main() -> int:
         k2_err = max(k2_err, packed_err(g2, w2, k))
         if k2_err:
             fail(f"K2 mismatch on north-star template {kind}")
-        c_pad, r_pad = got.shape
-        bms, k2_by = bound(c_pad * r_pad + r_pad * 4 + c_pad * (1 + 2 * k) * 4,
-                           2 * c_pad * r_pad)
-        k2_bound += bms / len(kinds)
-        k2_ms += cuda_ms(lambda: topk.topk_packed(got, rank, k)) / len(kinds)
-        k2_plain += cuda_ms(lambda: topk.topk_packed_plain(got, rank, k),
-                            iters=5) / len(kinds)
-        score = torch.where(got, r_pad - rank[None, :], 0)
-        k2_lib += cuda_ms(lambda: torch.topk(score, k, dim=1)) / len(kinds)
+        n2 = k2_numbers(topk, got, rank, k)
+        k2_by = n2.pop("bound_by")
+        k2.update({key: v / len(kinds) for key, v in n2.items()})
     rec["K1"] = {"launches": counts["K1"], "max_abs_err": k1_err, "ms": k1_ms,
                  "plain_ms": k1_plain, "bound_ms": k1_bound,
                  "bound_by": k1_by, "library_ms": None}
-    rec["K2"] = {"launches": counts["K2"], "max_abs_err": k2_err, "ms": k2_ms,
-                 "plain_ms": k2_plain, "bound_ms": k2_bound,
-                 "bound_by": k2_by, "library_ms": k2_lib}
+    rec["K2"] = {"launches": counts["K2"], "max_abs_err": k2_err, **k2,
+                 "bound_by": k2_by}
     print(f"phase main kernels: per launch at the sweep's shapes (mean over "
           f"{len(kinds)} kinds): K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}, "
-          f"bound {k1_bound:.4f}); K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, "
-          f"torch.topk {k2_lib:.4f}, bound {k2_bound:.4f}); both equal "
+          f"bound {k1_bound:.4f}); K2 {k2_text(rec['K2'])}; both equal "
           f"their plain versions", flush=True)
     c_pad, r_pad = got.shape
     # a copy of one kind's steady stored mask, for K6 at [C_pad, R_pad]
@@ -2055,7 +2131,7 @@ def main() -> int:
     # copies, so the churn's memory readings see the generations freed)
     mask_kind = "K8sRequiredLabels"
     main_masks = [stored_mask(st, mask_kind).clone()]
-    del st, arrays, got, want, g2, w2, score
+    del st, arrays, got, want, g2, w2
 
     # the same store on the CPU path
     t0 = time.perf_counter()

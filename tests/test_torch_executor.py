@@ -287,17 +287,39 @@ def _packed_equal(got, ref, k):
     np.testing.assert_array_equal(got[:, 1:1 + k] * gv, ref[:, 1:1 + k] * rv)
 
 
-@pytest.mark.parametrize("c_pad,r_pad,k,density", [
-    (8, 64, 20, 0.3),
-    (4, 8, 20, 0.6),                       # r_pad < k: padded slots
-    (8, 2 * veval.R_CHUNK, 20, 0.01),      # R > R_CHUNK: chunked reference
-    (16, 1024, 5, 0.0),
-    (16, 1024, 100, 0.9),
+def _case(*args, rank="perm"):
+    """A parameter set; the permutation cases keep their earlier ids."""
+    return pytest.param(*args, rank,
+                        id="-".join(map(str, args)) + ("" if rank == "perm"
+                                                       else f"-{rank}"))
+
+
+@pytest.mark.parametrize("c_pad,r_pad,k,density,rank_kind", [
+    _case(8, 64, 20, 0.3),
+    _case(4, 8, 20, 0.6),                  # r_pad < k: padded slots
+    _case(8, 2 * veval.R_CHUNK, 20, 0.01),  # R > R_CHUNK: chunked reference
+    _case(16, 1024, 5, 0.0),
+    _case(16, 1024, 100, 0.9),
+    # veval.pad_rank's shape: live rows permuted, padded rows r_pad - 1
+    # past both chunks' boundary, the padded rows violating
+    _case(8, 2 * veval.R_CHUNK, 20, 0.5, rank="pad"),
+    _case(4, 2 * veval.R_CHUNK, 300, 0.5, rank="pad"),
+    _case(8, 64, 1, 0.3),
+    _case(16, 1024, 129, 0.3),
+    _case(8, 4096, 300, 0.5),
+    _case(4, 100, 150, 0.5),               # k > r_pad
+    _case(4, 512, 20, 1.0),                # every row violates
+    _case(4, 512, 300, 1.0),
 ])
-def test_topk_packed_matches_reduce_fn(c_pad, r_pad, k, density):
+def test_topk_packed_matches_reduce_fn(c_pad, r_pad, k, density, rank_kind):
     rng = np.random.default_rng(c_pad * r_pad + k)
     viol = rng.random((c_pad, r_pad)) < density
-    rank = rng.permutation(r_pad).astype(np.int32)
+    if rank_kind == "pad":
+        live = r_pad * 5 // 8
+        rank = veval.pad_rank(rng.permutation(live).astype(np.int32), r_pad)
+        viol[:, :live] &= rng.random((c_pad, live)) < 2e-4
+    else:
+        rank = rng.permutation(r_pad).astype(np.int32)
     ref = veval.ProgramExecutor()._reduce_fn(
         k, (c_pad, r_pad), (r_pad,))(jnp.asarray(viol), jnp.asarray(rank))
     got = ttopk.topk_packed(torch.from_numpy(viol), torch.from_numpy(rank),

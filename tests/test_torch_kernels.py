@@ -240,6 +240,28 @@ def test_k3_narrow_transition_table_on_card(card):
         assert torch.equal(tdfa.dfa_table(*ins), want), dt
 
 
+def _k2_case(rng, shape, density, ranked):
+    """A random mask and rank for K2: ``ranked`` True a permutation,
+    False no rank, "pad" ``pad_rank``'s shape (a permutation of the first
+    three quarters, ``r_pad - 1`` after; live rows violate rarely, so the
+    repeated scores hold the threshold), "equal" four distinct ranks (a
+    threshold bin past the tie region)."""
+    r_pad = shape[-1]
+    viol = rng.random(shape) < density
+    if not ranked:
+        return viol, None
+    if ranked == "pad":
+        live = r_pad * 3 // 4
+        rank = np.full((r_pad,), r_pad - 1, np.int64)
+        rank[:live] = rng.permutation(live)
+        viol[..., :live] &= rng.random(shape[:-1] + (live,)) < 1e-4
+    elif ranked == "equal":
+        rank = rng.integers(0, 4, r_pad)
+    else:
+        rank = rng.permutation(r_pad)
+    return viol, rank.astype(np.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c_pad,r_pad,k,density,ranked", [
     (128, 1 << 17, 20, 0.2, True),
@@ -247,16 +269,28 @@ def test_k3_narrow_transition_table_on_card(card):
     (4, 8, 20, 0.5, True),                # r_pad < k: padded slots
     (16, 1000, 20, 0.01, False),          # no rank, unaligned rows
     (8, 64, 100, 0.9, True),
-    (8, 4096, 300, 0.5, True),            # k past one pass: three passes
-    (16, 1000, 129, 0.3, False),          # one slot into the second pass
-    (4, 512, 400, 0.3, True),             # under-filled in the second pass
+    (8, 4096, 300, 0.5, True),
+    (16, 1000, 129, 0.3, False),
+    (4, 512, 400, 0.3, True),             # under-filled: fewer than k
     (4, 16, 5, 0.0, True),
+    (128, 1 << 17, 20, 0.2, "equal"),     # threshold bin past the ties
+    (8, 20001, 300, 0.5, "equal"),
+    (128, 1 << 17, 20, 0.5, "pad"),       # repeated r_pad - 1
+    (16, 1 << 17, 300, 0.5, "pad"),
+    (128, 1 << 17, 1, 0.3, True),
+    (128, 1 << 17, 300, 0.3, True),
+    (4, 1 << 17, 65536, 0.5, True),       # past one shared-memory sort
+    (4, 1 << 17, 65536, 0.5, "equal"),
+    (8, 20001, 20, 0.3, True),            # r_pad not a multiple of 16
+    (8, 20001, 20, 0.7, True),            # dense: from the top region
+    (16, 1 << 17, 20, 0.7, False),
+    (8, 1 << 17, 20, 0.005, True),        # too sparse for the top region
 ])
 def test_k2_matches_plain_on_card(card, c_pad, r_pad, k, density, ranked):
     rng = np.random.default_rng(c_pad + r_pad + k)
-    viol = torch.from_numpy(rng.random((c_pad, r_pad)) < density).to(card)
-    rank = torch.from_numpy(rng.permutation(r_pad).astype(np.int32)) \
-        .to(card) if ranked else None
+    viol, rank = _k2_case(rng, (c_pad, r_pad), density, ranked)
+    viol = torch.from_numpy(viol).to(card)
+    rank = torch.from_numpy(rank).to(card) if rank is not None else None
     _packed_equal(ttopk.topk_packed(viol, rank, k).cpu(),
                   ttopk.topk_packed_plain(viol, rank, k).cpu(), k)
 
@@ -525,7 +559,10 @@ def test_batched_k1_k3_match_plain_on_card(card, n, kw):
     (4, 128, 1 << 15, 20, 1e-3),
     (3, 8, 64, 2, 0.5),
     (5, 4, 16, 20, 0.3),                  # r_pad < k
-    (2, 16, 4096, 300, 0.5),              # several passes
+    (2, 16, 4096, 300, 0.5),
+    (4, 128, 1 << 17, 20, 0.3),           # the fleet's shape
+    (4, 128, 1 << 17, 300, 0.3),
+    (3, 16, 20001, 1, 0.5),               # r_pad not a multiple of 16
 ])
 def test_batched_k2_matches_plain_on_card(card, n, c_pad, r_pad, k,
                                           density):
