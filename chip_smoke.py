@@ -1,12 +1,17 @@
 """Drive gatekeeper_tpu_torch on one CUDA card and hold every kernel
 against its plain PyTorch version.
 
-    python3 chip_smoke.py [--resources N] [--k2-only]
+    python3 chip_smoke.py [--resources N] [--k2-only | --k1-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
 so a copy of this script beside an earlier tree's package times that
-tree's K2 on the same card.
+tree's K2 on the same card.  ``--k1-only`` does the same for K1, K1b
+and K5: it builds K3, holds the three against their plain versions on
+every-op programs and on the north-star kinds at the path's shapes and
+times each per call and device-only (``eval_mask``, ``delta_mask`` and
+``eval_mask_batched`` are the only names of ``ir_eval`` it calls
+besides ``emit_source`` for the bound).
 
 Phases (each prints one line of its numbers):
   1. card   — nvidia-smi name/power limit, torch and CUDA versions, TF32 off
@@ -18,7 +23,9 @@ Phases (each prints one line of its numbers):
        r_pad < k and on [4, 131072] at cap 65,536 (several selects), and
        K2b on [4, 128, 131072], each timed per call and device-only (a
        CUDA graph) beside torch.topk timed the same ways;
-       K1 and K3 on a synthetic program that uses every IR op;
+       K1 and K3 on a synthetic program that uses every IR op, K1 on
+       ordering compares of row against constraint values (NaN,
+       infinities, signed zeros);
        K4 on random columns of every dtype and axis layout, with
        duplicate padding rows, one at a time and all in one batched
        launch; K5 on the every-op programs at random rows;
@@ -52,7 +59,9 @@ Phases (each prints one line of its numbers):
      60k cluster), one batched K1 and one batched K2 launch per stacked
      kind (plus one batched K3 per regex table), the batched kernels on
      the phase's own inputs against their plain versions, timed at
-     (a)'s shapes, the Triton variant count and peak device memory
+     (a)'s shapes (batched K1 also at (b)'s, its own entry in the
+     kernels line), the Triton variant count (the timed audit compiles
+     none) and peak device memory
   7. devpages — the paged audit with device-resident deltas (B6): K6
      against its plain version on random masks (overflow, permuted and
      out-of-range page tables, ragged sizes) and at [128, 131072] on
@@ -460,12 +469,15 @@ class K4Calls:
 
 
 def k5_numbers(ex, ir_eval, calls) -> dict:
-    """K5 and its plain version timed on each call (mean), with the
-    bound: the stored mask read and the new mask written once, each
-    array the program reads once (an r-axis array only at the distinct
-    dirty rows), the rows once; K1's element operations for the distinct
+    """K5 and its plain version timed on each call (mean), K5 also
+    device-only (a CUDA graph) beside the device time of its copy of
+    the stored mask alone (``clone_device_ms``), with the bound: the
+    stored mask read and the new mask written once, each array the
+    program reads once (an r-axis array only at the distinct dirty
+    rows), the rows once; K1's element operations for the distinct
     dirty rows."""
-    out = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    out = dict.fromkeys(("ms", "device_ms", "clone_device_ms", "plain_ms",
+                         "bound_ms"), 0.0)
     by = "bytes"
     for prog, d, viol_old, rows in calls:
         c_pad, r_pad = viol_old.shape
@@ -481,6 +493,9 @@ def k5_numbers(ex, ir_eval, calls) -> dict:
         out["bound_ms"] += b
         out["ms"] += cuda_ms(lambda: ir_eval.delta_mask(prog, d, viol_old,
                                                         rows))
+        out["device_ms"] += graph_ms(lambda: ir_eval.delta_mask(
+            prog, d, viol_old, rows))
+        out["clone_device_ms"] += graph_ms(viol_old.clone)
         out["plain_ms"] += cuda_ms(lambda: ex._delta_mask(prog, d, viol_old,
                                                           rows), iters=5)
     out = {k: v / len(calls) for k, v in out.items()}
@@ -507,6 +522,146 @@ def k1_element_ops(executor_mod, program, arrays) -> int:
             size *= 2 * arrays[n.meta[0] + ".B"].shape[1]
         ops += size
     return ops + 4 * c * r * len(program.rules)
+
+
+def k1_bound_of(ex, ir_eval, program, d,
+                lead: int = 0) -> tuple[float, str]:
+    """K1's (or with ``lead`` 1, batched K1's) bound over the arrays
+    ``d``: each array the program reads once and the [C_pad, R_pad]
+    mask of every cluster written once; K1's element operations summed
+    over the clusters."""
+    used = ir_eval.emit_source(program, ir_eval.array_signature(
+        d, lead))[1].ptrs
+    n_b = d["__alive__"].shape[0] if lead else 1
+    c, r = d["__cvalid__"].shape[lead], d["__alive__"].shape[lead]
+    nbytes = sum(d[nm].numel() * d[nm].element_size() for nm in used) \
+        + n_b * c * r
+    if lead:
+        ops = sum(k1_element_ops(ex, program, {nm: a[i] for nm, a
+                                               in d.items()})
+                  for i in range(n_b))
+    else:
+        ops = k1_element_ops(ex, program, d)
+    return bound(nbytes, ops)
+
+
+def k1_times(run, plain, iters: int = 20) -> dict:
+    """A K1-family wrapper per call (CUDA events) and device-only (a
+    CUDA graph), and its plain version per call."""
+    return {"ms": cuda_ms(run, iters), "device_ms": graph_ms(run, iters),
+            "plain_ms": cuda_ms(plain, iters=3, warmup=1)}
+
+
+def k1_text(n: dict) -> str:
+    return (f"{n['ms']:.4f} ms, device {n['device_ms']:.4f} (plain "
+            f"{n['plain_ms']:.4f}, bound {n['bound_ms']:.4f} "
+            f"{n['bound_by']})")
+
+
+def k1_random(ir_eval, dfa, ex, dev, resources: int) -> None:
+    """K1, K1b and K5 against their plain versions and timed (per call
+    and device-only) on every-op programs at the path's shapes — K1 and
+    K5 at the north star's [128, 131072] (K5 on the 1,024 rows of a 1%
+    churn), K1b at fleet (a)'s [4, 128, 131072] and fleet (b)'s
+    [4, 4, 4096] with ragged clusters — and on the north-star kinds over
+    ``resources`` pods (K1b on 4 stacked copies).  Uses only the
+    wrappers' public names and ``emit_source``, so it also times an
+    earlier kernel (``--k1-only`` from that tree)."""
+    from gatekeeper_tpu_torch import convert
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels.op_cases import (every_op_case,
+                                                       stacked_every_op_case)
+    from gatekeeper_tpu_torch.library.north_star import (make_resources,
+                                                         setup_north_star)
+
+    rng = np.random.default_rng(21)
+
+    def k1_case(what, prog, d, want):
+        got = ir_eval.eval_mask(prog, d)
+        if not torch.equal(got, want):
+            fail(f"K1 mismatch on {what}")
+        n = k1_times(lambda: ir_eval.eval_mask(prog, d),
+                     lambda: ex._eval_mask(prog, d))
+        n["bound_ms"], n["bound_by"] = k1_bound_of(ex, ir_eval, prog, d)
+        return n
+
+    def k5_case(what, prog, d, viol_old):
+        dirty = np.sort(rng.choice(min(100_000, viol_old.shape[1]),
+                                   size=1000, replace=False))
+        rows = torch.from_numpy(ex.pad_rows(dirty).astype(np.int32)).to(dev)
+        if not torch.equal(ir_eval.delta_mask(prog, d, viol_old, rows),
+                           ex._delta_mask(prog, d, viol_old, rows)):
+            fail(f"K5 mismatch on {what}")
+        return k5_numbers(ex, ir_eval, [(prog, d, viol_old, rows)])
+
+    def k1b_case(what, prog, d):
+        got = ir_eval.eval_mask_batched(prog, d)
+        if not torch.equal(got, ex._eval_mask_batched(prog, d)):
+            fail(f"batched K1 mismatch on {what}")
+        n = k1_times(lambda: ir_eval.eval_mask_batched(prog, d),
+                     lambda: ex._eval_mask_batched(prog, d))
+        n["bound_ms"], n["bound_by"] = k1_bound_of(ex, ir_eval, prog, d, 1)
+        return n
+
+    def stacked_case(n_b, **kw):
+        prog, stacked = stacked_every_op_case(n_b, **kw)
+        d = {nm: torch.from_numpy(a).to(dev) for nm, a in stacked.items()}
+        d["dfa0.devtab"] = dfa.dfa_table_batched(
+            d["dfa0.trans"], d["dfa0.accept"], d["__strbytes__"],
+            d["__strdfaok__"], d["dfa0.xv"], 3)
+        return prog, d
+
+    prog, host = every_op_case(0, c_pad=128, r_pad=131072, e_pad=4,
+                               t_pad=1024, u=32)
+    d = ex._with_dfa_tables(prog, convert.arrays_to_device(host, dev),
+                            dfa.dfa_table)
+    want = ex._eval_mask(prog, d)
+    k1 = k1_case("the every-op case at [128, 131072]", prog, d, want)
+    k5 = k5_case("the every-op case at [128, 131072]", prog, d, want)
+    k1a = k1b_case("every-op clusters at [4, 128, 131072]",
+                   *stacked_case(4, c_pad=128, r_pad=32768, t_pad=1024,
+                                 u=32))
+    k1l = k1b_case("every-op clusters at [4, 4, 4096]",
+                   *stacked_case(4, c_pad=4, r_pad=1024))
+    del d, want
+    print(f"phase K1 random: every-op programs, equal to plain; K1 at "
+          f"[128, 131072] {k1_text(k1)}; K5 at 1,024 rows of [128, 131072] "
+          f"{k1_text(k5)}, of it the mask copy device "
+          f"{k5['clone_device_ms']:.4f}; K1b at [4, 128, 131072] "
+          f"{k1_text(k1a)}; K1b at [4, 4, 4096] {k1_text(k1l)}", flush=True)
+
+    t0 = time.perf_counter()
+    drv = TorchDriver()
+    setup_north_star(drv, make_resources(resources, random.Random(1)),
+                     random.Random(2))
+    drv.query_audit(TARGET, QueryOpts(limit_per_constraint=CAP))
+    build_s = time.perf_counter() - t0
+    st = drv._state(TARGET)
+    acc = collections.defaultdict(collections.Counter)
+    by_kind = collections.defaultdict(dict)
+    kinds = sorted(st.bindings_cache)
+    for kind in kinds:
+        prog = st.templates[kind].vectorized.program
+        d = drv.executor._arrays(st.bindings_cache[kind][1], None)
+        want = ex._eval_mask(prog, d)
+        stacked = {nm: torch.stack([a] * 4) for nm, a in d.items()}
+        for key, n in (("K1", k1_case(kind, prog, d, want)),
+                       ("K5", k5_case(kind, prog, d, want)),
+                       ("K1b", k1b_case(kind + " x 4", prog, stacked))):
+            n.pop("bound_by")
+            n.pop("library_ms", None)
+            acc[key].update({k: v / len(kinds) for k, v in n.items()})
+            by_kind[key][kind] = round(n["device_ms"], 4)
+        del stacked
+    print(f"phase K1 north star: {resources} pods (store {build_s:.1f}s), "
+          f"mean over {kinds}, equal to plain; " + "; ".join(
+              f"{key} {n['ms']:.4f} ms, device {n['device_ms']:.4f} (plain "
+              f"{n['plain_ms']:.4f}, bound {n['bound_ms']:.4f}"
+              + (f", mask copy device {n['clone_device_ms']:.4f}"
+                 if key == "K5" else "") + ")"
+              for key, n in acc.items())
+          + f"; device ms by kind {dict(by_kind)}", flush=True)
 
 
 def triton_variants(ir_eval) -> int | None:
@@ -564,6 +719,11 @@ def fleet_twice(clusters, fns, fleet_audit, ir_eval) -> dict:
     del exe.run_topk_batched
     out["variants"].append(triton_variants(ir_eval))
     out["batched_s"] = sum(spent)
+    if None not in out["variants"] and \
+            out["variants"][2] != out["variants"][1]:
+        fail(f"the timed fleet audit compiled new K1 variants: Triton "
+             f"variants {out['variants']} (before, after warm, after "
+             f"timed)")
     return out
 
 
@@ -699,7 +859,7 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
 
     # batched K1 and K2 on the phase's own stacked inputs, bit for bit,
     # and timed; torch.topk on the same [N * C_pad, R_pad] scores
-    t = {k: 0.0 for k in ("k1", "k1p", "k1b")}
+    t = {k: 0.0 for k in ("k1", "k1d", "k1p", "k1b")}
     k2 = collections.Counter()
     k1_by = k2_by = "bytes"
     k1_err = k2_err = 0
@@ -718,16 +878,10 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
                                  for i in range(n_b)])
         if k2_err:
             fail("batched K2 mismatch on the north-star fleet's inputs")
-        used = ir_eval.emit_source(program, ir_eval.array_signature(
-            d, lead=1))[1].ptrs
-        nbytes = sum(d[nm].numel() * d[nm].element_size() for nm in used) \
-            + got.numel()
-        ops = sum(k1_element_ops(ex, program, {nm: a[i] for nm, a
-                                               in d.items()})
-                  for i in range(n_b))
-        b1, k1_by = bound(nbytes, ops)
+        b1, k1_by = k1_bound_of(ex, ir_eval, program, d, 1)
         t["k1b"] += b1
         t["k1"] += cuda_ms(lambda: ir_eval.eval_mask_batched(program, d))
+        t["k1d"] += graph_ms(lambda: ir_eval.eval_mask_batched(program, d))
         t["k1p"] += cuda_ms(lambda: ex._eval_mask_batched(program, d),
                             iters=3)
         n2 = k2_numbers(topk, got, rank, CAP)
@@ -737,13 +891,14 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
     t = {k: v / nk for k, v in t.items()}
     k2 = {k: v / nk for k, v in k2.items()}
     rec["K1b"] = {"launches": counts_a["K1b"], "max_abs_err": k1_err,
-                  "ms": t["k1"], "plain_ms": t["k1p"], "bound_ms": t["k1b"],
-                  "bound_by": k1_by, "library_ms": None}
+                  "ms": t["k1"], "device_ms": t["k1d"], "plain_ms": t["k1p"],
+                  "bound_ms": t["k1b"], "bound_by": k1_by,
+                  "library_ms": None}
     rec["K2b"] = {"launches": counts_a["K2b"], "max_abs_err": k2_err, **k2,
                   "bound_by": k2_by}
     print(f"phase fleet north star kernels: per launch at [{n_b}, {c_pad}, "
-          f"{r_pad}] (mean over {nk} kinds): batched K1 {t['k1']:.4f} ms "
-          f"(plain {t['k1p']:.4f}, bound {t['k1b']:.4f} {k1_by}); batched "
+          f"{r_pad}] (mean over {nk} kinds): batched K1 "
+          f"{k1_text(rec['K1b'])}; batched "
           f"K2 {k2_text(rec['K2b'])}, torch.topk on [{n_b * c_pad}, "
           f"{r_pad}]; both equal their plain versions", flush=True)
     del inputs, d, got, want, g2, w2, rank, clusters, warm, rep, exe
@@ -805,11 +960,18 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
     # bit; K3 timed at the regex kind's stacked table
     k3 = None
     k3_err = 0
+    k1l = collections.Counter()
+    shapes_b = collections.Counter()
     for program, stacked in inputs.values():
         d = exe._stacked_arrays(program, stacked)
         got = ir_eval.eval_mask_batched(program, d)
         if not torch.equal(got, ex._eval_mask_batched(program, d)):
             fail("batched K1 mismatch on the library fleet's inputs")
+        n1 = k1_times(lambda: ir_eval.eval_mask_batched(program, d),
+                      lambda: ex._eval_mask_batched(program, d), iters=10)
+        n1["bound_ms"], k1l_by = k1_bound_of(ex, ir_eval, program, d, 1)
+        k1l.update({k: v / len(inputs) for k, v in n1.items()})
+        shapes_b[tuple(got.shape)] += 1
         g2 = topk.topk_packed_batched(got, d["__rank__"], CAP)
         w2 = topk.topk_packed_batched_plain(got, d["__rank__"], CAP)
         if max(packed_err(g2[i], w2[i], CAP) for i in range(got.shape[0])):
@@ -832,11 +994,14 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
                   "plain_ms": cuda_ms(lambda: dfa.dfa_table_batched_plain(
                       *k3), iters=5),
                   "bound_ms": b3, "bound_by": by3, "library_ms": None}
-    rec["K1b"]["launches"] += counts_b["K1b"]
+    rec["K1bl"] = {"launches": counts_b["K1b"], "max_abs_err": 0, **k1l,
+                   "bound_by": k1l_by, "library_ms": None}
     rec["K2b"]["launches"] += counts_b["K2b"]
     torch.cuda.synchronize()
     print(f"phase fleet library kernels: batched K1 and K2 equal their "
-          f"plain versions on {len(inputs)} stacked kinds, batched K3 on "
+          f"plain versions on {len(inputs)} stacked kinds (shapes "
+          f"{dict(shapes_b)}); batched K1 per launch, mean over the kinds: "
+          f"{k1_text(rec['K1bl'])}; batched K3 on "
           f"the regex table ([{n_b}, {u}, {w}] bytes, {trans.shape[1]} "
           f"states): {rec['K3b']['ms']:.4f} ms (plain "
           f"{rec['K3b']['plain_ms']:.4f}, bound {b3:.6f} {by3}); phase "
@@ -1804,9 +1969,13 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
-    ap.add_argument("--k2-only", action="store_true",
-                    help="build K2 alone and run only its random-mask "
-                    "phases (K2 random, K2b random)")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--k2-only", action="store_true",
+                      help="build K2 alone and run only its random-mask "
+                      "phases (K2 random, K2b random)")
+    only.add_argument("--k1-only", action="store_true",
+                      help="build K3 alone and run only K1's phases (K1 "
+                      "random, K1 north star)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1856,7 +2025,8 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)), "gatekeeper_tpu_torch",
         "_build", "triton_cache"))
     t0 = time.perf_counter()
-    secs = build.build(("topk",) if args.k2_only else build.KERNELS)
+    secs = build.build(("topk",) if args.k2_only else ("dfa",)
+                       if args.k1_only else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
           f"{ {k: round(v, 3) for k, v in secs.items()} }, triton "
@@ -1869,6 +2039,11 @@ def main() -> int:
 
     def counts_of(*keys) -> dict:
         return {k: v for k, v in launch_counts(fns).items() if k in keys}
+
+    if args.k1_only:
+        k1_random(ir_eval, dfa, ex, dev, args.resources)
+        print(card, flush=True)
+        return 0
 
     # ---- 3a. K2 on random masks, full and ragged, at the default cap
     # and at caps that take a wider sort and several selects; K2b
@@ -1891,8 +2066,19 @@ def main() -> int:
         if not torch.equal(ir_eval.eval_mask(prog, d_dev),
                            ex._eval_mask(prog, arrays)):
             fail(f"K1 mismatch on the every-op case {seed}")
+    # ordering compares of row values against constraint values, which
+    # K1 takes through a max / min over the elements: NaN, infinities
+    # and signed zeros among the floats (imported here: --k1-only runs
+    # beside earlier trees, which lack the case)
+    from gatekeeper_tpu_torch.kernels.op_cases import ordering_case
+    for seed, kw in ((0, {}), (1, {"c_pad": 128, "r_pad": 1 << 14})):
+        prog, host = ordering_case(seed, **kw)
+        arrays = convert.arrays_to_device(host, dev)
+        if not torch.equal(ir_eval.eval_mask(prog, arrays),
+                           ex._eval_mask(prog, arrays)):
+            fail(f"K1 mismatch on the ordering case {seed}")
     print("phase every-op: K1 and K3 equal their plain versions on 2 "
-          "every-op programs", flush=True)
+          "every-op programs, K1 on 2 ordering programs", flush=True)
 
     # ---- 3c. K4 on random columns of every dtype and axis layout, and
     # K5 on the every-op programs at random rows; rows padded to their
@@ -2082,7 +2268,7 @@ def main() -> int:
 
     # K1 and K2 at the main path's own shapes
     st = drv._state(TARGET)
-    k1_ms = k1_plain = k1_bound = 0.0
+    k1_ms = k1_dev = k1_plain = k1_bound = 0.0
     k1_by = "bytes"
     k2_err = 0
     k2 = collections.Counter()
@@ -2097,13 +2283,11 @@ def main() -> int:
         if not torch.equal(got, want):
             fail(f"K1 mismatch on north-star template {kind}")
         k1_err = max(k1_err, int((got.int() - want.int()).abs().max()))
-        used = ir_eval.emit_source(
-            prog, ir_eval.array_signature(arrays))[1].ptrs
-        nbytes = sum(arrays[nm].numel() * arrays[nm].element_size()
-                     for nm in used) + got.numel()
-        bms, k1_by = bound(nbytes, k1_element_ops(ex, prog, arrays))
+        bms, k1_by = k1_bound_of(ex, ir_eval, prog, arrays)
         k1_bound += bms / len(kinds)
         k1_ms += cuda_ms(lambda: ir_eval.eval_mask(prog, arrays)) / len(kinds)
+        k1_dev += graph_ms(lambda: ir_eval.eval_mask(prog, arrays)) \
+            / len(kinds)
         k1_plain += cuda_ms(lambda: ex._eval_mask(prog, arrays),
                             iters=5) / len(kinds)
         rank = arrays["__rank__"]
@@ -2117,13 +2301,13 @@ def main() -> int:
         k2_by = n2.pop("bound_by")
         k2.update({key: v / len(kinds) for key, v in n2.items()})
     rec["K1"] = {"launches": counts["K1"], "max_abs_err": k1_err, "ms": k1_ms,
-                 "plain_ms": k1_plain, "bound_ms": k1_bound,
-                 "bound_by": k1_by, "library_ms": None}
+                 "device_ms": k1_dev, "plain_ms": k1_plain,
+                 "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None}
     rec["K2"] = {"launches": counts["K2"], "max_abs_err": k2_err, **k2,
                  "bound_by": k2_by}
     print(f"phase main kernels: per launch at the sweep's shapes (mean over "
-          f"{len(kinds)} kinds): K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}, "
-          f"bound {k1_bound:.4f}); K2 {k2_text(rec['K2'])}; both equal "
+          f"{len(kinds)} kinds): K1 {k1_text(rec['K1'])}; K2 "
+          f"{k2_text(rec['K2'])}; both equal "
           f"their plain versions", flush=True)
     c_pad, r_pad = got.shape
     # a copy of one kind's steady stored mask, for K6 at [C_pad, R_pad]
@@ -2237,10 +2421,9 @@ def main() -> int:
               f"{k4m['library_device_ms']:.4f}; bound "
               f"{k4m['bound_ms']:.6f}); K5 equal to plain on its "
               f"{len(k5_args)} deltas (rows {k5_args[0][3].numel()}, mask "
-              f"{list(k5_args[0][2].shape)}): {rec['K5']['ms']:.4f} ms mean "
-              f"(plain {rec['K5']['plain_ms']:.4f}, bound "
-              f"{rec['K5']['bound_ms']:.6f} {rec['K5']['bound_by']})",
-              flush=True)
+              f"{list(k5_args[0][2].shape)}): {k1_text(rec['K5'])} mean, "
+              f"of it the mask copy device "
+              f"{rec['K5']['clone_device_ms']:.4f}", flush=True)
         # drop every reference to the first sweep's tensors before the
         # next sweeps' memory readings
         del calls, k4_args, batches, k5_args, got, want, rows, prog, d, \
@@ -2340,6 +2523,9 @@ def main() -> int:
         "K1b": ("ir_eval_batched", "triton",
                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
                 "gatekeeper_tpu/whatif/fleet.py:60"),
+        "K1bl": ("ir_eval_batched_library_fleet", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/whatif/fleet.py:60"),
         "K2b": ("topk_batched", "cuda", "gatekeeper_tpu_torch/csrc/topk.cu",
                 "gatekeeper_tpu/whatif/fleet.py:47"),
         "K3b": ("dfa_batched", "cuda", "gatekeeper_tpu_torch/csrc/dfa.cu",
@@ -2356,8 +2542,8 @@ def main() -> int:
                 "gatekeeper_tpu/enforce/devpages.py:271"),
     }
     kernels = []
-    for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K2b", "K3b",
-                "K6", "K7", "K8g", "K8s"):
+    for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K1bl", "K2b",
+                "K3b", "K6", "K7", "K8g", "K8s"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

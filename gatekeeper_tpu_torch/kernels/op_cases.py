@@ -160,3 +160,58 @@ def stacked_every_op_case(n: int, seed: int = 40, c_pad: int = 8,
         edge = nm.endswith(_EDGE_PAD_SUFFIXES)
         stacked[nm] = np.stack([_pad_to(x, shape, edge) for x in arrs])
     return prog, stacked
+
+
+def ordering_case(seed: int, c_pad: int = 8, r_pad: int = 64,
+                  e_pad: int = 4):
+    """(program, arrays): one rule per ordering compare of a row or
+    element value against a constraint value (both operand orders;
+    float, narrowed-id and bool operands), with NaN, infinities and
+    signed zeros among the floats — the rules K1's emitter evaluates
+    through the max / min over the element axis."""
+    rng = np.random.default_rng(seed)
+    special = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.0, -2.5,
+                        3e38, -3e38, 0.5], dtype=np.float32)
+
+    def nums(shape):
+        return rng.choice(special, size=shape).astype(np.float32)
+
+    def flags(shape, p=0.7):
+        return rng.random(shape) < p
+
+    A = {
+        "__alive__": flags((r_pad,), 0.9),
+        "__cvalid__": flags((c_pad,), 0.9),
+        "__elem__:ax": flags((r_pad, e_pad), 0.6),
+        "e:x.v": nums((r_pad, e_pad)), "e:x.p": flags((r_pad, e_pad)),
+        "e:s": rng.integers(-1, 9, size=(r_pad, e_pad)).astype(np.int32),
+        "e:f": flags((r_pad, e_pad), 0.5),
+        "r:y.v": nums((r_pad,)), "r:y.p": flags((r_pad,)),
+        "cv0.v": nums((c_pad,)), "cv0.p": flags((c_pad,)),
+        "cv1": rng.integers(-1, 9, size=(c_pad,)).astype(np.int32),
+        "cb0": flags((c_pad,), 0.5),
+    }
+    N: list[Node] = []
+
+    def add(op, args=(), meta=()):
+        N.append(Node(op, tuple(args), tuple(meta)))
+        return len(N) - 1
+
+    ex = add("input", meta=("e:x", "e_num"))
+    es = add("input", meta=("e:s", "e_id"))
+    ef = add("input", meta=("e:f", "e_bool"))
+    ry = add("input", meta=("r:y", "r_num"))
+    c0 = add("input", meta=("cv0", "c_num"))
+    c1 = add("input", meta=("cv1", "c_id"))
+    cb = add("input", meta=("cb0", "c_bool"))
+    rules = []
+    for op in ("<", "<=", ">", ">="):
+        for x, y, axis in ((ex, c0, "ax"), (c0, ex, "ax"), (ry, c0, None),
+                           (es, c1, "ax"), (c1, es, None), (ef, cb, "ax")):
+            rules.append(RuleSpec((add("cmp", (x, y), (op,)),),
+                                  elem_axis=axis))
+    # one beside other conjuncts: a row compare and a constraint flag
+    rules.append(RuleSpec((add("cmp", (ex, c0), (">",)),
+                           add("cmp", (ry, ex), ("<",)), cb),
+                          elem_axis="ax"))
+    return Program(nodes=tuple(N), rules=tuple(rules)), A
