@@ -1,7 +1,8 @@
 """Drive gatekeeper_tpu_torch on one CUDA card and hold every kernel
 against its plain PyTorch version.
 
-    python3 chip_smoke.py [--resources N] [--k2-only | --k1-only]
+    python3 chip_smoke.py [--resources N] [--k2-only | --k1-only |
+                           --k6k7-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -11,7 +12,17 @@ and K5: it builds K3, holds the three against their plain versions on
 every-op programs and on the north-star kinds at the path's shapes and
 times each per call and device-only (``eval_mask``, ``delta_mask`` and
 ``eval_mask_batched`` are the only names of ``ir_eval`` it calls
-besides ``emit_source`` for the bound).
+besides ``emit_source`` for the bound).  ``--k6k7-only`` builds K6 and
+K7 alone, holds K6 against its plain version on the devpages phase's
+random cases and K7 on a join at the ingress phase's row count, and
+times both per call and device-only at the path's shapes, through the
+public ``mask_delta`` and ``inv_join_mask`` alone.
+
+Every TorchDriver starts a background warm-up of its kinds' churn-delta
+variants (K5) after its first capped legacy sweep; the script waits for
+each one (``wait_delta_warm``) before it times anything or captures a
+CUDA graph, and the churn phase fails if its first churned sweep still
+compiles a Triton variant.
 
 Phases (each prints one line of its numbers):
   1. card   — nvidia-smi name/power limit, torch and CUDA versions, TF32 off
@@ -33,17 +44,21 @@ Phases (each prints one line of its numbers):
        make_mixed rows through TorchDriver on the card — K1 on every
        program, K3 on the regex template — with the sweep's launch counts
   4. main path — TorchDriver() with the north-star set (3 templates x 67
-     constraints = 201) over --resources pods, cap 20: a cold sweep and
-     the best of 3 steady sweeps; K1/K2 launch counts; K1 and K2 at the
+     constraints = 201) over --resources pods, cap 20: a cold sweep, the
+     wait for its delta warm-up (its seconds), and the best of 3 steady
+     sweeps; K1/K2 launch counts; K1 and K2 at the
      sweep's own shapes against their plain versions; the results
      against TorchDriver(device="cpu") on the same store and against
      LocalDriver on a 300-pod subsample; K3 at the store's size: the
      library's regex template (K8sImageDigests) swept over the same pods,
-     its string table against the plain scan
+     its string table against the plain scan, K3 timed per call and
+     device-only
   5. churn — on the same driver and store, 3 rounds that each upsert 1%
      of the pods (new labels on existing names) and run a capped sweep:
      each sweep's results against TorchDriver(device="cpu") on the same
-     churned store, 3 K5 launches, no full K1 launch and one batched K4
+     churned store, no Triton variant compiled by the first churned sweep
+     (the warm-up compiled K5's), 3 K5 launches, no full K1 launch and
+     one batched K4
      launch per migrating kind (at most 3) per sweep, K4 and K5 against
      their plain versions on the churn's own inputs, their times at the
      churn's shapes (K4 per job and per batched call, each per call and
@@ -77,7 +92,8 @@ Phases (each prints one line of its numbers):
      device on A, row-sized transfers, flat device memory, ledger events
      that add up and equal ledger totals on A and C, K6 on the phase's
      own inputs and every K4 call of A's churned sweeps against its plain
-     version; each churned sweep's host time on A split into
+     version, K6 timed per call and device-only there (beside
+     torch.nonzero); each churned sweep's host time on A split into
      the scalar confirm, the direct clears and the ledger serve (the
      script wraps the driver's methods)
   8. devpages budget — the residency planner (B8): drivers A and B of 7
@@ -107,7 +123,8 @@ Phases (each prints one line of its numbers):
      equal to the duplicates the script counts, appears minus clears
      equal to the change, one K7 launch per delta evaluation (plus one
      per overflow), K7 equal to plain on the sweeps' own inputs and
-     timed there, K4 equal to plain on every call of A's churned sweeps,
+     timed there per call and device-only, K4 equal to plain on every
+     call of A's churned sweeps,
      flat device memory, the host split as in 7, the join
      kind's delta high-water and device bindings within its certificate
  10. the kernels JSON line, the card line, and the final JSON line.
@@ -181,6 +198,14 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     t1.synchronize()
     del g
     return t0.elapsed_time(t1) / (iters * replays)
+
+
+def warm_text(drv) -> str:
+    """Join ``drv``'s delta warm-up (raising its error) and describe it."""
+    secs = drv.wait_delta_warm()
+    if secs is None:
+        return "no delta warm-up"
+    return f"delta warm-up of {drv.delta_warm.kinds} kinds {secs:.4f}s"
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -336,6 +361,7 @@ def k3_numbers(dfa, ins) -> dict:
         + trans.shape[0] + 3 * u
     b, by = bound(nbytes, u * (w - 3 + 1))
     return {"ms": cuda_ms(lambda: dfa.dfa_table(*ins)),
+            "device_ms": graph_ms(lambda: dfa.dfa_table(*ins)),
             "plain_ms": cuda_ms(lambda: dfa.dfa_table_plain(*ins), iters=5),
             "bound_ms": b, "bound_by": by, "library_ms": None}
 
@@ -812,6 +838,8 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
         fa["widen"]
     exe, inputs = fa["exe"], fa["inputs"]
     _v, loop_digests, loop_s = fleet_loop_oracle(clusters, CAP)
+    for cl in clusters:
+        cl.driver.wait_delta_warm()
     n_stacked = len(rep.kinds_stacked)
     if rep.digests != warm.digests or rep.digests != loop_digests:
         fail(f"north-star fleet digests {rep.digests}, warm {warm.digests}, "
@@ -923,6 +951,8 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
         fb["widen"]
     exe, inputs = fb["exe"], fb["inputs"]
     _v, loop_digests, loop_s = fleet_loop_oracle(lib, CAP)
+    for cl in lib:
+        cl.driver.wait_delta_warm()
     cpu_lib = library_fleet(lambda: TorchDriver(device="cpu"))
     _cv, cpu_digests, cpu_s = fleet_loop_oracle(cpu_lib, CAP)
     torch_driver.SMALL_WORKLOAD_EVALS = saved
@@ -991,6 +1021,7 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
     rec["K3b"] = {"launches": counts_a["K3b"] + counts_b["K3b"],
                   "max_abs_err": k3_err,
                   "ms": cuda_ms(lambda: dfa.dfa_table_batched(*k3)),
+                  "device_ms": graph_ms(lambda: dfa.dfa_table_batched(*k3)),
                   "plain_ms": cuda_ms(lambda: dfa.dfa_table_batched_plain(
                       *k3), iters=5),
                   "bound_ms": b3, "bound_by": by3, "library_ms": None}
@@ -1003,7 +1034,8 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
           f"{dict(shapes_b)}); batched K1 per launch, mean over the kinds: "
           f"{k1_text(rec['K1bl'])}; batched K3 on "
           f"the regex table ([{n_b}, {u}, {w}] bytes, {trans.shape[1]} "
-          f"states): {rec['K3b']['ms']:.4f} ms (plain "
+          f"states): {rec['K3b']['ms']:.4f} ms, device "
+          f"{rec['K3b']['device_ms']:.4f} (plain "
           f"{rec['K3b']['plain_ms']:.4f}, bound {b3:.6f} {by3}); phase "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()}",
           flush=True)
@@ -1036,18 +1068,132 @@ def k6_check(devdelta, ins, what: str, got=None) -> tuple[int, float]:
 
 
 def k6_numbers(devdelta, new, pt, old, k) -> dict:
-    """K6, its plain version and one ``torch.nonzero`` of the gathered
-    XOR timed on one input, with the bound: new, old and pt read once,
-    the gathered mask, row_any, idx and signs written once."""
+    """K6 per call (``ms``) and device-only (``device_ms``, a CUDA
+    graph), its plain version and one ``torch.nonzero`` of the gathered
+    XOR (per call: nonzero synchronises, so no graph holds it) timed on
+    one input, with the bound: new, old and pt read once, the gathered
+    mask, row_any, idx and signs written once."""
     c, r = new.shape
     b, by = bound(3 * c * r + 4 * r + r + 5 * k, 2 * c * r)
     pt64 = pt.to(torch.int64)
-    return {"ms": cuda_ms(lambda: devdelta.mask_delta(new, pt, old, k)),
+
+    def run():
+        return devdelta.mask_delta(new, pt, old, k)
+    return {"ms": cuda_ms(run), "device_ms": graph_ms(run),
             "plain_ms": cuda_ms(lambda: devdelta.mask_delta_plain(
                 new, pt, old, k), iters=5),
             "bound_ms": b, "bound_by": by,
             "library_ms": cuda_ms(lambda: torch.nonzero(
                 torch.index_select(new, 1, pt64) ^ old))}
+
+
+def k6_text(n: dict) -> str:
+    return (f"{n['ms']:.4f} ms, device {n['device_ms']:.4f} (plain "
+            f"{n['plain_ms']:.4f}, torch.nonzero {n['library_ms']:.4f}, "
+            f"bound {n['bound_ms']:.6f} {n['bound_by']})")
+
+
+K6_RANDOM = ((4, 131072, 1e-3, "identity", 256),
+             (4, 131072, 1e-4, "permuted", 4096),
+             (128, 131072, 1e-4, "permuted", 4096),
+             (128, 131072, 0.0, "identity", 256),
+             (5, 1000, 0.05, "out_of_range", 64),
+             (3, 4097, 0.5, "permuted", 20000),
+             (1, 1, 1.0, "identity", 1))
+
+
+def k6_case(g, c, r, dens, ptk, dev) -> tuple:
+    """(new, pt, old) on ``dev``: ``new`` at density 0.4, ``old`` the
+    gathered ``new`` with ``dens`` of its bits flipped, the page table
+    ``ptk`` (identity, permuted, or permuted with entries outside
+    [0, r))."""
+    new = (torch.rand((c, r), generator=g) < 0.4).to(dev)
+    pt = torch.arange(r, dtype=torch.int32) if ptk == "identity" \
+        else torch.randperm(r, generator=g).to(torch.int32)
+    if ptk == "out_of_range":
+        pt[:6] = torch.tensor([-1, r, -r - 1, 2 * r, -r, r + 3])
+    pt = pt.to(dev)
+    flips = (torch.rand((c, r), generator=g) < dens).to(dev)
+    from gatekeeper_tpu_torch.kernels import devdelta
+    old = devdelta.mask_delta_plain(new, pt, torch.zeros_like(new),
+                                    1)[0] ^ flips
+    return new, pt, old
+
+
+def k6_random(devdelta, dev) -> int:
+    """K6 against its plain version on K6_RANDOM: sparse and dense
+    flips, a stream that overflows its width, permuted and out-of-range
+    page tables, ragged sizes.  Returns the number of cases that
+    overflowed."""
+    g = torch.Generator(device="cpu").manual_seed(31)
+    overflowed = 0
+    for c, r, dens, ptk, k in K6_RANDOM:
+        new, pt, old = k6_case(g, c, r, dens, ptk, dev)
+        n, _ = k6_check(devdelta, (new, pt, old, k),
+                        f"random [{c}, {r}] {ptk} density {dens} k {k}")
+        overflowed += n > k
+    if not overflowed:
+        fail("K6 random cases never overflowed their width")
+    return overflowed
+
+
+K6_PATH = ((4, 131072, 1e-3, "identity", 256),
+           (128, 131072, 1e-4, "identity", 4096),
+           (128, 131072, 1e-4, "permuted", 4096))
+"""K6 timed at the path's shapes: the devpages sweep's [4, 131072] at k
+256 and the main phase's [128, 131072] at k 4096 with an identity page
+table (the devpages page table is one until slots are remapped); and
+[128, 131072] through a permuted table (a byte gather per element)."""
+
+
+def k7_join(dev, n_rows: int = 131072, n_ingress: int = 2000,
+            n_ids: int = 1 << 19, seed: int = 5) -> tuple:
+    """K7's inputs at the ingress phase's shape: ``n_ingress`` selected
+    rows holding host ids (50 shared by two, one same-name pair), the
+    other rows MISSING; ``n_ids`` interned ids."""
+    rng = np.random.default_rng(seed)
+    src = np.full((n_rows,), -1, dtype=np.int32)
+    names = rng.permutation(n_ids)[:n_rows].astype(np.int32)
+    hosts = rng.permutation(n_ids)[: n_ingress - 50].astype(np.int32)
+    src[:n_ingress] = np.concatenate([hosts, hosts[:50]])
+    names[n_ingress - 1] = names[49]     # a same-name pair, one host
+    sel = np.zeros((n_rows,), dtype=bool)
+    sel[:n_ingress] = True
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (src, src.copy(), sel, names)) + (True, n_ids)
+
+
+def k6k7_only(devdelta, invjoin, dev) -> None:
+    """``--k6k7-only``: K6 on its random cases and K7 on a join at the
+    ingress phase's row count, each against its plain version and timed
+    per call and device-only, through the wrappers' public names only
+    (so a copy of this script beside an earlier tree times that tree's
+    kernels)."""
+    overflowed = k6_random(devdelta, dev)
+    g = torch.Generator(device="cpu").manual_seed(32)
+    times = []
+    for c, r, dens, ptk, k in K6_PATH:
+        ins = k6_case(g, c, r, dens, ptk, dev) + (k,)
+        k6_check(devdelta, ins, f"[{c}, {r}] {ptk} density {dens} k {k}")
+        times.append(f"[{c}, {r}] {ptk} k {k}: "
+                     f"{k6_text(k6_numbers(devdelta, *ins))}")
+    print(f"phase K6 random: equal to plain on {len(K6_RANDOM)} random "
+          f"cases ({overflowed} overflowing their width) and on the "
+          f"timed ones; " + "; ".join(times), flush=True)
+    ins = k7_join(dev)
+    err = invjoin.error_flag(dev)
+    for exclude in (True, False):
+        got = invjoin.inv_join_mask(*ins[:4], exclude, ins[5], err)
+        invjoin.check_error(err, ins[5])
+        if not torch.equal(got, invjoin.inv_join_mask_plain(
+                *ins[:4], exclude, ins[5])):
+            fail(f"K7 mismatch on the synthetic join (exclude {exclude})")
+    n = k7_numbers(invjoin, ins)
+    print(f"phase K7 join: equal to plain on [{ins[0].shape[0]}] rows, "
+          f"n_ids {ins[5]}, {int(ins[2].sum())} selected, both exclusion "
+          f"modes: {n['ms']:.4f} ms, device {n['device_ms']:.4f} (plain "
+          f"{n['plain_ms']:.4f}, bound {n['bound_ms']:.6f} "
+          f"{n['bound_by']})", flush=True)
 
 
 DEVPAGES_PODS = 100_000
@@ -1088,29 +1234,7 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
 
     # -- K6 on random masks: sparse and dense flips, a stream that
     # overflows its width, permuted and out-of-range page tables
-    g = torch.Generator(device="cpu").manual_seed(31)
-    overflowed = 0
-    for c, r, dens, ptk, k in ((4, 131072, 1e-3, "identity", 256),
-                               (4, 131072, 1e-4, "permuted", 4096),
-                               (128, 131072, 1e-4, "permuted", 4096),
-                               (128, 131072, 0.0, "identity", 256),
-                               (5, 1000, 0.05, "out_of_range", 64),
-                               (3, 4097, 0.5, "permuted", 20000),
-                               (1, 1, 1.0, "identity", 1)):
-        new = (torch.rand((c, r), generator=g) < 0.4).to(dev)
-        pt = torch.arange(r, dtype=torch.int32) if ptk == "identity" \
-            else torch.randperm(r, generator=g).to(torch.int32)
-        if ptk == "out_of_range":
-            pt[:6] = torch.tensor([-1, r, -r - 1, 2 * r, -r, r + 3])
-        pt = pt.to(dev)
-        flips = (torch.rand((c, r), generator=g) < dens).to(dev)
-        old = devdelta.mask_delta_plain(new, pt, torch.zeros_like(new),
-                                        1)[0] ^ flips
-        n, _ = k6_check(devdelta, (new, pt, old, k),
-                        f"random [{c}, {r}] {ptk} density {dens} k {k}")
-        overflowed += n > k
-    if not overflowed:
-        fail("K6 random cases never overflowed their width")
+    overflowed = k6_random(devdelta, dev)
     # -- K6 at the main phase's [C_pad, R_pad]: its steady stored mask
     # of one kind against the same kind's first churned mask
     steady, churned = main_masks
@@ -1121,14 +1245,12 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
     k6_check(devdelta, (churned, pt, steady, k_main),
              f"the main phase's masks [{c_pad}, {r_pad}]")
     big = k6_numbers(devdelta, churned, pt, steady, k_main)
-    print(f"phase devpages kernels random: K6 equal to plain on 7 random "
-          f"cases ({overflowed} overflowing their width), and at [{c_pad}, "
-          f"{r_pad}] on the main phase's steady mask against its first "
-          f"churned mask ({n_main} changed bits, k {k_main}): "
-          f"{big['ms']:.4f} ms (plain {big['plain_ms']:.4f}, torch.nonzero "
-          f"{big['library_ms']:.4f}, bound {big['bound_ms']:.4f} "
-          f"{big['bound_by']})", flush=True)
-    del steady, churned, pt, new, old, flips
+    print(f"phase devpages kernels random: K6 equal to plain on "
+          f"{len(K6_RANDOM)} random cases ({overflowed} overflowing their "
+          f"width), and at [{c_pad}, {r_pad}] on the main phase's steady "
+          f"mask against its first churned mask ({n_main} changed bits, k "
+          f"{k_main}): {k6_text(big)}", flush=True)
+    del steady, churned, pt
 
     # -- the cold ledger build's size dependence: 10k pods first
     probe = TorchDriver()
@@ -1154,6 +1276,7 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
     cold_pg = dict(a.last_sweep_phases["pages"])
     cold_dv = dict(a.last_sweep_phases["devpages"])
     res_b, cold_b_s = sweep(b, False)
+    b_warm = warm_text(b)
     if norm(res_a) != norm(res_b):
         fail("devpages cold sweep: A's results differ from the oracle B's")
     reset_counts(fns)
@@ -1187,7 +1310,8 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
           f"(R_pad {r_pad}), cap {CAP}: ingest A and B {ingest_s:.3f}s; "
           f"cold ledger build {cold_s:.4f}s on A (at "
           f"{DEVPAGES_PROBE_PODS} pods {probe_s:.4f}s), oracle B's cold "
-          f"sweep {cold_b_s:.4f}s, default route C's (host page loop) "
+          f"sweep {cold_b_s:.4f}s ({b_warm}), "
+          f"default route C's (host page loop) "
           f"cold ledger build {cold_c_s:.4f}s; {len(res_a)} results equal; "
           f"ledger "
           f"{led.total_violations()} violations; devpages h2d_bytes "
@@ -1282,7 +1406,7 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
             continue
         # K6 on the sweep's own inputs, bit for bit, and timed there
         k6_err = 0.0
-        t = dict.fromkeys(("ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+        t = collections.Counter()
         for ins, got in calls:
             k6_err = max(k6_err, k6_check(devdelta, ins, "a churned sweep's "
                                           "input", got)[1])
@@ -1292,10 +1416,8 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
         shape = (list(calls[0][0][0].shape), calls[0][0][3])
         rec["K6"] = {"max_abs_err": k6_err, **t, "bound_by": "bytes"}
         print(f"phase devpages kernels: K6 equal to plain on the sweep's "
-              f"{len(calls)} deltas ([C_pad, R_pad] and k {shape}): "
-              f"{t['ms']:.4f} ms mean (plain {t['plain_ms']:.4f}, "
-              f"torch.nonzero {t['library_ms']:.4f}, bound "
-              f"{t['bound_ms']:.6f} bytes)", flush=True)
+              f"{len(calls)} deltas ([C_pad, R_pad] and k {shape}), mean: "
+              f"{k6_text(rec['K6'])}", flush=True)
         del calls, ins, got
     rec["K6"]["launches"] = k6_launches
     mask_bytes = 4 * r_pad
@@ -1730,7 +1852,8 @@ def expected_duplicates(live: dict) -> int:
 
 
 def k7_numbers(invjoin, ins) -> dict:
-    """K7 and its plain version timed on one recorded input ``ins`` (src,
+    """K7 per call and device-only (a CUDA graph) and its plain version
+    timed on one recorded input ``ins`` (src,
     inv, sel, names, exclude, n_ids), with the bound from the function's
     own traffic: the three int32 columns and sel read once, the bool
     column written once (14 bytes a row; the per-value tables are the
@@ -1740,9 +1863,12 @@ def k7_numbers(invjoin, ins) -> dict:
     n_rows, n_ids = ins[0].shape[0], ins[5]
     b, by = bound(14 * n_rows, 8 * n_rows)
     err = invjoin.error_flag(ins[0].device)
-    ms = cuda_ms(lambda: invjoin.inv_join_mask(*ins, err))
+
+    def run():
+        return invjoin.inv_join_mask(*ins, err)
+    ms, device_ms = cuda_ms(run), graph_ms(run)
     invjoin.check_error(err, n_ids)
-    return {"ms": ms,
+    return {"ms": ms, "device_ms": device_ms,
             "plain_ms": cuda_ms(lambda: invjoin.inv_join_mask_plain(*ins),
                                 iters=5),
             "bound_ms": b, "bound_by": by, "library_ms": None}
@@ -1818,6 +1944,7 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
     cold_dv = dict(a.last_sweep_phases["devpages"])
     cold_pg = dict(a.last_sweep_phases["pages"])
     res_b, cold_b_s = sweep(b, False)
+    b.wait_delta_warm()
     res_c, cold_c_s = sweep(cpu, False)
     check("cold sweep", res_a, res_b, res_c)
     led = a._state(TARGET).ledger
@@ -1946,7 +2073,8 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
         print(f"phase devpages ingress kernels: K7 equal to plain on the "
               f"sweep's {len(calls)} joins ([{ins[0].shape[0]}] rows, "
               f"n_ids {ins[5]}, {int(ins[2].sum())} selected): "
-              f"{rec['K7']['ms']:.4f} ms (plain {rec['K7']['plain_ms']:.4f}"
+              f"{rec['K7']['ms']:.4f} ms, device "
+              f"{rec['K7']['device_ms']:.4f} (plain {rec['K7']['plain_ms']:.4f}"
               f", bound {rec['K7']['bound_ms']:.6f} "
               f"{rec['K7']['bound_by']}; no single PyTorch call computes "
               f"it)", flush=True)
@@ -1976,6 +2104,9 @@ def main() -> int:
     only.add_argument("--k1-only", action="store_true",
                       help="build K3 alone and run only K1's phases (K1 "
                       "random, K1 north star)")
+    only.add_argument("--k6k7-only", action="store_true",
+                      help="build K6 and K7 alone and run only their "
+                      "phases (K6 random, K7 join)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2026,7 +2157,8 @@ def main() -> int:
         "_build", "triton_cache"))
     t0 = time.perf_counter()
     secs = build.build(("topk",) if args.k2_only else ("dfa",)
-                       if args.k1_only else build.KERNELS)
+                       if args.k1_only else ("devdelta", "invjoin")
+                       if args.k6k7_only else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
           f"{ {k: round(v, 3) for k, v in secs.items()} }, triton "
@@ -2042,6 +2174,10 @@ def main() -> int:
 
     if args.k1_only:
         k1_random(ir_eval, dfa, ex, dev, args.resources)
+        print(card, flush=True)
+        return 0
+    if args.k6k7_only:
+        k6k7_only(devdelta, invjoin, dev)
         print(card, flush=True)
         return 0
 
@@ -2176,6 +2312,7 @@ def main() -> int:
     lib_res, _ = lib_drv.query_audit(TARGET, QueryOpts(limit_per_constraint=CAP))
     lib_s = time.perf_counter() - t0
     lib_counts = counts_of("K1", "K2", "K3")
+    lib_warm = warm_text(lib_drv)
     if min(lib_counts.values()) <= 0:
         fail(f"library sweep did not launch every kernel: {lib_counts}")
     st = lib_drv._state(TARGET)
@@ -2207,9 +2344,11 @@ def main() -> int:
     k3_lib = k3_numbers(dfa, k3[1])
     print(f"phase library: {len(st.templates)} templates x {LIBRARY_ROWS}"
           f" rows, capped sweep {lib_s:.3f}s, {len(lib_res)} results, "
-          f"launches {lib_counts}; K1 == plain on {n_k1} programs; K3 == "
+          f"launches {lib_counts}; {lib_warm}; K1 == "
+          f"plain on {n_k1} programs; K3 == "
           f"plain on {k3[0]} ([{u}, {w}] bytes, {k3[1][0].shape[0]} "
-          f"states, launch-scale): {k3_lib['ms']:.4f} ms vs plain "
+          f"states, launch-scale): {k3_lib['ms']:.4f} ms, device "
+          f"{k3_lib['device_ms']:.4f} vs plain "
           f"{k3_lib['plain_ms']:.4f} ms, bound {k3_lib['bound_ms']:.6f}",
           flush=True)
     del lib_drv, lib, st
@@ -2226,6 +2365,14 @@ def main() -> int:
     t0 = time.perf_counter()
     cold, _ = drv.query_audit(TARGET, opts)
     cold_s = time.perf_counter() - t0
+    # the churn-delta variants compile on the driver's warm-up thread;
+    # wait for it, so no compile overlaps a timing or a graph capture
+    t0 = time.perf_counter()
+    warm_s = drv.wait_delta_warm()
+    warm_wait_s = time.perf_counter() - t0
+    if warm_s is None or drv.delta_warm.kinds != 3:
+        fail(f"the cold sweep started no delta warm-up of the 3 kinds: "
+             f"{drv.delta_warm}")
     steady = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2239,6 +2386,8 @@ def main() -> int:
     evals = args.resources * 201
     print(f"phase main: north star {args.resources} pods x 201 constraints "
           f"cap {CAP}: ingest {ingest_s:.3f}s, cold {cold_s:.4f}s, "
+          f"delta warm-up of 3 kinds {warm_s:.4f}s on its thread (waited "
+          f"{warm_wait_s:.4f}s after the cold sweep), "
           f"steady best {min(steady):.4f}s (all {[round(s, 4) for s in steady]}), "
           f"{evals / min(steady):.4g} constraint-evals/s steady, "
           f"{len(cold)} results, launches {counts}", flush=True)
@@ -2358,11 +2507,16 @@ def main() -> int:
             ir_eval.delta_mask = recording(orig["K5"], calls["K5"])
         before = (x.mask_evals, x.delta_evals, x.h2d_bytes,
                   x.h2d_scatter_bytes, x.h2d_scatter_rows)
+        variants = [triton_variants(ir_eval)]
         reset_counts(fns)
         t0 = time.perf_counter()
         res, _ = drv.query_audit(TARGET, opts)
         sweep_s = time.perf_counter() - t0
         swept = launch_counts(fns)
+        variants.append(triton_variants(ir_eval))
+        if rep == 0 and (None in variants or variants[1] != variants[0]):
+            fail(f"the first churned sweep compiled Triton variants "
+                 f"{variants} (before, after) after the delta warm-up")
         k4_calls.restore()
         ir_eval.delta_mask = orig["K5"]
         for k, v in swept.items():
@@ -2382,7 +2536,12 @@ def main() -> int:
                  f"one batched K4 launch per migrating kind: launches "
                  f"{swept}, delta_evals {d_delta}, mask_evals {d_mask}")
         print(f"phase churn {rep + 1}: upsert {n_churn} pods {upsert_s:.3f}s,"
-              f" capped sweep {sweep_s:.4f}s, {len(res)} results equal "
+              f" capped sweep {sweep_s:.4f}s"
+              + (" (1.76-2.43 s on an H100 80GB HBM3 when the first "
+                 "churned sweep still compiled K5's variant)" if rep == 0
+                 else "")
+              + f", Triton variants {variants[0]} -> {variants[1]}, "
+              f"{len(res)} results equal "
               f"TorchDriver(cpu); delta_evals {d_delta}, mask_evals "
               f"{d_mask}, launches {swept}, h2d_bytes {d_h2d}, "
               f"h2d_scatter_bytes {d_sb} ({d_sr} rows), memory_allocated "
@@ -2467,6 +2626,7 @@ def main() -> int:
     reset_counts(fns)
     dig_res, _ = dig.query_audit(TARGET, opts)
     dig_counts = counts_of("K1", "K2", "K3")
+    dig.wait_delta_warm()
     if min(dig_counts.values()) <= 0:
         fail(f"K8sImageDigests sweep did not launch every kernel: "
              f"{dig_counts}")
@@ -2486,7 +2646,8 @@ def main() -> int:
     print(f"phase K3 store: K8sImageDigests over {args.resources} pods, "
           f"{len(dig_res)} capped results, launches {dig_counts}; string "
           f"table {list(ins[2].shape)} bytes ({n_ids} scannable ids), "
-          f"{ins[0].shape[0]} states: K3 {rec['K3']['ms']:.4f} ms vs plain "
+          f"{ins[0].shape[0]} states: K3 {rec['K3']['ms']:.4f} ms, device "
+          f"{rec['K3']['device_ms']:.4f} vs plain "
           f"{rec['K3']['plain_ms']:.4f} ms, bound "
           f"{rec['K3']['bound_ms']:.6f} ms ({rec['K3']['bound_by']}); equal "
           f"to plain", flush=True)

@@ -32,6 +32,10 @@ anything else evaluates whole ("full", K1).
 
 from __future__ import annotations
 
+import atexit
+import threading
+import time
+
 import numpy as np
 import torch
 
@@ -398,6 +402,48 @@ def pad_rows(rows: np.ndarray) -> np.ndarray:
                                          dtype=rows.dtype)])
 
 
+# -- background compile threads (the reference's ``spawn_bg`` and its
+# process-exit drain, ``engine/veval.py``): a Triton compile must not be
+# in flight while the interpreter tears down, so every thread that can
+# compile is joined at exit; BG_SHUTDOWN tells it to stop between items
+BG_SHUTDOWN = threading.Event()
+BG_DRAIN_SECONDS = 120.0
+_BG_LOCK = threading.Lock()
+_BG_THREADS: list[threading.Thread] = []
+_bg_drain_registered = False
+
+
+def _drain_bg() -> None:
+    BG_SHUTDOWN.set()
+    deadline = time.monotonic() + BG_DRAIN_SECONDS
+    with _BG_LOCK:
+        threads = list(_BG_THREADS)
+    for t in threads:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+
+
+def spawn_bg(target, name: str) -> threading.Thread:
+    """Start ``target`` on a daemon thread named ``name`` that the
+    process-exit drain joins (registered at the first spawn)."""
+    global _bg_drain_registered
+    t = threading.Thread(target=target, name=name, daemon=True)
+    with _BG_LOCK:
+        _BG_THREADS[:] = [x for x in _BG_THREADS if x.is_alive()]
+        _BG_THREADS.append(t)
+        if not _bg_drain_registered:
+            _bg_drain_registered = True
+            atexit.register(_drain_bg)
+    t.start()
+    return t
+
+
+def _zero_devtab(trans, accept, strbytes, ok, xv, prefix) -> torch.Tensor:
+    """A regex verdict table of K3's shape and type (bool [U]), all
+    False: what a warm-up launch reads in place of K3's output."""
+    return torch.zeros((strbytes.shape[0],), dtype=torch.bool,
+                       device=strbytes.device)
+
+
 MIGRATE_DEPTH = 8
 """Longest bindings lineage ``_migrate`` walks back for device copies;
 past it the generation uploads whole."""
@@ -683,6 +729,30 @@ class ProgramExecutor:
         d = _with_dfa_tables(program, arrays, _dfa.dfa_table)
         return _ir_eval.delta_mask(program, d, viol_old, rows)
 
+    def prewarm_deltas(self, program: Program, bindings: Bindings) -> bool:
+        """Compile K5, the delta variant of ``program``'s kernel, ahead of
+        the first churned sweep (the reference's ``prewarm_deltas``):
+        one real delta launch into a scratch copy of the mask a sweep
+        stored on ``bindings``, over the very device arrays that sweep
+        read, with regex verdict tables of K3's shape (zeros: the
+        scratch mask is thrown away) and 8 dirty rows.  One launch
+        covers every churn size: the row count is a runtime argument
+        and every delta plan has one tile plan.  Counts nothing
+        (``delta_evals``, ``delta_mask.launches``) and runs no K3.
+        Returns False, having launched nothing, on the CPU or when no
+        sweep stored a mask on ``bindings``."""
+        if self.device.type != "cuda":
+            return False
+        hit = bindings.__dict__.get("_viol_masks", {}).get(
+            self._viol_key(program))
+        if hit is None:
+            return False
+        sig, viol = hit
+        d = _with_dfa_tables(program, dict(sig), _zero_devtab)
+        rows = torch.zeros((8,), dtype=torch.int32, device=viol.device)
+        _ir_eval.warm_delta(program, d, viol, rows)
+        return True
+
     def _viol_key(self, program: Program) -> tuple:
         return (id(self), program.cache_key())
 
@@ -811,8 +881,9 @@ class ProgramExecutor:
         [c_pad * r_pad] (-1 = fill), ``signs`` [k] bool (True =
         appeared), ``count`` the true changed-bit count (> k means the
         stream overflowed) and ``row_any`` [r_pad] bool come back as
-        numpy and int.  A join input id at or past ``n_ids`` raises
-        IndexError once those copies have synchronised."""
+        numpy and int, in one copy of K6's packed buffer (with K7's error
+        flag) and one synchronisation.  A join input id at or past
+        ``n_ids`` raises IndexError once that copy has synchronised."""
         arrays = self._arrays(bindings, match)
         if match is None:
             arrays = {nm: a for nm, a in arrays.items() if nm != "__match__"}
@@ -844,13 +915,13 @@ class ProgramExecutor:
                     err)
             arrays = {nm: a for nm, a in arrays.items() if nm not in inputs}
         new = self._full_mask(program, arrays)
-        new_mask, idx, signs, count, row_any = _devdelta.mask_delta(
-            new, page_table, old_mask, k)
-        out = (new_mask, idx.cpu().numpy(), signs.cpu().numpy(),
-               int(count), row_any.cpu().numpy())
-        if err is not None:
-            _invjoin.check_error(err, n_ids)
-        return out
+        outs = _devdelta.mask_delta(new, page_table, old_mask, k)
+        # one copy of K6's packed outputs (and K7's error flag) to the
+        # host, one synchronisation
+        idx, signs, count, row_any, flag = _devdelta.to_host(outs, err)
+        if flag is not None:
+            _invjoin.check_error(flag, n_ids)
+        return outs[0], idx, signs, count, row_any
 
     # ------------------------------------------------------------------
     # the fleet audit: N clusters' bindings stacked along a leading axis

@@ -64,7 +64,9 @@ from gatekeeper_tpu_torch.client.local_driver import (LocalDriver,
                                                       locked_read)
 from gatekeeper_tpu_torch.client.types import Result
 from gatekeeper_tpu_torch.errors import ExternalDataError
-from gatekeeper_tpu_torch.engine.executor import ProgramExecutor, pad_rank
+from gatekeeper_tpu_torch.engine.executor import (BG_SHUTDOWN,
+                                                  ProgramExecutor, pad_rank,
+                                                  spawn_bg)
 from gatekeeper_tpu_torch.ir.lower import CannotLower, lower_template
 from gatekeeper_tpu_torch.ir.prep import build_bindings
 from gatekeeper_tpu_torch.rego.values import freeze
@@ -163,6 +165,19 @@ class TorchTargetState(TargetState):
         self.con_version[kind] = self.con_version.get(kind, 0) + 1
 
 
+@dataclasses.dataclass
+class DeltaWarm:
+    """The background warm-up of the churn-delta variants (K5) that a
+    driver starts after its first capped sweep: its thread, its seconds
+    once it ended, and the exception it ended with, which the driver's
+    next ``query_audit`` raises."""
+
+    thread: threading.Thread | None = None
+    kinds: int = 0
+    seconds: float | None = None
+    error: BaseException | None = None
+
+
 class TorchDriver(LocalDriver):
     """Driver with a device-evaluated capped audit.  ``device`` is CUDA
     unless the caller asks otherwise; on a host without a GPU the
@@ -180,6 +195,9 @@ class TorchDriver(LocalDriver):
         # the last sweep's stanzas: "pages" (ledger route) and
         # "devpages" (device-resident deltas), as the reference reports
         self.last_sweep_phases: dict = {}
+        # the warm-up of the churn-delta variants, one a driver (the
+        # reference's _delta_warmed)
+        self.delta_warm: DeltaWarm | None = None
 
     def init(self, targets) -> None:
         self.targets = dict(targets)
@@ -193,6 +211,48 @@ class TorchDriver(LocalDriver):
         yet (the reference's health probes and breaker), so the device
         path is never degraded here: always False."""
         return False
+
+    def _start_delta_warm(self, items: list) -> None:
+        """Compile each ``(program, bindings)``'s K5 delta variant on a
+        background ``delta-warmup`` thread (the reference's warm-up
+        after the first capped sweep, ``jax_driver.py`` query_audit):
+        the compiles hide in the audit interval instead of adding
+        seconds to the first churned sweep.  Unlike the reference's,
+        an exception is kept, not swallowed: :meth:`query_audit` raises
+        it, as a kernel-layer error of a sweep ends the sweep."""
+        warm = self.delta_warm = DeltaWarm(kinds=len(items))
+        executor = self.executor
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                for prog, bindings in items:
+                    if BG_SHUTDOWN.is_set():
+                        return
+                    executor.prewarm_deltas(prog, bindings)
+            except Exception as exc:    # raised by the next query_audit
+                warm.error = exc
+            finally:
+                warm.seconds = time.perf_counter() - t0
+
+        warm.thread = spawn_bg(run, "delta-warmup")
+
+    def wait_delta_warm(self, timeout: float | None = None) -> float | None:
+        """Join the delta warm-up if one was started and raise its
+        exception, as the next :meth:`query_audit` would; its seconds,
+        or None when none ran (or it still runs after ``timeout``)."""
+        warm = self.delta_warm
+        if warm is None or warm.thread is None:
+            return None
+        warm.thread.join(timeout)
+        self._raise_warm_error()
+        return warm.seconds
+
+    def _raise_warm_error(self) -> None:
+        warm = self.delta_warm
+        if warm is not None and warm.error is not None:
+            err, warm.error = warm.error, None
+            raise err
 
     @locked
     def adopt_store(self, target: str, state: dict) -> None:
@@ -1210,6 +1270,7 @@ class TorchDriver(LocalDriver):
     @locked_read
     def query_audit(self, target: str, opts: QueryOpts | None = None) \
             -> tuple[list[Result], str | None]:
+        self._raise_warm_error()
         t_start = time.perf_counter()
         st = self._state(target)
         if not isinstance(st, TorchTargetState):
@@ -1348,6 +1409,13 @@ class TorchDriver(LocalDriver):
                                   rcache)
         tagged.sort(key=lambda kv: kv[0])
         m.timer("audit_format").observe(time.perf_counter() - t_prep)
+        # warm the churn-delta variants in the background once: the
+        # first sweep after data churn otherwise compiles one per kind
+        if limit is not None and self.delta_warm is None \
+                and not self.scalar_only and self.device.type == "cuda":
+            warm = [(sp[4], sp[5]) for sp in specs if sp[0] == "topk"]
+            if warm:
+                self._start_delta_warm(warm)
         m.counter("audit_sweeps").inc()
         m.counter("audit_results").inc(len(tagged))
         m.timer("audit_sweep_wall").observe(time.perf_counter() - t_start)

@@ -16,6 +16,16 @@ import torch
 
 from gatekeeper_tpu_torch.kernels import build
 
+_SCAN_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_void_p]
+_BATCHED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p]
+
 
 def dfa_table_plain(trans: torch.Tensor, accept: torch.Tensor,
                     strbytes: torch.Tensor, ok: torch.Tensor,
@@ -57,19 +67,14 @@ def dfa_table(trans: torch.Tensor, accept: torch.Tensor,
             raise ValueError("dfa_table: inputs on different devices")
     if not 0 <= prefix <= width:
         raise ValueError(f"prefix {prefix} outside row width {width}")
-    out = torch.empty((n_ids,), dtype=torch.bool, device=strbytes.device)
-    lib = build.load("dfa")
-    fn = lib.gk_dfa_scan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    with torch.cuda.device(strbytes.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = strbytes.device
+    out = torch.empty((n_ids,), dtype=torch.bool, device=dev)
+    fn = build.entry("dfa", "gk_dfa_scan", _SCAN_ARGTYPES)
+    with build.on_device(dev):
         err = fn(strbytes.data_ptr(), n_ids, width, prefix,
                  trans.data_ptr(), trans.element_size(), accept.data_ptr(),
-                 ok.data_ptr(), xv.data_ptr(), out.data_ptr(), stream)
+                 ok.data_ptr(), xv.data_ptr(), out.data_ptr(),
+                 build.stream(dev))
     build.check(err, "dfa_scan launch")
     dfa_table.launches += 1
     return out
@@ -123,20 +128,14 @@ def dfa_table_batched(trans: torch.Tensor, accept: torch.Tensor,
                              "devices")
     if not 0 <= prefix <= width:
         raise ValueError(f"prefix {prefix} outside row width {width}")
-    out = torch.empty((n_b, n_ids), dtype=torch.bool, device=strbytes.device)
-    fn = build.load("dfa").gk_dfa_scan_batched
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    with torch.cuda.device(strbytes.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = strbytes.device
+    out = torch.empty((n_b, n_ids), dtype=torch.bool, device=dev)
+    fn = build.entry("dfa", "gk_dfa_scan_batched", _BATCHED_ARGTYPES)
+    with build.on_device(dev):
         err = fn(strbytes.data_ptr(), n_b, n_ids, width, prefix,
                  trans.data_ptr(), trans.shape[1], trans.element_size(),
                  accept.data_ptr(), ok.data_ptr(), xv.data_ptr(),
-                 out.data_ptr(), stream)
+                 out.data_ptr(), build.stream(dev))
     build.check(err, "dfa_scan_batched launch")
     dfa_table_batched.launches += 1
     return out

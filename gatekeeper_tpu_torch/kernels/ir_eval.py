@@ -46,7 +46,9 @@ the row-index mode: a runtime row vector ``rows`` of length ``D > 0``
 (duplicates allowed; lanes past ``D`` repeat the last row) replaces the
 tile's own rows, and every r-axis load and the mask store address the
 full ``R_PAD``-strided arrays at ``rows[j]``.  :func:`delta_mask`
-launches it into a copy of the stored mask.
+launches it into a copy of the stored mask; :func:`warm_delta` makes the
+same launch uncounted, so the driver's background warm-up compiles the
+delta variant before the first churned sweep needs it.
 
 The fleet audit's batched evaluator (item B9, the reference's
 ``whatif/fleet.py`` ``_mask_fn`` and the evaluator inside ``_topk_fn``:
@@ -82,7 +84,10 @@ unrolls); Triton specialises each on the element widths and the tile
 plan.  A launch plan (argument order, per-cluster counts, sizes, grid,
 constexprs and the compiled kernel) is cached per device, program,
 mode, batching, row count and array shapes, so a repeated call checks
-its tensors and launches the compiled kernel directly.
+its tensors and launches the compiled kernel directly.  Plans are made
+under a lock, and every launch through Triton's JIT launcher (the one
+that may compile) holds a second one, so a sweep and the warm-up thread
+never compile one variant twice.
 """
 
 from __future__ import annotations
@@ -743,7 +748,13 @@ def tile_plan(c_pad: int, n_rows: int, e_max: int, n_b: int = 1,
 # ---------------------------------------------------------------------------
 # launching
 
-_LOCK = threading.Lock()
+# _LOCK guards _KERNELS and _PLANS (re-entrant: a plan is made under it
+# and makes its kernel under it); _COMPILE_LOCK serialises every launch
+# through Triton's JIT launcher, which compiles a variant the first time
+# and is not safe to run from two threads at once (the driver's
+# delta-warmup thread compiles beside the sweep thread)
+_LOCK = threading.RLock()
+_COMPILE_LOCK = threading.Lock()
 _KERNELS: dict[tuple, tuple] = {}
 _PLANS: dict[tuple, "_Plan"] = {}
 
@@ -853,7 +864,8 @@ def _no_rows(dev: torch.device) -> torch.Tensor:
     """The int32 row vector a full launch passes (never read)."""
     t = _NO_ROWS.get(dev)
     if t is None:
-        t = _NO_ROWS[dev] = torch.zeros((1,), dtype=torch.int32, device=dev)
+        t = _NO_ROWS.setdefault(dev, torch.zeros((1,), dtype=torch.int32,
+                                                 device=dev))
     return t
 
 
@@ -880,12 +892,16 @@ def _launch(program: Program, arrays: dict, out: torch.Tensor,
            tuple([(nm, a.dtype, a.shape) for nm, a in arrays.items()]))
     plan = _PLANS.get(key)
     if plan is None or plan.program is not program:
-        plan = _PLANS[key] = _make_plan(program, arrays, n_rows, what,
-                                        batched)
+        with _LOCK:
+            plan = _PLANS.get(key)
+            if plan is None or plan.program is not program:
+                plan = _PLANS[key] = _make_plan(program, arrays, n_rows,
+                                                what, batched)
     args = [out]
+    on = -1 if dev.index is None else dev.index
     for nm in plan.names:
         t = arrays[nm]
-        if t.get_device() != dev.index or not t.is_contiguous():
+        if t.get_device() != on or not t.is_contiguous():
             raise ValueError(f"{what}: {nm} must be a contiguous tensor on "
                              f"{dev}")
         args.append(t)
@@ -894,16 +910,20 @@ def _launch(program: Program, arrays: dict, out: torch.Tensor,
     args.append(rows)
     aligned = tuple([t.data_ptr() % 16 == 0 for t in args])
     ck = plan.compiled.get(aligned)
-    with contextlib.nullcontext() if dev.index == \
-            torch.cuda.current_device() else torch.cuda.device(dev):
-        if ck is not None:
-            ck[plan.grid](*args, plan.r_pad, n_rows, *plan.tail,
-                          *plan.cvals)
-        else:
-            ck = plan.kern[plan.grid](*args, plan.r_pad, n_rows, *plan.tail,
-                                      **plan.kw)
-            if hasattr(ck, "__getitem__"):
-                plan.compiled[aligned] = ck
+    with build.on_device(dev):
+        if ck is None:
+            # the JIT launch compiles (or finds) the variant and launches
+            # it; a thread that finds another compiling this plan's
+            # variant waits for it and then launches what it compiled
+            with _COMPILE_LOCK:
+                ck = plan.compiled.get(aligned)
+                if ck is None:
+                    ck = plan.kern[plan.grid](*args, plan.r_pad, n_rows,
+                                              *plan.tail, **plan.kw)
+                    if hasattr(ck, "__getitem__"):
+                        plan.compiled[aligned] = ck
+                    return plan
+        ck[plan.grid](*args, plan.r_pad, n_rows, *plan.tail, *plan.cvals)
     return plan
 
 
@@ -937,9 +957,12 @@ def delta_mask(program: Program, arrays: dict, viol_old: torch.Tensor,
     copy of the stored mask ``viol_old`` [C_pad, R_pad] with the columns
     ``rows`` (int32 [d], each in [0, R_pad); duplicates allowed)
     re-evaluated over the current ``arrays``.  On CUDA tensors this is
-    K1's kernel in row-index mode: its lanes address the full
-    R_PAD-strided arrays at the dirty rows, so nothing is gathered into
-    temporaries, and full and delta sweeps share one compiled kernel.
+    K1's kernel in row-index mode (``DELTA``, its own compiled variant
+    of the program's kernel): its lanes address the full R_PAD-strided
+    arrays at the dirty rows, so nothing is gathered into temporaries.
+    Every delta launch of a program over arrays of one shape and
+    alignment takes one variant, whatever its row count
+    (:func:`warm_delta` compiles it ahead of the first churned sweep).
     On CPU tensors it is the plain gather / evaluate / ``index_copy_``
     (``engine/executor._delta_mask``)."""
     dev = arrays["__alive__"].device
@@ -947,23 +970,47 @@ def delta_mask(program: Program, arrays: dict, viol_old: torch.Tensor,
         delta_mask.plain_calls += 1
         from gatekeeper_tpu_torch.engine.executor import _delta_mask
         return _delta_mask(program, arrays, viol_old, rows)
+    out = _delta_launch(program, arrays, viol_old, rows, "delta_mask")
+    delta_mask.launches += 1
+    return out
+
+
+def _delta_launch(program: Program, arrays: dict, viol_old: torch.Tensor,
+                  rows: torch.Tensor, what: str) -> torch.Tensor:
+    dev = arrays["__alive__"].device
     if dev.type != "cuda":
-        raise ValueError(f"delta_mask: unsupported device {dev}")
+        raise ValueError(f"{what}: unsupported device {dev}")
     c_pad = arrays["__cvalid__"].shape[0]
     r_pad = arrays["__alive__"].shape[0]
     if viol_old.dtype != torch.bool or \
             tuple(viol_old.shape) != (c_pad, r_pad) or \
             viol_old.device != dev or not viol_old.is_contiguous():
-        raise TypeError(f"delta_mask: viol_old must be a contiguous bool "
+        raise TypeError(f"{what}: viol_old must be a contiguous bool "
                         f"[{c_pad}, {r_pad}] tensor on {dev}")
     if rows.dtype != torch.int32 or rows.dim() != 1 or rows.shape[0] == 0 \
             or rows.device != dev or not rows.is_contiguous():
-        raise TypeError(f"delta_mask: rows must be a non-empty contiguous "
+        raise TypeError(f"{what}: rows must be a non-empty contiguous "
                         f"1-d int32 tensor on {dev}")
     out = viol_old.clone()
-    _launch(program, arrays, out, rows, "delta_mask")
-    delta_mask.launches += 1
+    _launch(program, arrays, out, rows, what)
     return out
+
+
+def warm_delta(program: Program, arrays: dict, viol_old: torch.Tensor,
+               rows: torch.Tensor) -> None:
+    """Compile the delta variant :func:`delta_mask` will take for
+    ``program`` over ``arrays``: one real K5 launch, as the sweep makes
+    it (into a copy of ``viol_old``, at the rows ``rows``), on the
+    arrays' own tensors, since Triton specialises on each pointer's
+    16-byte alignment as well as on shapes.  Waits for the launch, so
+    the caller's references outlive it.  Counts in no launch counter:
+    the executor's background warm-up calls it
+    (``ProgramExecutor.prewarm_deltas``)."""
+    out = _delta_launch(program, arrays, viol_old, rows, "warm_delta")
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(out.device))
+    done.synchronize()
+    del out
 
 
 delta_mask.launches = 0

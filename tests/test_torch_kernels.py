@@ -632,6 +632,12 @@ def test_k6_plain_fill_and_overflow():
     (3, 4097, 0.5, "permuted", 20000),         # k past the flat size
     (1, 1, 1.0, "identity", 1),
     (2, 4096, 1.0, "identity", 8192),          # every bit flips, k == n
+    (256, 1 << 17, 1e-4, "identity", 4096),    # 8,192 tiles to look back on
+    (8, 4096, 0.0, "identity", 1),             # count 0, k 1
+    (4, 1 << 17, 1e-3, "permuted", 1),         # k 1, overflowing
+    (4, 8192, 0.01, "identity", 4 * 8192),     # k == c_pad * r_pad
+    (4, 8192, 0.01, "identity", 4 * 8192 + 5000),   # k past it
+    (2, 70000, 0.01, "out_of_range", 512),     # ragged r_pad, big tiles
 ])
 def test_k6_matches_plain_on_card(card, c_pad, r_pad, density, pt_kind, k):
     """K6 against its plain version, all five outputs bit for bit, its
@@ -766,12 +772,14 @@ def test_k7_out_of_range_id_raises_on_card(card):
 
 @pytest.mark.cuda
 def test_k7_follows_the_interner_growth_on_card(card):
-    """The per-value tables are sized per call: a second call with more
-    ids (new hosts interned between sweeps) and values past the first
-    call's size is exact."""
+    """A call with more ids (new hosts interned between sweeps) and
+    values past the earlier calls' size is exact, and so are the calls
+    after it with fewer ids and other inputs."""
     small = tuple(t.to(card) for t in _k7_case(5000, 100, 1))
     big = tuple(t.to(card) for t in _k7_case(5000, 90_000, 2))
-    for ins, n_ids in ((small, 100), (big, 90_000), (small, 100)):
+    other = tuple(t.to(card) for t in _k7_case(5000, 100, 3))
+    for ins, n_ids in ((small, 100), (big, 90_000), (small, 100),
+                       (other, 100), (small, 100), (big, 90_000)):
         err = invjoin.error_flag(card)
         got = invjoin.inv_join_mask(*ins, True, n_ids, err)
         invjoin.check_error(err, n_ids)
