@@ -2,7 +2,7 @@
 against its plain PyTorch version.
 
     python3 chip_smoke.py [--resources N] [--k2-only | --k1-only |
-                           --k6k7-only]
+                           --k6k7-only | --k3-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -16,7 +16,15 @@ besides ``emit_source`` for the bound).  ``--k6k7-only`` builds K6 and
 K7 alone, holds K6 against its plain version on the devpages phase's
 random cases and K7 on a join at the ingress phase's row count, and
 times both per call and device-only at the path's shapes, through the
-public ``mask_delta`` and ``inv_join_mask`` alone.
+public ``mask_delta`` and ``inv_join_mask`` alone.  ``--k3-only`` builds
+K3 alone, holds K3 and K3b against their plain versions on the design's
+cases (phase K3 random) and times them per call and device-only at the
+store's, the library's and the library fleet's tables (built on the host
+by ``TorchDriver(device="cpu")``, no Triton compile) and at a synthetic
+[262144, 128] table, through the public ``dfa_table`` and
+``dfa_table_batched`` alone; each line gives S, the table's dtype, the
+plan (branch, stored width, ids and threads a block, blocks) and the
+live bytes.
 
 Every TorchDriver starts a background warm-up of its kinds' churn-delta
 variants (K5) after its first capped legacy sweep; the script waits for
@@ -37,6 +45,11 @@ Phases (each prints one line of its numbers):
        K1 and K3 on a synthetic program that uses every IR op, K1 on
        ordering compares of row against constraint values (NaN,
        infinities, signed zeros);
+       K3 and K3b on one case a branch and stored width of the design's
+       (phase K3 random): the digest DFA and synthetic ones of 257 and
+       905 states at every table dtype that holds the states, rows 40
+       and 128 wide, aligned and a byte off, K3b over 1 and 4 clusters
+       (``--k3-only`` runs every case);
        K4 on random columns of every dtype and axis layout, with
        duplicate padding rows, one at a time and all in one batched
        launch; K5 on the every-op programs at random rows;
@@ -351,19 +364,346 @@ def dfa_inputs(arrays, nm: str) -> tuple:
             arrays[nm + ".xv"], 3)
 
 
-def k3_numbers(dfa, ins) -> dict:
-    """K3 and its plain scan timed on ``ins``, with the bound: each id's
-    byte row, the transition table and the flags read once, one table
-    step per byte after the prefix plus the TERM step."""
-    u, w = ins[2].shape
-    trans = ins[0]
-    nbytes = u * w + trans.numel() * trans.element_size() \
-        + trans.shape[0] + 3 * u
-    b, by = bound(nbytes, u * (w - 3 + 1))
-    return {"ms": cuda_ms(lambda: dfa.dfa_table(*ins)),
-            "device_ms": graph_ms(lambda: dfa.dfa_table(*ins)),
-            "plain_ms": cuda_ms(lambda: dfa.dfa_table_plain(*ins), iters=5),
+def k3_live(ins) -> tuple[int, float, int]:
+    """Live bytes of the ok ids (columns prefix..j*, j* the last nonzero
+    column): the most, the mean and the sum."""
+    sb, ok, prefix = ins[2], ins[3], ins[5]
+    nz = sb[..., prefix:] != 0
+    col = torch.arange(1, nz.shape[-1] + 1, device=sb.device,
+                       dtype=torch.int32)
+    live = (nz * col).amax(-1)[ok] if nz.shape[-1] else \
+        torch.zeros((int(ok.sum()),), dtype=torch.int32, device=sb.device)
+    if not live.numel():
+        return 0, 0.0, 0
+    return int(live.max()), float(live.float().mean()), int(live.sum())
+
+
+def k3_bound(ins) -> tuple[float, str]:
+    """What these inputs need: each ok id's row read once (its end is
+    known only from the whole row), the flags (``xv`` of the ids that
+    are not ok), the output, the accept flags once, and of each table
+    the columns its ok rows can reach: 0-127 when they hold only ASCII
+    bytes, all 256 when one holds a byte of 128 or more; one table step
+    a live byte plus at least the TERM step a scanned id."""
+    trans, accept, sb, ok, prefix = ins[0], ins[1], ins[2], ins[3], ins[5]
+    n_ok, n = int(ok.sum()), ok.numel()
+    high = ((sb[..., prefix:] >= 128).any(-1) & ok).reshape(
+        -1, sb.shape[-2]).any(-1)
+    cols = int((128 + 128 * high.to(torch.int64)).sum())
+    nbytes = n_ok * sb.shape[-1] + 2 * n + (n - n_ok) \
+        + cols * trans.shape[-2] * trans.element_size() + accept.numel()
+    return bound(nbytes, k3_live(ins)[2] + n_ok)
+
+
+def k3_numbers(dfa, ins, batched: bool = False) -> dict:
+    """K3 (or K3b) and its plain scan timed on ``ins``, with the bound."""
+    fn = dfa.dfa_table_batched if batched else dfa.dfa_table
+    plain = dfa.dfa_table_batched_plain if batched else dfa.dfa_table_plain
+    b, by = k3_bound(ins)
+    return {"ms": cuda_ms(lambda: fn(*ins)),
+            "device_ms": graph_ms(lambda: fn(*ins)),
+            "plain_ms": cuda_ms(lambda: plain(*ins), iters=5),
             "bound_ms": b, "bound_by": by, "library_ms": None}
+
+
+def k3_text(dfa, ins, n: dict | None = None) -> str:
+    """The inputs (shape, ok ids, states, the table's dtype), where the
+    plan keeps the table (an earlier tree's wrapper has no plan), the
+    live bytes, and the times in ``n``."""
+    trans, sb, ok = ins[0], ins[2], ins[3]
+    plan_for = getattr(dfa, "plan_for", None)
+    if plan_for is None:
+        where = "no plan (earlier kernel)"
+    else:
+        p = plan_for(trans, sb)
+        where = (f"{p.branch} branch, stored {p.stored_width} B an entry, "
+                 f"{p.ids} ids a block of {p.threads} threads, {p.blocks} "
+                 f"blocks a table, rows in "
+                 f"{'shared' if p.row_chunks else 'global'} memory")
+    mx, mean, _ = k3_live(ins)
+    text = (f"{list(sb.shape)} bytes, {int(ok.sum())} ok, S "
+            f"{trans.shape[-2]} ({str(trans.dtype).split('.')[-1]}), "
+            f"{where}, live bytes max {mx} mean {mean:.1f}")
+    if n is not None:
+        text += (f": {n['ms']:.4f} ms, device {n['device_ms']:.4f} (plain "
+                 f"{n['plain_ms']:.4f}, bound {n['bound_ms']:.6f} "
+                 f"{n['bound_by']})")
+    return text
+
+
+K3_PATTERNS = ("@sha256:[a-f0-9]{64}$", "^[0-9]+(\\.[0-9]+)?$",
+               "(?i)(password|secret|token|apikey)", "a$", "x\\Z",
+               "^(ab)*$")
+K3_IMAGE_BYTES = b"abcdefghijklmnopqrstuvwxyz0123456789/:.-_@"
+
+
+def k3_rows(rng, n_ids: int, width: int, prefix: int, alphabet: bytes):
+    """(strbytes, ok, xv) numpy over every kind of row K3's design names:
+    empty, W - 1 and W long, random-length and interior-zero rows,
+    all-zero bucket rows (the last quarter; a few ok), not-ok rows
+    holding bytes; ``prefix`` bytes of the encoded-string image first."""
+    sb = np.zeros((n_ids, width), dtype=np.uint8)
+    ok = np.zeros((n_ids,), dtype=bool)
+    room = width - prefix
+    alpha = np.frombuffer(alphabet, dtype=np.uint8)
+    for u in range(n_ids):
+        kind = u % 8
+        if kind == 7 or u >= n_ids * 3 // 4:
+            ok[u] = kind == 3
+            continue
+        n = {0: 0, 1: room - 1, 2: room}.get(kind, int(rng.integers(
+            0, room + 1)))
+        n = max(0, min(n, room))
+        sb[u, :prefix] = np.frombuffer(b"\x00s:"[:prefix], dtype=np.uint8)
+        sb[u, prefix:prefix + n] = rng.choice(alpha, size=n)
+        if kind == 4 and n > 2:
+            sb[u, prefix + rng.integers(0, n - 1, size=2)] = 0
+        ok[u] = kind != 5
+    return sb, ok, rng.random(n_ids) < 0.5
+
+
+def k3_synthetic_dfa(rng, states: int, cycles: bool):
+    """(trans int32 [S, 256], accept bool [S]): random transitions with
+    z = trans[:, 0] made to reach a fixed point, or (``cycles``) made of
+    2-cycles and a 3-cycle only, so that stopping a tail early would be
+    wrong."""
+    trans = rng.integers(0, states, size=(states, 256)).astype(np.int32)
+    z = np.minimum(np.arange(states), rng.integers(0, states, states))
+    if cycles and states >= 2:
+        z = np.arange(states)
+        n3 = 3 if states % 2 else 0
+        z[0:states - n3:2] += 1
+        z[1:states - n3:2] -= 1
+        if n3:
+            z[-3:] = [states - 2, states - 1, states - 3]
+    trans[:, 0] = z
+    return trans, rng.random(states) < 0.5
+
+
+def k3_dfas(rng) -> list:
+    """(name, trans int32, accept): the library's DFAs and synthetic ones
+    from 1 to 1,024 states, across the stored widths and the
+    shared-memory edge."""
+    from gatekeeper_tpu_torch.ops import regex_dfa
+    out = []
+    for pat in K3_PATTERNS:
+        d = regex_dfa.compile_dfa(pat)
+        out.append((pat, d.trans.astype(np.int32), d.accept.copy()))
+    for states in (1, 3, 7, 128, 256, 257, 450, 904, 905, 1024):
+        for cycles in (False, True):
+            out.append((f"S{states}{' cycles' if cycles else ''}",
+                        *k3_synthetic_dfa(rng, states, cycles)))
+    return out
+
+
+def k3_shifted(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype,
+                      device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def k3_dtypes(trans) -> list:
+    """The table dtypes the executor ships that hold ``trans``' states."""
+    top = int(trans.max()) if trans.size else 0
+    return [dt for dt, hi in ((torch.int8, 127), (torch.int16, 32767),
+                              (torch.int32, 1 << 31)) if top <= hi]
+
+
+K3_FULL_RUN_DFAS = (K3_PATTERNS[0], "S257 cycles", "S905")
+
+
+def k3_random(dfa, dev, every: bool = True) -> str:
+    """K3 and K3b against their plain versions, bit for bit, on the
+    design's cases: every DFA of :func:`k3_dfas` at every table dtype that
+    holds its states, rows 128 wide (prefix 3), 40 and 144 wide (prefix
+    0 and 3), rows and table 16-byte aligned or an element off; K3b over
+    1-4 clusters of ragged id counts, each cluster its own DFA.  Unless
+    ``every``, only the DFAs of ``K3_FULL_RUN_DFAS`` (one a branch and
+    stored width), rows 128 and 40 wide, and K3b over 1 and 4 clusters
+    of 513 ids: the full run's share, the sweep being ``--k3-only``'s."""
+    rng = np.random.default_rng(31)
+    every_dfa = k3_dfas(rng)
+    names = [d[0] for d in every_dfa]
+    batched_dfas = [names.index(n) for n in (K3_PATTERNS[0], "S1",
+                                             "S1024 cycles")]
+    dfas = [d for d in every_dfa if every or d[0] in K3_FULL_RUN_DFAS]
+    seen, n_cases = set(), 0
+
+    def check(ins, what, batched=False):
+        nonlocal n_cases
+        fn = dfa.dfa_table_batched if batched else dfa.dfa_table
+        plain = dfa.dfa_table_batched_plain if batched \
+            else dfa.dfa_table_plain
+        got = fn(*ins)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain(*ins)):
+            fail(f"K3{'b' if batched else ''} mismatch on {what}")
+        plan_for = getattr(dfa, "plan_for", None)
+        if plan_for is not None:
+            p = plan_for(ins[0], ins[2])
+            seen.add((p.branch, p.stored_width, ins[0].dtype))
+        n_cases += 1
+
+    for name, tr, ac in dfas:
+        for width, prefix in ((128, 3), (40, 0), (144, 3))[:3 if every
+                                                           else 2]:
+            sb, ok, xv = k3_rows(rng, 96, width, prefix,
+                                 K3_IMAGE_BYTES if name in K3_PATTERNS
+                                 else bytes(range(1, 256)))
+            a, s, o, x = (torch.from_numpy(v).to(dev)
+                          for v in (ac, sb, ok, xv))
+            for dt in k3_dtypes(tr):
+                t = torch.from_numpy(tr).to(dt).to(dev)
+                for rows, table in ((s, t), (k3_shifted(s), t),
+                                    (s, k3_shifted(t))):
+                    check((table, a, rows, o, x, prefix),
+                          f"{name} {dt} [{width}] prefix {prefix}")
+    for n_b in (1, 2, 3, 4) if every else (1, 4):
+        for n_ids in (1, 513, 4097) if every else (513,):
+            for k in batched_dfas:             # 75, 1 and 1,024 states
+                sel = [every_dfa[(k + i) % len(every_dfa)]
+                       for i in range(n_b)]
+                top = max(d[1].shape[0] for d in sel)
+                tr = np.zeros((n_b, top, 256), dtype=np.int32)
+                ac = np.zeros((n_b, top), dtype=bool)
+                for i, (_n, t1, a1) in enumerate(sel):
+                    tr[i, : t1.shape[0]] = t1
+                    ac[i, : t1.shape[0]] = a1
+                rows = [k3_rows(rng, n_ids, 128, 3, K3_IMAGE_BYTES)
+                        for _ in range(n_b)]
+                ins = tuple(torch.from_numpy(np.stack([r[j] for r in rows]))
+                            .to(dev) for j in range(3))
+                for dt in k3_dtypes(tr):
+                    t = torch.from_numpy(tr).to(dt).to(dev)
+                    check((t, torch.from_numpy(ac).to(dev)) + ins + (3,),
+                          f"{n_b} clusters of {n_ids} ids, {top} states "
+                          f"{dt}", batched=True)
+    kinds = sorted({(b, w, str(dt).split(".")[-1]) for b, w, dt in seen})
+    return f"equal to plain on {n_cases} cases; (branch, stored width, " \
+        f"shipped dtype) seen: {kinds}"
+
+
+def k3_large(dev, n_rows: int = 262144, n_strings: int = 150000,
+             seed: int = 8) -> tuple:
+    """A synthetic large string table under the K8sImageDigests DFA:
+    ``n_strings`` random image-like ASCII strings of 8-100 bytes (every
+    sixteenth ends in a valid ``@sha256:`` digest) in a ``n_rows``
+    bucket whose other rows are zero and not ok."""
+    from gatekeeper_tpu_torch.ops import regex_dfa
+    rng = np.random.default_rng(seed)
+    d = regex_dfa.compile_dfa(K3_PATTERNS[0])
+    width = 128
+    alpha = np.frombuffer(K3_IMAGE_BYTES[:-1], dtype=np.uint8)
+    lens = rng.integers(8, 101, size=n_strings)
+    body = rng.choice(alpha, size=(n_strings, width - 3))
+    body[np.arange(width - 3)[None, :] >= lens[:, None]] = 0
+    hexd = np.frombuffer(b"0123456789abcdef", dtype=np.uint8)
+    dig = np.frombuffer(b"@sha256:", dtype=np.uint8)
+    for u in range(0, n_strings, 16):
+        n = int(lens[u])
+        body[u, :n] = 0
+        stem = max(0, n - 72)
+        body[u, :stem] = rng.choice(alpha, size=stem)
+        body[u, stem:stem + 8] = dig
+        body[u, stem + 8:stem + 72] = rng.choice(hexd, size=64)
+    sb = np.zeros((n_rows, width), dtype=np.uint8)
+    sb[:n_strings, :3] = np.frombuffer(b"\x00s:", dtype=np.uint8)
+    sb[:n_strings, 3:] = body
+    ok = np.zeros((n_rows,), dtype=bool)
+    ok[:n_strings] = True
+    xv = rng.random(n_rows) < 0.5
+    return tuple(torch.from_numpy(v).to(dev) for v in (
+        d.trans.astype(np.int32), d.accept, sb, ok, xv)) + (3,)
+
+
+def k3_path_inputs(dfa, resources: int) -> dict:
+    """The path's K3 and K3b inputs, built on the host by
+    ``TorchDriver(device="cpu")`` (the same host preparation as the
+    card's drivers, no kernel compiles): the store's table
+    (K8sImageDigests over ``resources`` north-star pods), the library's
+    (49 templates over the library rows) and the library fleet's stacked
+    table (4 clusters of 2,500 rows through ``fleet_audit``).  The
+    wrappers are wrapped by name to record their CPU inputs."""
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.library.north_star import make_resources
+    from gatekeeper_tpu_torch.library.templates import (LIBRARY,
+                                                        constraint_doc,
+                                                        template_doc)
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.whatif import fleet_audit, make_cluster
+    saved = torch_driver.SMALL_WORKLOAD_EVALS, dfa.dfa_table, \
+        dfa.dfa_table_batched
+    torch_driver.SMALL_WORKLOAD_EVALS = 0
+    got = {"store": [], "library": [], "fleet": []}
+    opts = QueryOpts(limit_per_constraint=CAP)
+    try:
+        for key in got:
+            dfa.dfa_table = recording(saved[1], got[key])
+            dfa.dfa_table_batched = recording(saved[2], got[key])
+            if key == "fleet":
+                docs = all_docs()
+                fleet_audit([make_cluster(
+                    f"lib{i}", [t for t, _ in docs], [c for _, c in docs],
+                    objs=make_mixed(random.Random(100 + i),
+                                    FLEET_LIBRARY_ROWS),
+                    driver_factory=lambda: TorchDriver(device="cpu"))
+                    for i in range(4)], CAP)
+                continue
+            drv = TorchDriver(device="cpu")
+            cl = Backend(drv).new_client([K8sValidationTarget()])
+            if key == "store":
+                rego, params = LIBRARY["K8sImageDigests"]
+                cl.add_template(template_doc("K8sImageDigests", rego))
+                cl.add_constraint(constraint_doc("K8sImageDigests",
+                                                 "digests", params))
+                cl.add_data_batch(make_resources(resources,
+                                                 random.Random(1)))
+            else:
+                for t, con in all_docs():
+                    cl.add_template(t)
+                    cl.add_constraint(con)
+                cl.add_data_batch(make_mixed(random.Random(0),
+                                             LIBRARY_ROWS))
+            drv.query_audit(TARGET, opts)
+    finally:
+        torch_driver.SMALL_WORKLOAD_EVALS, dfa.dfa_table, \
+            dfa.dfa_table_batched = saved
+    out = {}
+    for key, calls in got.items():
+        if not calls:
+            fail(f"the {key} sweep ran no regex table")
+        out[key] = calls[-1][0]
+    return out
+
+
+def k3_only(dfa, dev, resources: int) -> None:
+    """``--k3-only``: K3 and K3b against their plain versions on the
+    design's cases, then each checked and timed per call and device-only
+    at the store's, the library's and the library fleet's tables and at
+    a synthetic [262144, 128] table, through the public ``dfa_table``
+    and ``dfa_table_batched`` alone (so a copy of this script beside an
+    earlier tree times that tree's kernel)."""
+    print(f"phase K3 random: {k3_random(dfa, dev)}", flush=True)
+    path = k3_path_inputs(dfa, resources)
+    path["large"] = k3_large(dev)
+    for key in ("store", "library", "fleet", "large"):
+        ins = tuple(x.to(dev) if torch.is_tensor(x) else x
+                    for x in path[key])
+        batched = ins[2].dim() == 3
+        fn = dfa.dfa_table_batched if batched else dfa.dfa_table
+        plain = dfa.dfa_table_batched_plain if batched \
+            else dfa.dfa_table_plain
+        if not torch.equal(fn(*ins), plain(*ins)):
+            fail(f"K3{'b' if batched else ''} mismatch on the {key} table")
+        print(f"phase K3 {key}: K3{'b' if batched else ''} equal to plain; "
+              f"{k3_text(dfa, ins, k3_numbers(dfa, ins, batched))}",
+              flush=True)
 
 
 def recording(fn, store: list):
@@ -1013,18 +1353,8 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
             if k3_err:
                 fail(f"batched K3 mismatch on the library fleet's {nm}")
             k3 = ins
-    n_b, u, w = k3[2].shape
-    trans = k3[0]
-    nbytes = n_b * u * w + trans.numel() * trans.element_size() \
-        + trans.shape[0] * trans.shape[1] + 3 * n_b * u
-    b3, by3 = bound(nbytes, n_b * u * (w - 3 + 1))
     rec["K3b"] = {"launches": counts_a["K3b"] + counts_b["K3b"],
-                  "max_abs_err": k3_err,
-                  "ms": cuda_ms(lambda: dfa.dfa_table_batched(*k3)),
-                  "device_ms": graph_ms(lambda: dfa.dfa_table_batched(*k3)),
-                  "plain_ms": cuda_ms(lambda: dfa.dfa_table_batched_plain(
-                      *k3), iters=5),
-                  "bound_ms": b3, "bound_by": by3, "library_ms": None}
+                  "max_abs_err": k3_err, **k3_numbers(dfa, k3, True)}
     rec["K1bl"] = {"launches": counts_b["K1b"], "max_abs_err": 0, **k1l,
                    "bound_by": k1l_by, "library_ms": None}
     rec["K2b"]["launches"] += counts_b["K2b"]
@@ -1033,10 +1363,7 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
           f"plain versions on {len(inputs)} stacked kinds (shapes "
           f"{dict(shapes_b)}); batched K1 per launch, mean over the kinds: "
           f"{k1_text(rec['K1bl'])}; batched K3 on "
-          f"the regex table ([{n_b}, {u}, {w}] bytes, {trans.shape[1]} "
-          f"states): {rec['K3b']['ms']:.4f} ms, device "
-          f"{rec['K3b']['device_ms']:.4f} (plain "
-          f"{rec['K3b']['plain_ms']:.4f}, bound {b3:.6f} {by3}); phase "
+          f"the regex table: {k3_text(dfa, k3, rec['K3b'])}; phase "
           f"max_memory_allocated {torch.cuda.max_memory_allocated()}",
           flush=True)
 
@@ -2107,6 +2434,9 @@ def main() -> int:
     only.add_argument("--k6k7-only", action="store_true",
                       help="build K6 and K7 alone and run only their "
                       "phases (K6 random, K7 join)")
+    only.add_argument("--k3-only", action="store_true",
+                      help="build K3 alone and run only its phases (K3 "
+                      "random, K3 store, library, fleet and large)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2157,7 +2487,8 @@ def main() -> int:
         "_build", "triton_cache"))
     t0 = time.perf_counter()
     secs = build.build(("topk",) if args.k2_only else ("dfa",)
-                       if args.k1_only else ("devdelta", "invjoin")
+                       if args.k1_only or args.k3_only
+                       else ("devdelta", "invjoin")
                        if args.k6k7_only else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
@@ -2178,6 +2509,10 @@ def main() -> int:
         return 0
     if args.k6k7_only:
         k6k7_only(devdelta, invjoin, dev)
+        print(card, flush=True)
+        return 0
+    if args.k3_only:
+        k3_only(dfa, dev, args.resources)
         print(card, flush=True)
         return 0
 
@@ -2215,6 +2550,8 @@ def main() -> int:
             fail(f"K1 mismatch on the ordering case {seed}")
     print("phase every-op: K1 and K3 equal their plain versions on 2 "
           "every-op programs, K1 on 2 ordering programs", flush=True)
+    print(f"phase K3 random: {k3_random(dfa, dev, every=False)}",
+          flush=True)
 
     # ---- 3c. K4 on random columns of every dtype and axis layout, and
     # K5 on the every-op programs at random rows; rows padded to their
@@ -2340,17 +2677,12 @@ def main() -> int:
             k3 = (kind, ins)
     if n_k1 != 48 or k3 is None:
         fail(f"library phase checked {n_k1} programs, regex {k3 is not None}")
-    u, w = k3[1][2].shape
     k3_lib = k3_numbers(dfa, k3[1])
     print(f"phase library: {len(st.templates)} templates x {LIBRARY_ROWS}"
           f" rows, capped sweep {lib_s:.3f}s, {len(lib_res)} results, "
           f"launches {lib_counts}; {lib_warm}; K1 == "
-          f"plain on {n_k1} programs; K3 == "
-          f"plain on {k3[0]} ([{u}, {w}] bytes, {k3[1][0].shape[0]} "
-          f"states, launch-scale): {k3_lib['ms']:.4f} ms, device "
-          f"{k3_lib['device_ms']:.4f} vs plain "
-          f"{k3_lib['plain_ms']:.4f} ms, bound {k3_lib['bound_ms']:.6f}",
-          flush=True)
+          f"plain on {n_k1} programs; K3 == plain on {k3[0]}: "
+          f"{k3_text(dfa, k3[1], k3_lib)}", flush=True)
     del lib_drv, lib, st
 
     # ---- 4. main path: north star on the card
@@ -2640,17 +2972,12 @@ def main() -> int:
     if not torch.equal(g3, w3):
         fail("K3 mismatch on the K8sImageDigests store table")
     k3_err = max(k3_err, int((g3.int() - w3.int()).abs().max()))
-    n_ids = int(arrays["__strdfaok__"].sum())
     rec["K3"] = {"launches": dig_counts["K3"], "max_abs_err": k3_err,
                  **k3_numbers(dfa, ins)}
     print(f"phase K3 store: K8sImageDigests over {args.resources} pods, "
-          f"{len(dig_res)} capped results, launches {dig_counts}; string "
-          f"table {list(ins[2].shape)} bytes ({n_ids} scannable ids), "
-          f"{ins[0].shape[0]} states: K3 {rec['K3']['ms']:.4f} ms, device "
-          f"{rec['K3']['device_ms']:.4f} vs plain "
-          f"{rec['K3']['plain_ms']:.4f} ms, bound "
-          f"{rec['K3']['bound_ms']:.6f} ms ({rec['K3']['bound_by']}); equal "
-          f"to plain", flush=True)
+          f"{len(dig_res)} capped results, launches {dig_counts}; K3 equal "
+          f"to plain on the string table, {k3_text(dfa, ins, rec['K3'])}",
+          flush=True)
     del dig, dc, st, arrays
 
     # ---- 6. fleet: N clusters' stores stacked into one batched sweep
