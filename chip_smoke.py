@@ -2,7 +2,7 @@
 against its plain PyTorch version.
 
     python3 chip_smoke.py [--resources N] [--k2-only | --k1-only |
-                           --k6k7-only | --k3-only]
+                           --k6k7-only | --k3-only | --admission-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -25,12 +25,18 @@ by ``TorchDriver(device="cpu")``, no Triton compile) and at a synthetic
 ``dfa_table_batched`` alone; each line gives S, the table's dtype, the
 plan (branch, stored width, ids and threads a block, blocks) and the
 live bytes.
+``--admission-only`` builds K3 alone and runs only phase 10, the
+admission micro-batch.
 
 Every TorchDriver starts a background warm-up of its kinds' churn-delta
-variants (K5) after its first capped legacy sweep; the script waits for
-each one (``wait_delta_warm``) before it times anything or captures a
-CUDA graph, and the churn phase fails if its first churned sweep still
-compiles a Triton variant.
+variants (K5) after its first capped legacy sweep, and a batch ingest of
+MIRROR_EAGER_MIN_ROWS (50,000) rows or more builds each kind's bindings
+at once and compiles each kind's full K1 variant on background
+ingest-prewarm threads; the script waits for both (``wait_delta_warm``,
+``wait_ingest_warm``; ``graph_ms`` joins every warm thread first) before
+it times anything or captures a CUDA graph.  The churn phase fails if
+its first churned sweep still compiles a Triton variant, and the main
+phase if its cold sweep does.
 
 Phases (each prints one line of its numbers):
   1. card   — nvidia-smi name/power limit, torch and CUDA versions, TF32 off
@@ -57,9 +63,11 @@ Phases (each prints one line of its numbers):
        make_mixed rows through TorchDriver on the card — K1 on every
        program, K3 on the regex template — with the sweep's launch counts
   4. main path — TorchDriver() with the north-star set (3 templates x 67
-     constraints = 201) over --resources pods, cap 20: a cold sweep, the
-     wait for its delta warm-up (its seconds), and the best of 3 steady
-     sweeps; K1/K2 launch counts; K1 and K2 at the
+     constraints = 201) over --resources pods, cap 20: the ingest (its
+     eager mirror's seconds), the wait for its ingest warm (its seconds,
+     the Triton variants it compiled), a cold sweep that must compile no
+     Triton variant, the wait for its delta warm-up (its seconds), and
+     the best of 3 steady sweeps; K1/K2 launch counts; K1 and K2 at the
      sweep's own shapes against their plain versions; the results
      against TorchDriver(device="cpu") on the same store and against
      LocalDriver on a 300-pod subsample; K3 at the store's size: the
@@ -140,7 +148,30 @@ Phases (each prints one line of its numbers):
      call of A's churned sweeps,
      flat device memory, the host split as in 7, the join
      kind's delta high-water and device bindings within its certificate
- 10. the kernels JSON line, the card line, and the final JSON line.
+ 10. admission — the review micro-batch (query_review_batch): 200
+     constraints (K8sRequiredLabels and K8sAllowedRepos, 100 each) over
+     4,096 make_resources CREATE reviews; the scalar single-thread rate
+     over 1,024 query_review calls (4 chunks); every review's per-review
+     answer (and the library batch's) from an oracle process started with
+     the run (spawned, TorchDriver(device="cpu"), joined or stopped before
+     the script ends), equal to those 1,024; with both routing thresholds
+     at 0, per batch size (64, 256, 1,024, 4,096) one untimed batch (its
+     seconds and the Triton variants it compiles) and 4 timed batches (2
+     at 1,024, 1 at 4,096: reviews/s, K1 and K3 launches, h2d bytes), each
+     equal to per-review query_review, no variant compiled by a timed
+     batch; the crossover (the smallest size whose slowest timed batch
+     beats the fastest scalar chunk by more than the chunks' spread,
+     times 200; with none, one above the
+     largest size times 200: REVIEW_BATCH_MIN_EVALS) and the cost model's
+     units per second at each size (the slowest, rounded down: the cost
+     prior); one batch of 1,024 make_mixed reviews (CREATE/UPDATE/DELETE)
+     under the whole library, equal to per-review query_review, with K1
+     and K3 launched; K1 timed at the review batch's shapes (B 1,024 and
+     4,096) per call and device-only against its plain version and bound,
+     K3 at the library batch's; a MicroBatcher over client.review_batch
+     serving 256 submits from 8 threads, every response equal to
+     query_review, every batch on the device pass
+ 11. the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages sweeps with GATEKEEPER_PAGES=off: they measure
 the legacy sweep and assert its launch counts, and the port, like the
 reference, defaults to the paged route.
@@ -152,11 +183,14 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import hashlib
 import json
+import math
 import os
 import random
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -193,7 +227,10 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     """Device-only ms per call of ``fn``: ``iters`` calls captured in one
     CUDA graph and the graph replayed ``replays`` times between two
     events, so neither the wrappers' Python nor the launch calls are in
-    the time.  A call that cannot be captured fails the run."""
+    the time.  A call that cannot be captured fails the run.  Every
+    background warm thread is joined first (a capture fails if another
+    thread launches while it runs)."""
+    join_warms()
     fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
@@ -211,6 +248,29 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     t1.synchronize()
     del g
     return t0.elapsed_time(t1) / (iters * replays)
+
+
+def join_warms() -> None:
+    """Join every background warm thread of the process: the ingest
+    warm's (``ingest-prewarm``) and the delta warm's (``delta-warmup``).
+    A driver keeps a warm's error for its next ``query_audit``."""
+    for t in threading.enumerate():
+        if t.name in ("ingest-prewarm", "delta-warmup"):
+            t.join()
+
+
+def ingest_warm_text(drv) -> str:
+    """Join ``drv``'s ingest warm (raising its error) and describe it with
+    its eager mirror."""
+    mirror = drv.metrics.timer("mirror_materialize").total
+    t0 = time.perf_counter()
+    secs = drv.wait_ingest_warm()
+    waited = time.perf_counter() - t0
+    if secs is None:
+        return f"eager mirror {mirror:.4f}s, no ingest warm"
+    return (f"eager mirror {mirror:.4f}s, ingest warm of "
+            f"{drv.ingest_warm.kinds} kinds {secs:.4f}s on its threads "
+            f"(waited {waited:.4f}s)")
 
 
 def warm_text(drv) -> str:
@@ -1162,6 +1222,7 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
     del d, tab, mask, got, want, viol, rank
 
     # -- (a) the north-star fleet
+    v_build = triton_variants(ir_eval)
     t0 = time.perf_counter()
     clusters, res60 = [], None
     for i, n in enumerate(FLEET_SIZES):
@@ -1173,6 +1234,21 @@ def fleet_phase(rec: dict, fns: dict, dev) -> None:
         if n == FLEET_SIZES[-1]:
             res60 = res
     build_s = time.perf_counter() - t0
+    # each cluster's ingest (past MIRROR_EAGER_MIN_ROWS) built its kinds'
+    # bindings and warmed their full K1 variants, which the stacked sweep
+    # does not launch: their cost, waited for before the timed region
+    t0 = time.perf_counter()
+    warms = [c.driver.wait_ingest_warm() for c in clusters]
+    warm_wait_s = time.perf_counter() - t0
+    mirrors = [c.driver.metrics.timer("mirror_materialize").total
+               for c in clusters]
+    print(f"phase fleet north star ingest warm: eager mirrors "
+          f"{[round(x, 4) for x in mirrors]}s (in the build's "
+          f"{build_s:.3f}s), ingest warms "
+          f"{[None if x is None else round(x, 4) for x in warms]}s on their "
+          f"threads, waited {warm_wait_s:.4f}s after the build; Triton "
+          f"variants {v_build} -> {triton_variants(ir_eval)} (full variants "
+          f"the stacked sweep does not launch)", flush=True)
     fa = fleet_twice(clusters, fns, fleet_audit, ir_eval)
     warm, rep, counts_a, widen_a = fa["warm"], fa["rep"], fa["counts"], \
         fa["widen"]
@@ -1597,6 +1673,9 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
     cb = setup_north_star(b, resources, random.Random(2), c_per_kind=1)
     cc = setup_north_star(c, resources, random.Random(2), c_per_kind=1)
     ingest_s = time.perf_counter() - t0
+    print(f"phase devpages ingest: 3 drivers x {DEVPAGES_PODS} pods "
+          f"{ingest_s:.3f}s; A: {ingest_warm_text(a)}; B: "
+          f"{ingest_warm_text(b)}; C: {ingest_warm_text(c)}", flush=True)
     reset_counts(fns)
     res_a, cold_s = sweep(a, True)
     cold_counts = launch_counts(fns)
@@ -2255,6 +2334,9 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
         clients.append(c)
     a, b, cpu = drivers
     ingest_s = time.perf_counter() - t0
+    print(f"phase devpages ingress ingest: {ingest_s:.3f}s for the 3 "
+          f"drivers; A: {ingest_warm_text(a)}; B: {ingest_warm_text(b)}",
+          flush=True)
 
     def check(what: str, res_a, res_b, res_c) -> None:
         if norm(res_a) != norm(res_b) or norm(res_a) != norm(res_c):
@@ -2421,6 +2503,456 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
     del a, b, cpu, drivers, clients, led, kp
 
 
+
+ADMISSION_SIZES = (64, 256, 1024, 4096)
+ADMISSION_KINDS = ("K8sRequiredLabels", "K8sAllowedRepos")
+ADMISSION_C_PER_KIND = 100
+ADMISSION_SCALAR = 1024
+ADMISSION_LIBRARY = 1024
+ADMISSION_SUBMITS = 256
+ADMISSION_THREADS = 8
+
+
+def admission_reviews(objs, ops=("CREATE",)) -> list[dict]:
+    """AdmissionRequest-shaped reviews of ``objs``, the operations
+    cycled."""
+    out = []
+    for i, o in enumerate(objs):
+        group, _, version = o.get("apiVersion", "v1").rpartition("/")
+        out.append({"uid": f"u{i}", "kind": {"group": group,
+                                             "version": version,
+                                             "kind": o.get("kind", "")},
+                    "name": o["metadata"]["name"],
+                    "namespace": o["metadata"].get("namespace"),
+                    "operation": ops[i % len(ops)], "object": o,
+                    "userInfo": {"username": "chip-smoke"}})
+    return out
+
+
+def review_keys(results) -> list:
+    return [(r.msg, r.constraint["metadata"]["name"], r.enforcement_action)
+            for r in results]
+
+
+def review_digest(results) -> str:
+    """One review's results as a short digest of their keys."""
+    return hashlib.sha256(repr(review_keys(results)).encode()) \
+        .hexdigest()[:16]
+
+
+def admission_store(driver):
+    """The admission phase's client over ``driver`` (K8sRequiredLabels and
+    K8sAllowedRepos, ADMISSION_C_PER_KIND constraints each, drawn from
+    random.Random(11)) and its reviews (make_resources pods from the same
+    generator, all CREATE)."""
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.library.north_star import make_resources
+    from gatekeeper_tpu_torch.library.templates import (LIBRARY,
+                                                        constraint_doc,
+                                                        template_doc)
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    rng = random.Random(11)
+    client = Backend(driver).new_client([K8sValidationTarget()])
+    for kind in ADMISSION_KINDS:
+        client.add_template(template_doc(kind, LIBRARY[kind][0]))
+    for j in range(ADMISSION_C_PER_KIND):
+        client.add_constraint(constraint_doc(
+            "K8sRequiredLabels", f"lab-{j:03d}",
+            {"labels": rng.sample([f"l{x}" for x in range(10)], k=2)}))
+        client.add_constraint(constraint_doc(
+            "K8sAllowedRepos", f"rep-{j:03d}",
+            {"repos": rng.sample(["gcr.io/", "docker.io/", "quay.io/",
+                                  "ghcr.io/"], k=2)}))
+    return client, admission_reviews(make_resources(max(ADMISSION_SIZES),
+                                                    rng))
+
+
+def admission_library(driver):
+    """A client over ``driver`` with every library template and its
+    constraint, and ADMISSION_LIBRARY make_mixed reviews
+    (random.Random(12)), CREATE, UPDATE and DELETE in turn."""
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    client = Backend(driver).new_client([K8sValidationTarget()])
+    for t, c in all_docs():
+        client.add_template(t)
+        client.add_constraint(c)
+    return client, admission_reviews(
+        make_mixed(random.Random(12), ADMISSION_LIBRARY),
+        ops=("CREATE", "UPDATE", "DELETE"))
+
+
+def admission_answers(conn) -> None:
+    """The admission oracle process: every admission review's and library
+    review's per-review ``query_review`` answer on
+    ``TorchDriver(device="cpu")`` (scalar host evaluation, as on the
+    card), as digests, and the library's per-review seconds."""
+    torch.set_num_threads(1)
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    drv = TorchDriver(device="cpu")
+    _client, reviews = admission_store(drv)
+    main = [review_digest(drv.query_review(TARGET, r)[0]) for r in reviews]
+    lib_drv = TorchDriver(device="cpu")
+    _lib, lib_reviews = admission_library(lib_drv)
+    t0 = time.perf_counter()
+    lib = [review_digest(lib_drv.query_review(TARGET, r)[0])
+           for r in lib_reviews]
+    conn.send((main, lib, time.perf_counter() - t0))
+    conn.close()
+
+
+class AdmissionOracle:
+    """The admission phase's per-review answers, computed in a spawned
+    process (``admission_answers``) while the card runs the earlier
+    phases: the host oracle's per-review work would otherwise add about
+    a minute to the script."""
+
+    def __init__(self):
+        import multiprocessing
+        ctx = multiprocessing.get_context("spawn")
+        self._recv, send = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=admission_answers,
+                                 args=(send,),
+                                 name="admission-oracle", daemon=True)
+        self._proc.start()
+        send.close()
+
+    def result(self, timeout: float = 600.0):
+        """(main digests, library digests, library per-review seconds);
+        fails the run if the process ended without them."""
+        t0 = time.perf_counter()
+        if not self._recv.poll(timeout):
+            fail(f"the admission oracle process gave no answers in "
+                 f"{timeout:.0f}s")
+        try:
+            out = self._recv.recv()
+        except EOFError:
+            fail(f"the admission oracle process ended without answers "
+                 f"(exit code {self._proc.exitcode})")
+        self._proc.join(60)
+        self.waited_s = time.perf_counter() - t0
+        return out
+
+    def stop(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join(10)
+
+
+def floor2(x: float) -> float:
+    """``x`` rounded down to two significant digits."""
+    if x <= 0:
+        return 0.0
+    e = math.floor(math.log10(x)) - 1
+    return math.floor(x / 10 ** e) * 10 ** e
+
+
+def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
+    """The admission micro-batch (``query_review_batch``) on the card:
+    K8sRequiredLabels and K8sAllowedRepos with ADMISSION_C_PER_KIND
+    constraints each (drawn from random.Random(11)) over
+    max(ADMISSION_SIZES) CREATE reviews of make_resources pods.  The
+    scalar single-thread rate over ADMISSION_SCALAR ``query_review``
+    calls, timed in 4 chunks; then, with both routing thresholds at 0,
+    per batch size one untimed batch (the Triton variants it compiles
+    and its seconds) and 4 timed batches (2 at 1,024, 1 at 4,096):
+    reviews per second, K1 and K3 launches and h2d bytes per batch.
+    Every batch equals per-review ``query_review`` (the first
+    ADMISSION_SCALAR answers from the timed calls, all of them from
+    ``oracle``'s process, which must agree); a timed batch that compiles
+    a variant fails the run.  The crossover (the smallest size whose
+    slowest timed batch beats the fastest scalar chunk by more than the
+    chunks' spread, times 200 constraints) and the cost model's units per
+    second at each size give
+    the defaults of ``REVIEW_BATCH_MIN_EVALS`` and the cost prior.  Then
+    one batch of ADMISSION_LIBRARY make_mixed reviews (CREATE, UPDATE
+    and DELETE) under the whole library (K3, the operation gate, the
+    inventory-join gate), K1 timed at the review batch's shape (B =
+    1,024 and 4,096) and K3 at the library batch's, and a MicroBatcher
+    serving ADMISSION_SUBMITS concurrent submits from ADMISSION_THREADS
+    threads through ``client.review_batch``."""
+    from gatekeeper_tpu_torch.analysis import costmodel
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import dfa, ir_eval
+    from gatekeeper_tpu_torch.webhook.batcher import MicroBatcher
+
+    drv = TorchDriver()
+    client, reviews = admission_store(drv)
+    n_cons = len(ADMISSION_KINDS) * ADMISSION_C_PER_KIND
+    st = drv._state(TARGET)
+
+    # -- the scalar single-thread rate, and every review's answer
+    n_scalar = ADMISSION_SCALAR
+    for r in reviews[:8]:
+        drv.query_review(TARGET, r)             # closure warm
+    # timed in 4 chunks: the fastest chunk's rate is what a batch size
+    # must beat to win
+    want, chunk_s = [], []
+    for lo in range(0, n_scalar, n_scalar // 4):
+        t0 = time.perf_counter()
+        want += [review_keys(drv.query_review(TARGET, r)[0])
+                 for r in reviews[lo:lo + n_scalar // 4]]
+        chunk_s.append(time.perf_counter() - t0)
+    scalar_s = sum(chunk_s)
+    scalar_rps = n_scalar / scalar_s
+    scalar_best = n_scalar // 4 / min(chunk_s)
+    scalar_spread = scalar_best - n_scalar // 4 / max(chunk_s)
+    digests, lib_digests, lib_scalar_s = oracle.result()
+    mine = [hashlib.sha256(repr(k).encode()).hexdigest()[:16] for k in want]
+    if len(digests) != len(reviews) or mine != digests[:n_scalar]:
+        fail("the admission oracle process's per-review answers differ from "
+             "this driver's")
+    print(f"phase admission scalar: {n_cons} constraints "
+          f"({', '.join(ADMISSION_KINDS)}), {n_scalar} query_review calls "
+          f"in {scalar_s:.4f}s = {scalar_rps:.1f} reviews/s single-thread "
+          f"(chunks of {n_scalar // 4}: "
+          f"{[round(n_scalar // 4 / c, 1) for c in chunk_s]} reviews/s; "
+          f"{sum(map(bool, want))} of {n_scalar} reviews denied); the "
+          f"per-review answers of all {len(digests)} reviews from the oracle "
+          f"process (TorchDriver(device='cpu')) (waited "
+          f"{oracle.waited_s:.4f}s), equal to these {n_scalar}", flush=True)
+
+    def check(got, lo: int, what: str) -> None:
+        have = [review_digest(res) for res, _trace in got]
+        if have != digests[lo: lo + len(have)]:
+            bad = next(i for i, (a, b) in enumerate(
+                zip(have, digests[lo:])) if a != b)
+            fail(f"admission {what}: review {lo + bad} differs from "
+                 f"query_review")
+
+    # -- the device pass at each batch size
+    saved = (torch_driver.SMALL_WORKLOAD_EVALS,
+             torch_driver.REVIEW_BATCH_MIN_EVALS)
+    torch_driver.SMALL_WORKLOAD_EVALS = 0
+    torch_driver.REVIEW_BATCH_MIN_EVALS = 0
+    lowered = [st.templates[k].vectorized for k in ADMISSION_KINDS]
+    batches0 = drv.metrics.counter("review_batches_device").value
+    rows, calls = {}, {}
+    path_counts = collections.Counter()
+    for B in ADMISSION_SIZES:
+        batch = reviews[:B]
+        # the first batch of 1,024 and 4,096 keeps K1's inputs, for its
+        # times at the review batch's shape below
+        store: list = []
+        orig_k1 = ir_eval.eval_mask
+        if B in (1024, 4096):
+            ir_eval.eval_mask = recording(orig_k1, store)
+        v0 = triton_variants(ir_eval)
+        try:
+            t0 = time.perf_counter()
+            got = drv.query_review_batch(TARGET, batch)
+            first_s = time.perf_counter() - t0
+        finally:
+            ir_eval.eval_mask = orig_k1
+        if store:
+            calls[B] = [args for args, _res in store]
+        v1 = triton_variants(ir_eval)
+        check(got, 0, f"first batch of {B}")
+        # 4 timed batches, 2 at 1,024 and 1 at 4,096 (about a minute of
+        # host confirmation each there): the script's time limit
+        reps = 4 if B < 1024 else 2 if B < 4096 else 1
+        times, h2d = [], []
+        reset_counts(fns)
+        for _ in range(reps):
+            h0 = drv.executor.h2d_bytes
+            t0 = time.perf_counter()
+            got = drv.query_review_batch(TARGET, batch)
+            times.append(time.perf_counter() - t0)
+            h2d.append(drv.executor.h2d_bytes - h0)
+            check(got, 0, f"timed batch of {B}")
+        counts = launch_counts(fns)
+        path_counts.update(counts)
+        v2 = triton_variants(ir_eval)
+        if v2 != v1:
+            fail(f"a timed admission batch of {B} compiled Triton variants: "
+                 f"{v1} -> {v2}")
+        units = sum(costmodel.estimate(lw, B, ADMISSION_C_PER_KIND).units()
+                    for lw in lowered)
+        mean_s = sum(times) / reps
+        rows[B] = {"first_s": first_s, "compiled": v1 - v0,
+                   "mean_s": mean_s, "rps": B / mean_s,
+                   "slowest_rps": B / max(times),
+                   "ups": units / mean_s, "units": units,
+                   "k1": counts["K1"] / reps, "k3": counts["K3"] / reps,
+                   "h2d": h2d[-1]}
+        print(f"phase admission batch {B}: first batch {first_s:.4f}s "
+              f"compiling {v1 - v0} Triton variants; {reps} timed batches "
+              f"{[round(t, 4) for t in times]}s = {B / mean_s:.1f} reviews/s"
+              f" (slowest {B / max(times):.1f}; "
+              f"{B * n_cons / mean_s:.4g} constraint-evals/s; scalar "
+              f"{scalar_rps:.1f}), launches a batch K1 {counts['K1'] / reps}"
+              f" K3 {counts['K3'] / reps}, h2d_bytes a batch {h2d[-1]}; "
+              f"cost model {units:.4g} units = {units / mean_s:.4g} units/s",
+              flush=True)
+    if drv.metrics.counter("review_batches_device").value == batches0:
+        fail("no admission batch took the device pass")
+    # each size's timed batches, counted from 0 (reset_counts above)
+    if path_counts["K1"] <= 0:
+        fail("the admission batches launched no K1")
+    # a size wins only when even its slowest timed batch beats the fastest
+    # scalar chunk by more than the chunks' own spread: a difference
+    # inside either side's spread is noise
+    crossover = next((B for B in ADMISSION_SIZES
+                      if rows[B]["slowest_rps"] > scalar_best + scalar_spread),
+                     None)
+    largest = max(ADMISSION_SIZES) * n_cons
+    min_evals = crossover * n_cons if crossover is not None \
+        else largest + 1
+    slow = min(ADMISSION_SIZES, key=lambda B: rows[B]["ups"])
+    prior = floor2(rows[slow]["ups"])
+    print(f"phase admission crossover: "
+          + (f"batch {crossover} is the smallest whose slowest timed batch "
+             f"({rows[crossover]['slowest_rps']:.1f} reviews/s) beats the "
+             f"fastest scalar chunk {scalar_best:.1f} by more than the "
+             f"chunks' spread {scalar_spread:.1f}: "
+             f"REVIEW_BATCH_MIN_EVALS = {crossover} x {n_cons} = {min_evals}"
+             if crossover is not None else
+             f"no batch size up to {max(ADMISSION_SIZES)} has its slowest "
+             f"timed batch beat the fastest scalar chunk {scalar_best:.1f} "
+             f"reviews/s by more than the chunks' spread "
+             f"{scalar_spread:.1f}: "
+             f"REVIEW_BATCH_MIN_EVALS stays above the largest measured, "
+             f"{largest} + 1 = {min_evals}")
+          + f"; cost prior: the slowest size ({slow}) retires "
+          f"{rows[slow]['ups']:.6g} units/s, rounded down "
+          f"{prior:.6g} (GATEKEEPER_COST_PRIOR_UPS); shipped "
+          f"REVIEW_BATCH_MIN_EVALS {saved[1]}, _PRIOR_UNITS_PER_SECOND "
+          f"{costmodel._PRIOR_UNITS_PER_SECOND:.6g}", flush=True)
+
+    # -- the library batch: K3, the operation gate, the inventory-join
+    # gate, CREATE/UPDATE/DELETE mixed
+    lib_drv = TorchDriver()
+    _lib, lib_reviews = admission_library(lib_drv)
+    lst = lib_drv._state(TARGET)
+    gates = collections.Counter()
+    for kind, compiled in lst.templates.items():
+        lw = compiled.vectorized
+        if lw is None:
+            gates["scalar (unlowered)"] += 1
+        elif lw.spec.inv_joins:
+            gates["inventory join (match gate)"] += 1
+        elif any(rc.path[:1] == ("$meta",) and rc.path[1:] == ("operation",)
+                 for rc in lw.spec.r_cols):
+            gates["operation (match gate)"] += 1
+        else:
+            gates["device"] += 1
+    v0 = triton_variants(ir_eval)
+    k3_store: list = []
+    orig_k3 = dfa.dfa_table
+    dfa.dfa_table = recording(orig_k3, k3_store)
+    reset_counts(fns)
+    lb0 = lib_drv.metrics.counter("review_batches_device").value
+    try:
+        t0 = time.perf_counter()
+        got = lib_drv.query_review_batch(TARGET, lib_reviews)
+        lib_s = time.perf_counter() - t0
+    finally:
+        dfa.dfa_table = orig_k3
+    lib_counts = launch_counts(fns)
+    lib_counts["K3"] = len(k3_store)
+    path_counts["K1"] += lib_counts["K1"]
+    path_counts["K3"] += lib_counts["K3"]
+    if [review_digest(res) for res, _ in got] != lib_digests:
+        fail("the library admission batch differs from query_review")
+    if lib_drv.metrics.counter("review_batches_device").value != lb0 + 1 \
+            or lib_counts["K1"] <= 0 or not k3_store:
+        fail(f"the library admission batch did not run K1 and K3 on the "
+             f"device: launches {lib_counts}, K3 calls {len(k3_store)}")
+    print(f"phase admission library: {len(lst.templates)} templates, "
+          f"{ADMISSION_LIBRARY} make_mixed reviews (CREATE/UPDATE/DELETE): "
+          f"one batch {lib_s:.4f}s compiling {triton_variants(ir_eval) - v0} "
+          f"Triton variants (per-review query_review {lib_scalar_s:.4f}s in "
+          f"the oracle process), equal to query_review; kinds by gate "
+          f"{dict(gates)}; "
+          f"launches K1 {lib_counts['K1']} K3 {lib_counts['K3']}; "
+          f"{sum(bool(res) for res, _ in got)} reviews denied", flush=True)
+
+    # -- K1 at the review batch's shapes, K3 at the library batch's
+    k1r: dict = {}
+    for B in sorted(calls):
+        t = collections.Counter()
+        err = 0
+        for program, d in calls[B]:
+            got_m = ir_eval.eval_mask(program, d)
+            want_m = ex._eval_mask(program, d)
+            if not torch.equal(got_m, want_m):
+                fail(f"K1 mismatch at the review batch of {B}")
+            err = max(err, max_err(got_m, want_m))
+            bms, by = k1_bound_of(ex, ir_eval, program, d)
+            t["bound_ms"] += bms / len(calls[B])
+            for key, v in k1_times(
+                    lambda: ir_eval.eval_mask(program, d),
+                    lambda: ex._eval_mask(program, d)).items():
+                t[key] += v / len(calls[B])
+        shape = list(calls[B][0][1]["__cvalid__"].shape) \
+            + list(calls[B][0][1]["__alive__"].shape)
+        n = {"launches": path_counts["K1"], "max_abs_err": err, **t,
+             "bound_by": by, "library_ms": None}
+        print(f"phase admission K1 at B {B} ([C_pad, R_pad] {shape}, "
+              f"mean over {len(calls[B])} kinds): {k1_text(n)}",
+              flush=True)
+        k1r[B] = n
+    # the kernels line carries K1 at the largest batch's shape
+    rec["K1r"] = k1r[max(calls)]
+    (ins, _res) = k3_store[0]
+    g3, w3 = dfa.dfa_table(*ins), dfa.dfa_table_plain(*ins)
+    if not torch.equal(g3, w3):
+        fail("K3 mismatch at the library review batch")
+    rec["K3r"] = {"launches": path_counts["K3"],
+                  "max_abs_err": max_err(g3, w3), **k3_numbers(dfa, ins)}
+    print(f"phase admission K3 at the library batch: "
+          f"{k3_text(dfa, ins, rec['K3r'])}", flush=True)
+
+    # -- the micro-batcher over client.review_batch
+    mb = MicroBatcher(client.review_batch,
+                      predict_seconds=client.predict_review_seconds)
+    reqs = reviews[:ADMISSION_SUBMITS]
+    responses: list = [None] * len(reqs)
+    errors: list = []
+    v0 = triton_variants(ir_eval)
+    b0 = drv.metrics.counter("review_batches_device").value
+    mb.start()
+
+    def worker(w):
+        try:
+            for i in range(w, len(reqs), ADMISSION_THREADS):
+                resp = mb.submit(reqs[i])
+                responses[i] = hashlib.sha256(repr(
+                    [k for rs in resp.by_target.values()
+                     for k in review_keys(rs.results)]).encode()) \
+                    .hexdigest()[:16]
+        except Exception as e:      # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(ADMISSION_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    mb_s = time.perf_counter() - t0
+    mb.stop()
+    torch_driver.SMALL_WORKLOAD_EVALS, torch_driver.REVIEW_BATCH_MIN_EVALS \
+        = saved
+    if errors or responses != digests[:len(reqs)]:
+        fail(f"the micro-batcher's responses differ from query_review "
+             f"({errors[:3]})")
+    n_batches = mb.metrics.counter("admission_batches").value
+    dev_batches = drv.metrics.counter("review_batches_device").value - b0
+    if dev_batches != n_batches or not n_batches:
+        fail(f"the micro-batcher's {n_batches} batches took the device pass "
+             f"{dev_batches} times")
+    print(f"phase admission micro-batcher: {len(reqs)} submits from "
+          f"{ADMISSION_THREADS} threads in {mb_s:.4f}s, {n_batches} batches "
+          f"(max_batch {mb.max_batch}), all on the device pass, compiling "
+          f"{triton_variants(ir_eval) - v0} Triton variants; every response "
+          f"equals query_review", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
@@ -2437,6 +2969,10 @@ def main() -> int:
     only.add_argument("--k3-only", action="store_true",
                       help="build K3 alone and run only its phases (K3 "
                       "random, K3 store, library, fleet and large)")
+    only.add_argument("--admission-only", action="store_true",
+                      help="build K3 alone and run only the admission "
+                      "phase (review batches, the library batch, K1 and K3 "
+                      "at the review shapes, the micro-batcher)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2445,24 +2981,7 @@ def main() -> int:
 
     # imported after the CUDA check, so a bare copy of this script fails
     # here too (the package must be beside it)
-    from gatekeeper_tpu_torch import convert
-    from gatekeeper_tpu_torch.client.client import Backend
-    from gatekeeper_tpu_torch.client.interface import QueryOpts
-    from gatekeeper_tpu_torch.client.local_driver import LocalDriver
-    from gatekeeper_tpu_torch.engine import executor as ex
-    from gatekeeper_tpu_torch.engine import torch_driver
-    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-    from gatekeeper_tpu_torch.kernels import (build, devdelta, dfa, invjoin,
-                                              ir_eval, residency, scatter,
-                                              topk)
-    from gatekeeper_tpu_torch.kernels.op_cases import every_op_case
-    from gatekeeper_tpu_torch.library import all_docs, make_mixed
-    from gatekeeper_tpu_torch.library.north_star import (make_resources,
-                                                         setup_north_star)
-    from gatekeeper_tpu_torch.library.templates import (LIBRARY,
-                                                        constraint_doc,
-                                                        template_doc)
-    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.kernels import build
 
     # the port, like the reference, serves non-full sweeps from the
     # verdict ledger by default; every phase but devpages measures the
@@ -2487,7 +3006,7 @@ def main() -> int:
         "_build", "triton_cache"))
     t0 = time.perf_counter()
     secs = build.build(("topk",) if args.k2_only else ("dfa",)
-                       if args.k1_only or args.k3_only
+                       if args.k1_only or args.k3_only or args.admission_only
                        else ("devdelta", "invjoin")
                        if args.k6k7_only else build.KERNELS)
     import triton
@@ -2497,6 +3016,38 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rec: dict[str, dict] = {}
+    # the admission phase's per-review answers, in a process of their own
+    # while the card runs the phases before it
+    answers = AdmissionOracle() if args.admission_only or not (
+        args.k1_only or args.k2_only or args.k3_only or args.k6k7_only) \
+        else None
+    try:
+        return run_phases(args, card, dev, rec, answers)
+    finally:
+        if answers is not None:
+            answers.stop()
+
+
+def run_phases(args, card: str, dev, rec: dict, answers) -> int:
+    """The phases of :func:`main` after the build."""
+    from gatekeeper_tpu_torch import convert
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.client.local_driver import LocalDriver
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import (devdelta, dfa, invjoin,
+                                              ir_eval, residency, scatter,
+                                              topk)
+    from gatekeeper_tpu_torch.kernels.op_cases import every_op_case
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.library.north_star import (make_resources,
+                                                         setup_north_star)
+    from gatekeeper_tpu_torch.library.templates import (LIBRARY,
+                                                        constraint_doc,
+                                                        template_doc)
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
     fns = kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin,
                      residency)
 
@@ -2513,6 +3064,10 @@ def main() -> int:
         return 0
     if args.k3_only:
         k3_only(dfa, dev, args.resources)
+        print(card, flush=True)
+        return 0
+    if args.admission_only:
+        admission_phase(rec, fns, oracle=answers)
         print(card, flush=True)
         return 0
 
@@ -2688,15 +3243,45 @@ def main() -> int:
     # ---- 4. main path: north star on the card
     torch_driver.SMALL_WORKLOAD_EVALS = 20_000
     resources = make_resources(args.resources, random.Random(1))
+    v_ingest = triton_variants(ir_eval)
     t0 = time.perf_counter()
     drv = TorchDriver()
     client = setup_north_star(drv, resources, random.Random(2))
     ingest_s = time.perf_counter() - t0
+    # the ingest (past MIRROR_EAGER_MIN_ROWS) built each kind's bindings
+    # and started the compile of each kind's full K1 variant on the
+    # ingest-prewarm threads; wait for it, then the cold sweep must
+    # compile nothing
+    mirror_s = drv.metrics.timer("mirror_materialize").total
+    t0 = time.perf_counter()
+    ingest_warm_s = drv.wait_ingest_warm()
+    ingest_wait_s = time.perf_counter() - t0
+    v_warmed = triton_variants(ir_eval)
+    if args.resources >= torch_driver.MIRROR_EAGER_MIN_ROWS and (
+            ingest_warm_s is None or drv.ingest_warm.kinds != 3):
+        fail(f"the ingest of {args.resources} pods started no ingest warm "
+             f"of the 3 kinds: {drv.ingest_warm}")
     opts = QueryOpts(limit_per_constraint=CAP)
     reset_counts(fns)
     t0 = time.perf_counter()
     cold, _ = drv.query_audit(TARGET, opts)
     cold_s = time.perf_counter() - t0
+    v_cold = triton_variants(ir_eval)
+    if args.resources >= torch_driver.MIRROR_EAGER_MIN_ROWS and (
+            None in (v_warmed, v_cold) or v_cold != v_warmed):
+        fail(f"the cold sweep after the ingest warm compiled Triton "
+             f"variants: {v_warmed} before it, {v_cold} after")
+    print(f"phase main ingest: {args.resources} pods in {ingest_s:.4f}s, of "
+          f"it the eager mirror (axes, 3 kinds' bindings, row order, rank) "
+          f"{mirror_s:.4f}s under the writer lock; ingest warm of "
+          f"{drv.ingest_warm.kinds if drv.ingest_warm else 0} kinds "
+          f"{ingest_warm_s if ingest_warm_s is not None else 0.0:.4f}s on "
+          f"its threads (waited {ingest_wait_s:.4f}s after the ingest), "
+          f"Triton variants {v_ingest} -> {v_warmed}; cold capped sweep "
+          f"{cold_s:.4f}s (3.0283 s on an H100 80GB HBM3 at 700 W before "
+          f"the ingest warm, when the cold sweep built the bindings and "
+          f"compiled each kind's K1 variant itself), Triton variants "
+          f"{v_warmed} -> {v_cold}", flush=True)
     # the churn-delta variants compile on the driver's warm-up thread;
     # wait for it, so no compile overlaps a timing or a graph capture
     t0 = time.perf_counter()
@@ -2955,6 +3540,7 @@ def main() -> int:
     dc.add_template(template_doc("K8sImageDigests", rego))
     dc.add_constraint(constraint_doc("K8sImageDigests", "digests", params))
     dc.add_data_batch(resources)
+    dig_warm = ingest_warm_text(dig)
     reset_counts(fns)
     dig_res, _ = dig.query_audit(TARGET, opts)
     dig_counts = counts_of("K1", "K2", "K3")
@@ -2974,7 +3560,8 @@ def main() -> int:
     k3_err = max(k3_err, int((g3.int() - w3.int()).abs().max()))
     rec["K3"] = {"launches": dig_counts["K3"], "max_abs_err": k3_err,
                  **k3_numbers(dfa, ins)}
-    print(f"phase K3 store: K8sImageDigests over {args.resources} pods, "
+    print(f"phase K3 store: K8sImageDigests over {args.resources} pods "
+          f"({dig_warm}), "
           f"{len(dig_res)} capped results, launches {dig_counts}; K3 equal "
           f"to plain on the string table, {k3_text(dfa, ins, rec['K3'])}",
           flush=True)
@@ -2992,7 +3579,10 @@ def main() -> int:
     # ---- 9. devpages ingress: the inventory-join kind on the device (B7)
     ingress_phase(rec, fns, dev)
 
-    # ---- 10. kernels line, card line, final line
+    # ---- 10. admission: the review micro-batch on the card
+    admission_phase(rec, fns, oracle=answers)
+
+    # ---- 11. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -3028,10 +3618,15 @@ def main() -> int:
         "K8s": ("residency_page_scatter", "cuda",
                 "gatekeeper_tpu_torch/csrc/residency.cu",
                 "gatekeeper_tpu/enforce/devpages.py:271"),
+        "K1r": ("ir_eval_review_batch", "triton",
+                "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                "gatekeeper_tpu/engine/veval.py:294"),
+        "K3r": ("dfa_review_batch", "cuda", "gatekeeper_tpu_torch/csrc/dfa.cu",
+                "gatekeeper_tpu/engine/veval.py:227"),
     }
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K1bl", "K2b",
-                "K3b", "K6", "K7", "K8g", "K8s"):
+                "K3b", "K6", "K7", "K8g", "K8s", "K1r", "K3r"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -753,6 +753,52 @@ class ProgramExecutor:
         _ir_eval.warm_delta(program, d, viol, rows)
         return True
 
+    def audit_warm_arrays(self, program: Program, bindings: Bindings,
+                          k: int | None = None,
+                          with_match: bool = False) -> dict:
+        """The arrays the first sweep's K1 launch over ``bindings`` will
+        pass, in its order: the bindings' own device arrays (``_arrays``,
+        which stages their uploads into the per-bindings cache the sweep
+        then reuses), then a zero ``__match__`` bool [C_pad, R_pad] when
+        ``with_match`` and a zero ``__rank__`` int32 [R_pad] when ``k``
+        is given, as the driver's ``_install_gates`` appends them, then
+        a zero ``<dfa>.devtab`` of K3's shape per regex table.  The plan
+        of ``ir_eval._launch`` keys on these names, dtypes and shapes,
+        and its compiled kernel on their 16-byte alignment."""
+        arrays = self._arrays(bindings, None, None)
+        dev = arrays["__alive__"].device
+        if with_match and "__match__" not in arrays:
+            arrays["__match__"] = torch.zeros(
+                (bindings.c_pad, bindings.r_pad), dtype=torch.bool,
+                device=dev)
+        if k is not None and "__rank__" not in arrays:
+            arrays["__rank__"] = torch.zeros((bindings.r_pad,),
+                                             dtype=torch.int32, device=dev)
+        return _with_dfa_tables(program, arrays, _zero_devtab)
+
+    def prewarm_audit_exec(self, program: Program, bindings: Bindings,
+                           k: int | None = None,
+                           with_match: bool = False) -> bool:
+        """Compile K1's full variant for ``bindings`` ahead of the first
+        sweep (the reference's ``prewarm_audit_exec``): one uncounted
+        launch into a scratch mask over :meth:`audit_warm_arrays`, from a
+        background thread at ingest.  Then load K2 (when ``k`` is given)
+        and, for a program with regex tables, K3, so no ``nvcc`` build or
+        library load lands inside the first sweep either (the
+        counterpart of the reference's ``prewarm_reduce``).  Counts
+        nothing (``mask_evals``, ``eval_mask.launches``) and stores no
+        mask on ``bindings``.  Returns False, having launched nothing, on
+        the CPU."""
+        if self.device.type != "cuda":
+            return False
+        _ir_eval.warm_mask(program, self.audit_warm_arrays(
+            program, bindings, k, with_match))
+        if k is not None:
+            _topk.load()
+        if dfa_names(program):
+            _dfa.load()
+        return True
+
     def _viol_key(self, program: Program) -> tuple:
         return (id(self), program.cache_key())
 

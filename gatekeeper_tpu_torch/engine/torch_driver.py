@@ -43,14 +43,24 @@ Stage-5 footprint and Stage-6 partition-plan certifiers
 the first, the fleet audit (whatif/fleet.py) both; the Stage-8
 memory-surface certificate (analysis/memsurface.py) gates the install
 against the device-memory budget, sizes the residency planner and orders
-a forced full sweep's kinds.  Admission review batches, the watch-driven
-reactor, shadow and replay what-if and sharding are not part of this
-port yet; the review path is the scalar engine's (LocalDriver).
+a forced full sweep's kinds and the largest admission batch.
+
+A batch ingest of ``MIRROR_EAGER_MIN_ROWS`` rows or more builds each
+kind's bindings at once (the eager mirror) and compiles each kind's full
+K1 variant on background ``ingest-prewarm`` threads, so the first sweep
+finds its kernels built.  An admission micro-batch
+(``query_review_batch``) of ``REVIEW_BATCH_MIN_EVALS`` (review,
+constraint) pairs or more runs as one [C, B] device pass per kind (K3,
+K1) over a throwaway mini table, and only its candidates are verified on
+the host; ``predict_review_batch_seconds`` prices a batch with the
+static cost model.  The watch-driven reactor, shadow and replay what-if
+and sharding are not part of this port yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 
@@ -62,7 +72,7 @@ from gatekeeper_tpu_torch.client.interface import QueryOpts
 from gatekeeper_tpu_torch.client.local_driver import (LocalDriver,
                                                       TargetState, locked,
                                                       locked_read)
-from gatekeeper_tpu_torch.client.types import Result
+from gatekeeper_tpu_torch.client.types import Result, enforcement_action_of
 from gatekeeper_tpu_torch.errors import ExternalDataError
 from gatekeeper_tpu_torch.engine.executor import (BG_SHUTDOWN,
                                                   ProgramExecutor, pad_rank,
@@ -121,6 +131,49 @@ that only amortizes over enough work.  The scalar path produces
 identical results (it is the oracle), so routing is purely a latency
 decision.  Tests set it to 0 to drive the device path at small sizes."""
 
+MIRROR_EAGER_MIN_ROWS = 50_000
+"""Batch ingests at/above this row count eagerly materialize the
+columnar mirror (element axes + per-kind bindings) and start background
+compiles of each kind's full K1 variant, so the first audit after a
+restart spends its wall on dispatch and fetch, not on prep the store
+could have done at write time.  Keyed to the batch, not the table: a
+steady stream of small watch batches on a large table must not re-run
+mirror prep under the writer lock on every write."""
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+REVIEW_BATCH_MIN_EVALS = _env_int("GATEKEEPER_REVIEW_BATCH_MIN_EVALS",
+                                  4096 * 200 + 1)
+"""Below this many (review, constraint) pairs, a coalesced admission
+batch stays on the scalar engine.  ``GATEKEEPER_REVIEW_BATCH_MIN_EVALS``
+overrides it at import; ``query_review_batch`` reads the module
+attribute at each call, so tests may set it.
+
+Measured by ``chip_smoke.py``'s admission phase on an NVIDIA H100 80GB
+HBM3 at 700 W (2026-10-18, two runs of the whole script from a clean
+checkout), with both routing thresholds at 0, over 200 constraints
+(K8sRequiredLabels and K8sAllowedRepos): the scalar engine served 82.5
+and 66.7 reviews/s on one thread, the device batch 97.9 and 71.5,
+74.0 and 68.8, 71.0 and 61.7, 77.8 and 69.2 reviews/s (means of the
+timed batches) at 64, 256, 1,024 and 4,096 reviews.  The differences
+are inside the spread of either side (at 64 the slowest batch ran at
+82.4 and 66.7 reviews/s): the host still confirms every candidate
+pair, and on this workload nearly every pair is a candidate.  No size
+wins, so the threshold stays above the largest batch measured, 4,096 x
+200 pairs.  A batch size the process has not seen also compiles its K1
+variants first (1.1-1.8 s a kind at 64 reviews on that card's host),
+which no deadline fit sees."""
+
+DEFAULT_PREWARM_CAP = 20
+"""Cap assumed for prewarmed audit variants: the audit manager's
+per-constraint violation cap (Gatekeeper's pkg/audit/manager.go:35)."""
+
 
 class TorchTargetState(TargetState):
     def __init__(self):
@@ -178,6 +231,20 @@ class DeltaWarm:
     error: BaseException | None = None
 
 
+@dataclasses.dataclass
+class IngestWarm:
+    """The background compile of each kind's full K1 variant that a large
+    batch ingest starts (``ingest-prewarm`` threads draining one queue):
+    its threads, its seconds once the last thread ended, and the first
+    exception a thread ended with, which the driver's next
+    ``query_audit`` raises."""
+
+    threads: list = dataclasses.field(default_factory=list)
+    kinds: int = 0
+    seconds: float | None = None
+    error: BaseException | None = None
+
+
 class TorchDriver(LocalDriver):
     """Driver with a device-evaluated capped audit.  ``device`` is CUDA
     unless the caller asks otherwise; on a host without a GPU the
@@ -198,6 +265,12 @@ class TorchDriver(LocalDriver):
         # the warm-up of the churn-delta variants, one a driver (the
         # reference's _delta_warmed)
         self.delta_warm: DeltaWarm | None = None
+        # the compile of each kind's full variant at a large batch
+        # ingest (the newest; a later ingest waits for the one before)
+        self.ingest_warm: IngestWarm | None = None
+        # predict_review_batch_seconds' units by (batch size, kinds,
+        # constraints)
+        self._predict_cache: dict[tuple, float] = {}
 
     def init(self, targets) -> None:
         self.targets = dict(targets)
@@ -249,10 +322,86 @@ class TorchDriver(LocalDriver):
         return warm.seconds
 
     def _raise_warm_error(self) -> None:
-        warm = self.delta_warm
-        if warm is not None and warm.error is not None:
+        for warm in (self.ingest_warm, self.delta_warm):
+            if warm is not None and warm.error is not None:
+                err, warm.error = warm.error, None
+                raise err
+
+    def _start_ingest_warm(self, st: TorchTargetState,
+                           items: list) -> None:
+        """Compile each ``(kind, program, bindings, with_match)``'s full
+        K1 variant, and load K2 and K3, on up to 4 ``ingest-prewarm``
+        threads draining one queue (the reference's ingest prewarm,
+        ``jax_driver.py`` _materialize_mirror): the compiles overlap the
+        time until the first sweep instead of landing inside it.
+
+        Each item runs under ``_prep_lock``, which every sweep holds
+        while it stages, migrates or rebuilds bindings: the warm's
+        uploads into the per-bindings device cache never interleave
+        with a sweep's.  An item whose bindings are no longer the
+        kind's current ones (a churn or a forced full sweep replaced
+        them, and the driver may recycle their host buffers) is
+        skipped: the next sweep compiles what it needs itself.
+
+        A warm still running from an earlier ingest is joined first, and
+        its unraised error carried over.  Unlike the reference's, an
+        exception is kept, not swallowed: :meth:`query_audit` and
+        :meth:`wait_ingest_warm` raise it."""
+        prev = self.ingest_warm
+        warm = self.ingest_warm = IngestWarm(kinds=len(items))
+        if prev is not None:
+            for t in prev.threads:
+                t.join()
+            warm.error = prev.error
+        executor = self.executor
+        queue = list(items)
+        qlock = threading.Lock()
+        t0 = time.perf_counter()
+
+        def drain():
+            try:
+                while not BG_SHUTDOWN.is_set():
+                    with qlock:
+                        if not queue or warm.error is not None:
+                            return
+                        kind, prog, bindings, with_match = queue.pop(0)
+                    with self._prep_lock:
+                        cur = st.bindings_cache.get(kind)
+                        if cur is None or cur[1] is not bindings:
+                            continue
+                        executor.prewarm_audit_exec(prog, bindings,
+                                                    DEFAULT_PREWARM_CAP,
+                                                    with_match=with_match)
+            except Exception as exc:    # raised by the next query_audit
+                with qlock:
+                    if warm.error is None:
+                        warm.error = exc
+            finally:
+                with qlock:
+                    # the last thread to end sets the warm's seconds
+                    warm.seconds = time.perf_counter() - t0
+
+        warm.threads = [spawn_bg(drain, "ingest-prewarm")
+                        for _ in range(min(4, len(items)))]
+
+    def wait_ingest_warm(self, timeout: float | None = None) \
+            -> float | None:
+        """Join the ingest warm if one was started and raise its
+        exception, as the next :meth:`query_audit` would; its seconds,
+        or None when none ran (or it still runs after ``timeout``)."""
+        warm = self.ingest_warm
+        if warm is None or not warm.threads:
+            return None
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for t in warm.threads:
+            t.join(None if deadline is None
+                   else max(0.0, deadline - time.monotonic()))
+        if warm.error is not None:
             err, warm.error = warm.error, None
             raise err
+        if any(t.is_alive() for t in warm.threads):
+            return None
+        return warm.seconds
 
     @locked
     def adopt_store(self, target: str, state: dict) -> None:
@@ -281,6 +430,67 @@ class TorchDriver(LocalDriver):
             st.dirtylog_overflows_seen = 0
             for kind in list(st.templates):
                 st.bump(kind)
+
+    # ------------------------------------------------------------------
+    # ingest: the eager mirror and the ingest warm
+
+    @locked
+    def put_data_batch(self, target: str, entries) -> None:
+        # the parent method is itself @locked: run its body under this
+        # writer hold
+        LocalDriver.put_data_batch.__wrapped__(self, target, entries)
+        st = self._state(target)
+        if isinstance(st, TorchTargetState) \
+                and len(entries) >= MIRROR_EAGER_MIN_ROWS:
+            self._materialize_mirror(st)
+
+    def _materialize_mirror(self, st) -> None:
+        """Eagerly build what the first audit would otherwise build
+        lazily: the shared element-axis extraction, each device kind's
+        bindings, the sorted row order and the rank gate (a columnar
+        store maintains its mirror on write).  On CUDA each kind's full
+        K1 variant then compiles on background threads
+        (:meth:`_start_ingest_warm`), with the gate set the first sweep
+        installs: ``__match__`` when a constraint carries match
+        criteria, ``__rank__`` always.  A kind whose bindings need an
+        external-data provider that fails is left to the sweep.  Not
+        warmed: a kind with float32-unsafe bindings (the sweep runs it
+        on the scalar oracle), and, while the paged route is on
+        (``GATEKEEPER_PAGES``, the default), a kind it serves: its
+        sweeps re-evaluate pages on the host or, under devpages, launch
+        the delta variant, never the full one."""
+        from gatekeeper_tpu_torch.enforce.ledger import pages_mode
+        t0 = time.perf_counter()
+        warm: list[tuple] = []
+        paged = pages_mode()
+        with self._prep_lock:
+            self._prefetch_axes(st)
+            for kind in sorted(st.templates):
+                compiled = st.templates[kind]
+                cons = self._kind_constraints(st, kind)
+                if compiled.vectorized is None or not cons:
+                    continue
+                if self.scalar_only or \
+                        st.table.n_rows * len(cons) < SMALL_WORKLOAD_EVALS:
+                    continue
+                try:
+                    bindings = self._kind_bindings(st, kind, compiled, cons)
+                except ExternalDataError:
+                    continue
+                if bindings.f32_unsafe or (
+                        paged and self._pages_ineligible(st, kind, compiled)
+                        is None):
+                    continue
+                with_match = any((c.get("spec") or {}).get("match")
+                                 for c in cons)
+                warm.append((kind, compiled.vectorized.program, bindings,
+                             with_match))
+        _, row_order = self._ensure_order(st)
+        self._row_rank(st, row_order)
+        self.metrics.timer("mirror_materialize").observe(
+            time.perf_counter() - t0)
+        if warm and self.device.type == "cuda":
+            self._start_ingest_warm(st, warm)
 
     # ------------------------------------------------------------------
     # templates and constraints
@@ -1463,6 +1673,211 @@ class TorchDriver(LocalDriver):
             st.dirtylog_overflows_seen = overflows
         return [r for _, r in tagged], \
             ("\n".join(trace) if trace is not None else None)
+
+    # ------------------------------------------------------------------
+    # admission: the review micro-batch on the device
+
+    @locked_read
+    def query_review_batch(self, target: str, reviews: list[dict],
+                           opts: QueryOpts | None = None) -> list[tuple]:
+        """Admission micro-batch as one [C, B] device pass per template
+        kind (the reference's ``query_review_batch``).
+
+        The B review objects become a throwaway mini resource table (own
+        interner: admission strings must not grow the inventory's);
+        lowered programs and a namespace-over-approximated match mask
+        give candidate (constraint, review) pairs on the device (K3 for
+        each regex table, then K1), and only candidates are re-evaluated
+        exactly on the host (autoreject, namespaceSelector against the
+        real cached namespaces, the scalar oracle): the same
+        over-approximate-then-verify contract as the audit path, so the
+        results equal per-review ``query_review`` exactly.
+
+        Tracing (which must observe evaluation), a degraded device path,
+        an empty batch and a batch of fewer than
+        ``REVIEW_BATCH_MIN_EVALS`` (review, constraint) pairs run
+        per-review scalar queries instead."""
+        st = self._state(target)
+        handler = self.targets[target]
+        tracing = opts.tracing if opts is not None else self.default_tracing
+        shed = (opts.shed_actions if opts is not None else None) or None
+        constraints_all = list(st.all_constraints())
+        if shed:
+            # brownout: shed-action constraints are excluded before any
+            # evaluation (device mask, host verify, all of it)
+            constraints_all = [c for c in constraints_all
+                               if enforcement_action_of(c) not in shed]
+        n_reviews = len(reviews)
+        if tracing or self.scalar_only \
+                or not isinstance(st, TorchTargetState) or not n_reviews \
+                or n_reviews * len(constraints_all) < REVIEW_BATCH_MIN_EVALS:
+            return [self.query_review(target, r, opts) for r in reviews]
+
+        from gatekeeper_tpu_torch.engine.match import MatchEngine
+        from gatekeeper_tpu_torch.obs.trace import get_tracer
+        from gatekeeper_tpu_torch.store.table import (ResourceMeta,
+                                                      ResourceTable)
+        t_batch = time.perf_counter()
+        mt = ResourceTable()
+        for i, rv in enumerate(reviews):
+            k = rv.get("kind") or {}
+            g, v = k.get("group", ""), k.get("version", "")
+            api = f"{g}/{v}" if g else (v or "v1")
+            obj = rv.get("object")
+            mt.upsert(f"r{i:06d}", obj if isinstance(obj, dict) else {},
+                      ResourceMeta(api_version=api, kind=k.get("kind", ""),
+                                   name=str(rv.get("name", "")),
+                                   namespace=rv.get("namespace")))
+        mini = MatchEngine(mt)
+
+        plans: list[tuple] = []
+        for kind in sorted(st.templates):
+            compiled = st.templates[kind]
+            cons = self._kind_constraints(st, kind)
+            if shed:
+                cons = [c for c in cons
+                        if enforcement_action_of(c) not in shed]
+            if not cons:
+                continue
+            cmask = mini.mask(cons, overapprox_ns=True)
+            lowered = compiled.vectorized
+            # the mini table encodes every review as a CREATE, so a kind
+            # reading $meta.operation would mis-gate UPDATE/DELETE
+            # reviews (an under-approximation): it keeps the match gate
+            uses_op = lowered is not None and any(
+                rc.path[:1] == ("$meta",) and rc.path[1:] == ("operation",)
+                for rc in lowered.spec.r_cols)
+            ops_ok = all(r.get("operation", "CREATE") == "CREATE"
+                         for r in reviews) if uses_op else True
+            # an inventory join over the mini table would see only the
+            # batch, not the real inventory (dropped violations): such
+            # kinds keep the match gate and the exact host evaluation
+            if lowered is not None and lowered.spec.inv_joins:
+                lowered = None
+            if lowered is not None and ops_ok:
+                bindings = build_bindings(lowered.spec, mt, cons)
+                if bindings.f32_unsafe:
+                    # a float32 round trip could mis-order a compare and
+                    # drop a real violation: keep the match gate
+                    plans.append((kind, compiled, cons, cmask, None))
+                    continue
+                h = self.executor.run_async(lowered.program, bindings,
+                                            match=cmask)
+                plans.append((kind, compiled, cons, cmask, h))
+            else:
+                plans.append((kind, compiled, cons, cmask, None))
+        gates = [(kind, compiled, cons, (h.get() if h is not None else cmask))
+                 for kind, compiled, cons, cmask, h in plans]
+
+        ns_sel_cons = [c for c in constraints_all
+                       if ((c.get("spec") or {}).get("match") or {})
+                       .get("namespaceSelector") is not None]
+        out: list[tuple] = []
+        for i, rv in enumerate(reviews):
+            results: list[Result] = []
+            if ns_sel_cons:
+                for c, msg, details in handler.autoreject_review(
+                        rv, ns_sel_cons, st.table):
+                    results.append(Result(
+                        msg=msg, metadata={"details": details},
+                        constraint=c, review=rv,
+                        enforcement_action=enforcement_action_of(c)))
+            frozen = freeze(rv)
+            # one review, many constraints: share review-pure
+            # comprehension results, as query_review does
+            shared: dict = {}
+            for kind, compiled, cons, gate in gates:
+                for ci, c in enumerate(cons):
+                    if not gate[ci, i]:
+                        continue
+                    # exact matching (namespaceSelector against the real
+                    # inventory included) before the exact evaluation
+                    if not any(True for _ in handler.matching_constraints(
+                            rv, [c], st.table)):
+                        continue
+                    results.extend(self._eval_pair(st, target, compiled, rv,
+                                                   frozen, c, None, shared))
+            out.append((results, None))
+        m = self.metrics
+        m.counter("review_batches_device").inc()
+        m.counter("reviews_device").inc(n_reviews)
+        get_tracer().add_complete(
+            "admission.device_batch", cat="device", t0=t_batch,
+            t1=time.perf_counter(), n_reviews=n_reviews, kinds=len(gates))
+        return out
+
+    @locked_read
+    def predict_review_batch_seconds(self, target: str,
+                                     n_reviews: int) -> float | None:
+        """Cost-model-predicted wall seconds for a review batch of
+        ``n_reviews`` against the installed constraint set: the static
+        cost vector priced by the calibrated seconds-per-unit scale, or
+        by the card's static prior while uncalibrated
+        (costmodel.effective_scale), so deadline-aware batch shrinking
+        has an opinion from the very first batch.  None only when there
+        is nothing to predict (no reviews, prior disabled and no
+        samples): callers treat None as "no opinion", never as zero."""
+        from gatekeeper_tpu_torch.analysis import costmodel
+        scale = costmodel.effective_scale()
+        if scale <= 0.0 or n_reviews <= 0:
+            return None
+        st = self._state(target)
+        key = (n_reviews, len(st.templates),
+               sum(len(v) for v in st.constraints.values()))
+        units = self._predict_cache.get(key)
+        if units is None:
+            units = 0.0
+            for kind in st.templates:
+                lowered = st.templates[kind].vectorized
+                if lowered is None:
+                    continue
+                n_cons = len(st.constraints.get(kind, {}))
+                if not n_cons:
+                    continue
+                units += costmodel.estimate(lowered, n_reviews,
+                                            n_cons).units()
+            if len(self._predict_cache) > 64:
+                self._predict_cache.clear()
+            self._predict_cache[key] = units
+        return costmodel.predict_seconds(units, scale)
+
+    @locked_read
+    def memsurface_review_cap(self, target: str) -> int | None:
+        """Stage-8 consumer: the largest review-batch rung whose worst
+        per-kind dispatch footprint fits the device-memory budget left
+        after the installed set's certified resident arrays.  A review
+        batch pads its mini table to ``bucket(B)`` rows and dispatches
+        one kind at a time, so the in-flight claim is the max (not the
+        sum) over installed kinds of the peak at that row geometry.
+        None when the stage is off or nothing is certified.  (The
+        reference also clips its Stage-7 certified rungs with it; the
+        port has no Stage 7 yet, so the micro-batcher halves blindly.)"""
+        from gatekeeper_tpu_torch.analysis import memsurface
+        from gatekeeper_tpu_torch.ir.prep import bucket, bucket_ladder
+        if memsurface.mode() == "off":
+            return None
+        st = self.state.get(target)
+        if not isinstance(st, TorchTargetState):
+            return None
+        certs = [c for c in st.memsurfaces.values()
+                 if isinstance(c, memsurface.MemorySurface)
+                 and not c.scalar_pin]
+        if not certs:
+            return None
+        remaining = memsurface.budget_bytes(self.device) - sum(
+            c.resident_bytes(memsurface.cap_dims()) for c in certs)
+        if remaining <= 0:
+            return 1
+        best = 1
+        for rung in [1] + list(bucket_ladder(8, memsurface._cap("r"))):
+            dims = memsurface.cap_dims()
+            dims["r"] = bucket(max(rung, 1))
+            claim = max(c.peak_bytes(dims, devpages=False) for c in certs)
+            if claim <= remaining:
+                best = rung
+            else:
+                break
+        return best
 
     # ------------------------------------------------------------------
     # host formatting through the scalar oracle

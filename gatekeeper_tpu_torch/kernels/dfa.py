@@ -167,6 +167,13 @@ dfa_table.launches = 0
 dfa_table.plain_calls = 0
 
 
+def load() -> None:
+    """Build K3's library if it is missing, load it and bind its entry,
+    ahead of the first launch (the driver's ingest warm calls it for a
+    kind with a regex table)."""
+    build.entry("dfa", "gk_dfa_scan", _SCAN_ARGTYPES)
+
+
 def dfa_table_batched_plain(trans: torch.Tensor, accept: torch.Tensor,
                             strbytes: torch.Tensor, ok: torch.Tensor,
                             xv: torch.Tensor, prefix: int) -> torch.Tensor:

@@ -1017,6 +1017,27 @@ delta_mask.launches = 0
 delta_mask.plain_calls = 0
 
 
+def warm_mask(program: Program, arrays: dict) -> None:
+    """Compile the full variant :func:`eval_mask` will take for
+    ``program`` over ``arrays``: one real K1 launch into a scratch mask,
+    on the arrays' own tensors, so the plan (keyed on the arrays' names,
+    dtypes and shapes, in order) and the compiled kernel (keyed on each
+    pointer's 16-byte alignment) are the ones the first sweep then
+    finds.  Waits for the launch on CUDA, so the caller's references
+    outlive it.  Counts in no launch counter: the driver's ingest warm
+    calls it (``ProgramExecutor.prewarm_audit_exec``)."""
+    dev = arrays["__alive__"].device
+    c_pad = arrays["__cvalid__"].shape[0]
+    r_pad = arrays["__alive__"].shape[0]
+    out = torch.empty((c_pad, r_pad), dtype=torch.bool, device=dev)
+    _launch(program, arrays, out, None, "warm_mask")
+    if dev.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        done.synchronize()
+    del out
+
+
 def eval_mask_batched(program: Program, stacked: dict) -> torch.Tensor:
     """bool [N, C_pad, R_pad]: the violation masks of N clusters whose
     bindings are stacked along a leading cluster axis (item B9, the

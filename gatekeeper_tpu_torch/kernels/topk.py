@@ -203,6 +203,13 @@ topk_packed.launches = 0
 topk_packed.plain_calls = 0
 
 
+def load() -> None:
+    """Build K2's library if it is missing, load it and bind its entry,
+    ahead of the first launch (the driver's ingest warm calls it, so no
+    ``nvcc`` build or ``dlopen`` lands inside the first sweep)."""
+    build.entry("topk", "gk_topk_packed", _ARGTYPES)
+
+
 def _launch(viol: torch.Tensor, rank: torch.Tensor | None,
             rows_per_rank: int, k: int, out: torch.Tensor, what: str) -> None:
     """K2 over ``viol`` read as [rows, R_pad]: mask row b scores by

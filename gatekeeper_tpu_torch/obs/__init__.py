@@ -1,10 +1,12 @@
 # Copied from gatekeeper_tpu/obs/__init__.py for the PyTorch port.
-"""Observability: the flight recorder's in-memory ring.
+"""Observability: the flight recorder's in-memory ring and the span
+tracer.
 
-Only what the continuous-enforcement slice calls is ported: the
-VerdictLedger records every delta event, and the devpages path records
-each kind that falls back to the host page loop.  The span tracer and
-device-time attribution of the JAX package are not part of the port yet.
+The VerdictLedger records every delta event in the flight recorder, the
+devpages path each kind that falls back to the host page loop, and the
+admission micro-batcher each batch it forms; the micro-batcher and the
+driver's review-batch device pass record spans (:mod:`.trace`).  The
+device-time attribution of the JAX package is not part of the port yet.
 """
 
 from gatekeeper_tpu_torch.obs.flightrecorder import (FlightRecorder,

@@ -9,11 +9,11 @@ to call from any seam including failure paths.
 Trimmed for the port: the JAX package also dumps the ring with the span
 tracer's export to JSON files on degradation (``dump``), persists the
 admission corpus into a capture log (``record_admission``) and reads it
-back (``load_admission_corpus``).  Those wait for the admission slice;
-here the ring lives in memory only, and no event carries a trace id
-(the port has no span tracer yet).  Nothing in the port reads the ring
+back (``load_admission_corpus``).  Those wait for the webhook slice;
+here the ring lives in memory only.  An event recorded under an open
+span carries its trace id (obs/trace.py).  Nothing in the port reads the ring
 yet, so its size is fixed: the JAX package's ``GATEKEEPER_FLIGHT_RING``
-comes back with the admission slice, whose dumps read it.
+comes back with the webhook slice, whose dumps read it.
 """
 
 from __future__ import annotations
@@ -36,6 +36,13 @@ class FlightRecorder:
         """Append one event; never raises."""
         try:
             ev = {"ts": round(time.time(), 6), "type": etype}
+            try:
+                from gatekeeper_tpu_torch.obs.trace import get_tracer
+                tid = get_tracer().current_trace_id()
+                if tid:
+                    ev["trace"] = tid
+            except Exception:
+                pass
             for k, v in fields.items():
                 if isinstance(v, float):
                     v = round(v, 6)
