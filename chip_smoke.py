@@ -2,7 +2,8 @@
 against its plain PyTorch version.
 
     python3 chip_smoke.py [--resources N] [--k2-only | --k1-only |
-                           --k6k7-only | --k3-only | --admission-only]
+                           --k6k7-only | --k3-only | --admission-only |
+                           --manager-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -26,7 +27,8 @@ by ``TorchDriver(device="cpu")``, no Triton compile) and at a synthetic
 plan (branch, stored width, ids and threads a block, blocks) and the
 live bytes.
 ``--admission-only`` builds K3 alone and runs only phase 10, the
-admission micro-batch.
+admission micro-batch.  ``--manager-only`` builds K2, K3 and K4 and runs
+only phase 11, the manager process.
 
 Every TorchDriver starts a background warm-up of its kinds' churn-delta
 variants (K5) after its first capped legacy sweep, and a batch ingest of
@@ -108,7 +110,9 @@ Phases (each prints one line of its numbers):
      (GATEKEEPER_PAGES=off, the oracle) and driver C (GATEKEEPER_PAGES=on,
      GATEKEEPER_DEVPAGES=off: the default route, the host page loop), a
      cold sweep and 3 rounds of 1% relabels, each followed by a capped
-     sweep on all three: equal results, 3 K6 launches per churned sweep
+     sweep on A and B, and on C in the first DEVPAGES_C_ROUNDS (its host
+     page loop takes 20-30 s a sweep here; C is released after them):
+     equal results, 3 K6 launches per churned sweep
      on A (plus one per overflow) and none on C, every kind on the
      device on A, row-sized transfers, flat device memory, ledger events
      that add up and equal ledger totals on A and C, K6 on the phase's
@@ -171,7 +175,27 @@ Phases (each prints one line of its numbers):
      K3 at the library batch's; a MicroBatcher over client.review_batch
      serving 256 submits from 8 threads, every response equal to
      query_review, every batch on the device pass
- 11. the kernels JSON line, the card line, and the final JSON line.
+ 11. manager — the manager process (``gatekeeper_tpu_torch.cmd.manager``
+     ``Manager`` from ``parse_args(["--port", "0", "--audit-interval",
+     "3600"])``, its TorchDriver on the card, ``start()``): the sync
+     Config, the 3 north-star templates and K8sImageDigests, 202
+     constraints (the north-star draws and one K8sImageDigests), 50
+     namespaces and 20,000 make_resources pods created as cluster
+     objects and synced by the controllers (objects/s); a cold and a
+     steady ``audit.audit_once()`` whose written statuses equal a direct
+     ``Client.audit(limit_per_constraint=20)`` on a second TorchDriver fed
+     the cluster's stored objects (K1, K2, K3 launched); 200 pods
+     relabelled through ``cluster.update`` and a churned ``audit_once``
+     with K4 and K5 launched and no full K1, checked the same way; 512
+     CREATE reviews POSTed to /v1/admit from 8 threads with batch_mode
+     "always" (query_review_batch: K1r, K3r) and 64 with the shipped
+     "auto" (no K1 launch), every answer equal to the oracle process's
+     per-review ValidationHandler answer (reviews/s, p50/p99 latency);
+     /metrics, /debug/trace (admission.request, audit.cycle) and
+     /healthz; ``stop()`` joins every thread; then the 7 kernels at the
+     phase's own recorded inputs against their plain versions (checked
+     as they were recorded) and timed per call and device-only
+ 12. the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages sweeps with GATEKEEPER_PAGES=off: they measure
 the legacy sweep and assert its launch counts, and the port, like the
 reference, defaults to the paged route.
@@ -252,10 +276,12 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
 
 def join_warms() -> None:
     """Join every background warm thread of the process: the ingest
-    warm's (``ingest-prewarm``) and the delta warm's (``delta-warmup``).
-    A driver keeps a warm's error for its next ``query_audit``."""
+    warm's (``ingest-prewarm``), the delta warm's (``delta-warmup``) and
+    the audit manager's (``audit-warmup``).  A driver keeps a warm's
+    error for its next ``query_audit``, an audit manager for its next
+    ``audit_once``."""
     for t in threading.enumerate():
-        if t.name in ("ingest-prewarm", "delta-warmup"):
+        if t.name in ("ingest-prewarm", "delta-warmup", "audit-warmup"):
             t.join()
 
 
@@ -1601,6 +1627,7 @@ def k6k7_only(devdelta, invjoin, dev) -> None:
 
 DEVPAGES_PODS = 100_000
 DEVPAGES_PROBE_PODS = 10_000
+DEVPAGES_C_ROUNDS = 1           # churned rounds that also sweep driver C
 
 
 def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
@@ -1610,7 +1637,9 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
     (GATEKEEPER_PAGES=off, the oracle) over DEVPAGES_PODS north-star
     pods with one constraint per template: a cold sweep and 3 churned
     capped sweeps on each, held equal, with A's routing, launches,
-    transfers, memory and ledger events checked."""
+    transfers, memory and ledger events checked; driver C (the default
+    route, the host page loop) is held to B on the cold sweep and the
+    first DEVPAGES_C_ROUNDS churned ones, then released."""
     from gatekeeper_tpu_torch.client.interface import QueryOpts
     from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
     from gatekeeper_tpu_torch.enforce.devpages import delta_bucket
@@ -1732,6 +1761,7 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
     k6_launches = cold_counts["K6"]
     mem = []
     for rep in range(3):
+        on_c = rep < DEVPAGES_C_ROUNDS
         for i in churn_rng.sample(range(DEVPAGES_PODS), n_churn):
             o = copy.deepcopy(resources[i])
             o["metadata"]["labels"] = {k: "v" for k in label_pool
@@ -1739,11 +1769,12 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
             resources[i] = o
             ca.add_data(o)
             cb.add_data(o)
-            cc.add_data(o)
+            if on_c:
+                cc.add_data(o)
         ops.clear()
         ops_c.clear()
         total0 = led.total_violations()
-        total0_c = led_c.total_violations()
+        total0_c = led_c.total_violations() if on_c else None
         if rep == 0:
             devdelta.mask_delta = recording(orig, calls)
         k4_calls.install()
@@ -1757,22 +1788,27 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
         dv = dict(a.last_sweep_phases["devpages"])
         pg = dict(a.last_sweep_phases["pages"])
         res_b, b_s = sweep(b, False)
-        reset_counts(fns)
-        res_c, c_s = sweep(c, True, devpages=False)
-        c_counts = launch_counts(fns)
-        pg_c = dict(c.last_sweep_phases["pages"])
+        if on_c:
+            reset_counts(fns)
+            res_c, c_s = sweep(c, True, devpages=False)
+            c_counts = launch_counts(fns)
+            pg_c = dict(c.last_sweep_phases["pages"])
+            if norm(res_c) != norm(res_b):
+                fail(f"devpages churn {rep + 1}: C's results differ from "
+                     f"B's")
+            if pg_c["kinds_paged"] != 3 or any(c_counts.values()) \
+                    or ops_c["appear"] - ops_c["clear"] \
+                    != led_c.total_violations() - total0_c \
+                    or led_c.total_violations() != led.total_violations():
+                fail(f"devpages churn {rep + 1} on C: pages {pg_c}, "
+                     f"launches {c_counts}, {ops_c['appear']} appear - "
+                     f"{ops_c['clear']} clear, ledger violations "
+                     f"{total0_c} -> {led_c.total_violations()} (A "
+                     f"{led.total_violations()})")
+            if rep + 1 == DEVPAGES_C_ROUNDS:
+                del c, cc, led_c
         torch.cuda.synchronize()
         mem.append(torch.cuda.memory_allocated())
-        if norm(res_c) != norm(res_b):
-            fail(f"devpages churn {rep + 1}: C's results differ from B's")
-        if pg_c["kinds_paged"] != 3 or any(c_counts.values()) \
-                or ops_c["appear"] - ops_c["clear"] \
-                != led_c.total_violations() - total0_c \
-                or led_c.total_violations() != led.total_violations():
-            fail(f"devpages churn {rep + 1} on C: pages {pg_c}, launches "
-                 f"{c_counts}, {ops_c['appear']} appear - {ops_c['clear']} "
-                 f"clear, ledger violations {total0_c} -> "
-                 f"{led_c.total_violations()} (A {led.total_violations()})")
         k6_launches += counts["K6"]
         if norm(res_a) != norm(res_b):
             fail(f"devpages churn {rep + 1}: A's results differ from B's")
@@ -1802,12 +1838,15 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
               f"{led.total_violations()} violations, {pg['events']} events; "
               f"launches { {k: v for k, v in counts.items() if v} }; "
               f"memory_allocated {mem[-1]}", flush=True)
-        print(f"phase devpages churn {rep + 1} default route: C (host page "
-              f"loop) capped sweep {c_s:.4f}s, {len(res_c)} results equal "
-              f"B's; pages_evaluated {pg_c['pages_evaluated']}, "
-              f"pages_skipped {pg_c['pages_skipped']}, rows_reevaluated "
-              f"{pg_c['rows_reevaluated']}, {pg_c['events']} events, ledger "
-              f"{led_c.total_violations()} violations as A's", flush=True)
+        if on_c:
+            print(f"phase devpages churn {rep + 1} default route: C (host "
+                  f"page loop) capped sweep {c_s:.4f}s, {len(res_c)} "
+                  f"results equal B's; pages_evaluated "
+                  f"{pg_c['pages_evaluated']}, pages_skipped "
+                  f"{pg_c['pages_skipped']}, rows_reevaluated "
+                  f"{pg_c['rows_reevaluated']}, {pg_c['events']} events, "
+                  f"ledger {led.total_violations()} violations as A's",
+                  flush=True)
         if rep:
             continue
         # K6 on the sweep's own inputs, bit for bit, and timed there
@@ -1835,7 +1874,6 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
           f"{mem}; third - second {mem[2] - mem[1]} bytes (< one mask, "
           f"{mask_bytes}); K6 launches over the phase {k6_launches}; K4 "
           f"equal to plain on A's {k4_jobs} scatters", flush=True)
-    del c, cc, led_c
     budget_phase(rec, fns, a, b, ca, cb, resources, churn_rng, label_pool,
                  led, ops, split)
     split.close()
@@ -2583,22 +2621,31 @@ def admission_library(driver):
         ops=("CREATE", "UPDATE", "DELETE"))
 
 
-def admission_answers(conn) -> None:
-    """The admission oracle process: every admission review's and library
-    review's per-review ``query_review`` answer on
-    ``TorchDriver(device="cpu")`` (scalar host evaluation, as on the
-    card), as digests, and the library's per-review seconds."""
+def admission_answers(conn, parts: tuple) -> None:
+    """The admission oracle process: for ``"admission"`` in ``parts``,
+    every admission review's and library review's per-review
+    ``query_review`` answer on ``TorchDriver(device="cpu")`` (scalar host
+    evaluation, as on the card), as digests, and the library's
+    per-review seconds; for ``"manager"``, the manager phase's webhook
+    answers (:func:`manager_answers`)."""
     torch.set_num_threads(1)
     from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-    drv = TorchDriver(device="cpu")
-    _client, reviews = admission_store(drv)
-    main = [review_digest(drv.query_review(TARGET, r)[0]) for r in reviews]
-    lib_drv = TorchDriver(device="cpu")
-    _lib, lib_reviews = admission_library(lib_drv)
-    t0 = time.perf_counter()
-    lib = [review_digest(lib_drv.query_review(TARGET, r)[0])
-           for r in lib_reviews]
-    conn.send((main, lib, time.perf_counter() - t0))
+    main = lib = mgr = None
+    lib_s = 0.0
+    if "admission" in parts:
+        drv = TorchDriver(device="cpu")
+        _client, reviews = admission_store(drv)
+        main = [review_digest(drv.query_review(TARGET, r)[0])
+                for r in reviews]
+        lib_drv = TorchDriver(device="cpu")
+        _lib, lib_reviews = admission_library(lib_drv)
+        t0 = time.perf_counter()
+        lib = [review_digest(lib_drv.query_review(TARGET, r)[0])
+               for r in lib_reviews]
+        lib_s = time.perf_counter() - t0
+    if "manager" in parts:
+        mgr = manager_answers()
+    conn.send((main, lib, lib_s, mgr))
     conn.close()
 
 
@@ -2608,19 +2655,24 @@ class AdmissionOracle:
     phases: the host oracle's per-review work would otherwise add about
     a minute to the script."""
 
-    def __init__(self):
+    def __init__(self, parts: tuple = ("admission", "manager")):
         import multiprocessing
         ctx = multiprocessing.get_context("spawn")
+        self._out = None
         self._recv, send = ctx.Pipe(duplex=False)
         self._proc = ctx.Process(target=admission_answers,
-                                 args=(send,),
+                                 args=(send, parts),
                                  name="admission-oracle", daemon=True)
         self._proc.start()
         send.close()
 
     def result(self, timeout: float = 600.0):
-        """(main digests, library digests, library per-review seconds);
-        fails the run if the process ended without them."""
+        """(main digests, library digests, library per-review seconds,
+        manager answer digests), each None for a part not asked for;
+        fails the run if the process ended without them.  Later calls
+        return the first call's answers."""
+        if self._out is not None:
+            return self._out
         t0 = time.perf_counter()
         if not self._recv.poll(timeout):
             fail(f"the admission oracle process gave no answers in "
@@ -2632,6 +2684,7 @@ class AdmissionOracle:
                  f"(exit code {self._proc.exitcode})")
         self._proc.join(60)
         self.waited_s = time.perf_counter() - t0
+        self._out = out
         return out
 
     def stop(self) -> None:
@@ -2700,7 +2753,7 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     scalar_rps = n_scalar / scalar_s
     scalar_best = n_scalar // 4 / min(chunk_s)
     scalar_spread = scalar_best - n_scalar // 4 / max(chunk_s)
-    digests, lib_digests, lib_scalar_s = oracle.result()
+    digests, lib_digests, lib_scalar_s, _ = oracle.result()
     mine = [hashlib.sha256(repr(k).encode()).hexdigest()[:16] for k in want]
     if len(digests) != len(reviews) or mine != digests[:n_scalar]:
         fail("the admission oracle process's per-review answers differ from "
@@ -2953,6 +3006,590 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
           f"equals query_review", flush=True)
 
 
+MANAGER_PODS = 20_000
+MANAGER_NAMESPACES = 50
+MANAGER_SEED = 31
+MANAGER_CHURN = 200
+MANAGER_REVIEWS = 512
+MANAGER_AUTO = 64
+MANAGER_THREADS = 8
+MANAGER_DIGESTS = "K8sImageDigests"
+MANAGER_SETTLE_S = 300.0
+
+
+def manager_docs() -> tuple[dict, list, list]:
+    """The manager phase's policy objects: the sync Config (Namespace,
+    Pod), the 3 north-star templates and K8sImageDigests, and 202
+    constraints (the north-star draws of random.Random(2), 3 x 67, and
+    one K8sImageDigests constraint)."""
+    from gatekeeper_tpu_torch.api.config import empty_config_object
+    from gatekeeper_tpu_torch.library.north_star import (
+        north_star_constraints, north_star_templates)
+    from gatekeeper_tpu_torch.library.templates import (LIBRARY,
+                                                        constraint_doc,
+                                                        template_doc)
+    cfg = empty_config_object()
+    cfg["spec"] = {"sync": {"syncOnly": [
+        {"group": "", "version": "v1", "kind": "Namespace"},
+        {"group": "", "version": "v1", "kind": "Pod"}]}}
+    rego, params = LIBRARY[MANAGER_DIGESTS]
+    templates = north_star_templates() + [template_doc(MANAGER_DIGESTS, rego)]
+    constraints = north_star_constraints(random.Random(2)) + [
+        constraint_doc(MANAGER_DIGESTS, "digests", params)]
+    return cfg, templates, constraints
+
+
+def manager_reviews() -> list[dict]:
+    """MANAGER_REVIEWS + MANAGER_AUTO CREATE AdmissionRequests of fresh
+    make_resources pods drawn from random.Random(MANAGER_SEED + 1)."""
+    from gatekeeper_tpu_torch.library.north_star import make_resources
+    objs = make_resources(MANAGER_REVIEWS + MANAGER_AUTO,
+                          random.Random(MANAGER_SEED + 1))
+    for i, o in enumerate(objs):
+        o["metadata"]["name"] = f"admit{i:05d}"
+    return admission_reviews(objs)
+
+
+def response_digest(response: dict) -> str:
+    """An AdmissionResponse (without its uid) as a short digest: allowed,
+    the status code and message (the [denied by ...] lines) and the
+    warnings, whatever keys it carries."""
+    body = {k: v for k, v in response.items() if k != "uid"}
+    return hashlib.sha256(json.dumps(body, sort_keys=True).encode()) \
+        .hexdigest()[:16]
+
+
+def manager_answers() -> list[str]:
+    """Every manager-phase review's per-review answer from the port's
+    ValidationHandler over a ``TorchDriver(device="cpu")`` client with the
+    phase's templates and constraints (no batcher: one scalar query a
+    review), as digests."""
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
+    client = Backend(TorchDriver(device="cpu")).new_client(
+        [K8sValidationTarget()])
+    _cfg, templates, constraints = manager_docs()
+    for t in templates:
+        client.add_template(t)
+    for c in constraints:
+        client.add_constraint(c)
+    handler = ValidationHandler(client)
+    return [response_digest(handler.handle(r)) for r in manager_reviews()]
+
+
+def wait_until(cond, what: str, timeout: float = MANAGER_SETTLE_S) -> float:
+    """Seconds until ``cond()`` held; fails the run after ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            fail(f"manager: {what} did not settle in {timeout:.0f}s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def quiet(mgr, added: list, still_s: float = 0.2) -> None:
+    """Wait until the manager's reconcile queue is empty and the sync
+    controller's add_data count (``added[0]``) has not moved for
+    ``still_s``."""
+    def settled() -> bool:
+        n = added[0]
+        if mgr.plane.mgr._queue:
+            return False
+        time.sleep(still_s)
+        return added[0] == n and not mgr.plane.mgr._queue
+    wait_until(settled, "the reconcile queue")
+
+
+def constraint_statuses(cluster, kinds) -> dict:
+    """selfLink -> written status.violations (None when absent) of every
+    constraint of ``kinds`` in the cluster."""
+    from gatekeeper_tpu_torch.controllers.constrainttemplate import \
+        make_constraint_gvk
+    out = {}
+    for kind in kinds:
+        for c in cluster.list(make_constraint_gvk(kind)):
+            out[c["metadata"]["selfLink"]] = \
+                (c.get("status") or {}).get("violations")
+    return out
+
+
+STATUS_MSG_SIZE = 256    # Gatekeeper's status message cap (audit msgSize)
+
+
+def direct_statuses(direct, links) -> dict:
+    """What the audit manager must have written, built here and not by
+    the manager's code: ``direct``'s capped audit grouped per constraint
+    selfLink, at most CAP entries each in result order, each message cut
+    to STATUS_MSG_SIZE characters ending in "..."; None for a constraint
+    without violations."""
+    lists: dict = {}
+    for r in direct.audit(limit_per_constraint=CAP).results():
+        bucket = lists.setdefault(r.constraint["metadata"]["selfLink"], [])
+        if len(bucket) == CAP:
+            continue
+        meta = r.resource["metadata"]
+        msg = r.msg if len(r.msg) <= STATUS_MSG_SIZE \
+            else r.msg[:STATUS_MSG_SIZE - 3] + "..."
+        entry = {"kind": r.resource["kind"], "name": meta["name"],
+                 "message": msg,
+                 "enforcementAction": r.enforcement_action or "deny"}
+        if meta.get("namespace"):
+            entry["namespace"] = meta["namespace"]
+        bucket.append(entry)
+    return {link: lists.get(link) for link in links}
+
+
+def http_post(port: int, req: dict) -> tuple[dict, float]:
+    import urllib.request
+    body = json.dumps({"apiVersion": "admission.k8s.io/v1",
+                       "kind": "AdmissionReview", "request": req}).encode()
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/admit", data=body,
+            headers={"Content-Type": "application/json"}), timeout=120) as r:
+        out = json.loads(r.read())
+    return out["response"], time.perf_counter() - t0
+
+
+def post_all(port: int, reqs: list) -> tuple[list, list, float, list]:
+    """POST every request from MANAGER_THREADS threads: (responses,
+    latencies, wall seconds, errors)."""
+    responses: list = [None] * len(reqs)
+    lat: list = [0.0] * len(reqs)
+    errors: list = []
+
+    def worker(w):
+        try:
+            for i in range(w, len(reqs), MANAGER_THREADS):
+                responses[i], lat[i] = http_post(port, reqs[i])
+        except Exception as e:      # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(MANAGER_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    return responses, lat, time.perf_counter() - t0, errors
+
+
+def quantile(xs: list, q: float) -> float:
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def manager_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
+    """The manager process on the card (``gatekeeper_tpu_torch.cmd.manager``
+    ``Manager`` built from ``parse_args``, webhook on a free port): the
+    sync Config, the 4 templates, 202 constraints, MANAGER_NAMESPACES
+    namespaces and MANAGER_PODS make_resources pods created as cluster
+    objects and reconciled by the controllers (the ingest rate); a cold
+    and a steady ``audit_once`` whose written statuses must equal a
+    direct capped audit on a second TorchDriver fed the cluster's stored
+    objects; MANAGER_CHURN pods relabelled through ``cluster.update`` and
+    a churned ``audit_once`` that must run K4 and K5 and no full K1,
+    checked the same way; MANAGER_REVIEWS CREATE reviews POSTed to
+    /v1/admit from MANAGER_THREADS threads with the handler's batch_mode
+    "always" (query_review_batch: K1r, K3r), then MANAGER_AUTO more with
+    the shipped "auto" (scalar, no K1 launch), every answer equal to the
+    oracle process's per-review handler answer; /metrics, /debug/trace
+    (admission.request and audit.cycle spans) and /healthz; ``stop()``.
+    Then each kernel of the path at this phase's own recorded inputs
+    against its plain version, timed per call and device-only."""
+    import urllib.request
+
+    from gatekeeper_tpu_torch.api.config import GVK
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.cmd.manager import Manager, parse_args
+    from gatekeeper_tpu_torch.controllers.constrainttemplate import \
+        TEMPLATE_GVK
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import dfa, ir_eval, scatter, topk
+    from gatekeeper_tpu_torch.library.north_star import make_resources
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+
+    ns_gvk, pod_gvk = GVK("", "v1", "Namespace"), GVK("", "v1", "Pod")
+    cfg, templates, constraints = manager_docs()
+    kinds = sorted({t["spec"]["crd"]["spec"]["names"]["kind"]
+                    for t in templates})
+    pods = make_resources(MANAGER_PODS, random.Random(MANAGER_SEED))
+    earlier = set(threading.enumerate())    # earlier phases' threads
+    mgr = Manager(parse_args(["--port", "0", "--audit-interval", "3600"]))
+    if mgr.client.driver.device.type != "cuda":
+        fail(f"manager: the default device is {mgr.client.driver.device}")
+    mgr.start()
+    stopped = False
+    try:
+        cluster, drv = mgr.cluster, mgr.client.driver
+        # the sync controller's add_data calls, counted
+        added = [0]
+        add_data = mgr.client.add_data
+
+        def counting(obj):
+            out = add_data(obj)
+            added[0] += 1
+            return out
+
+        mgr.client.add_data = counting
+
+        # -- 1. policy and data as cluster objects, through the controllers
+        t0 = time.perf_counter()
+        cluster.create(copy.deepcopy(cfg))
+        for t in templates:
+            cluster.create(copy.deepcopy(t))
+        for c in constraints:
+            cluster.create(copy.deepcopy(c))
+        wait_until(lambda: sum(len(v) for v in mgr.client.constraints
+                               .values()) == len(constraints)
+                   and mgr.plane.watch_manager.watched_gvks() >=
+                   {ns_gvk, pod_gvk}, "the templates and constraints")
+        policy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(MANAGER_NAMESPACES):
+            cluster.create({"apiVersion": "v1", "kind": "Namespace",
+                            "metadata": {"name": f"ns{i}"}})
+        for p in pods:
+            cluster.create(p)
+        create_s = time.perf_counter() - t0
+        n_objs = MANAGER_NAMESPACES + MANAGER_PODS
+        st = drv._state(TARGET)
+        wait_until(lambda: st.table.n_rows >= n_objs, "the ingest")
+        ingest_s = time.perf_counter() - t0
+        # each object's MODIFIED event (its finalizer write) re-adds it:
+        # wait for the controllers to go quiet
+        quiet(mgr, added)
+        if st.table.n_rows != n_objs:
+            fail(f"manager: the store holds {st.table.n_rows} objects, "
+                 f"not {n_objs}")
+        print(f"phase manager ingest: {len(templates)} templates and "
+              f"{len(constraints)} constraints reconciled in {policy_s:.4f}s;"
+              f" {MANAGER_NAMESPACES} namespaces and {MANAGER_PODS} pods "
+              f"created in {create_s:.4f}s and synced by the controllers "
+              f"(finalizer write, add_data) in {ingest_s:.4f}s = "
+              f"{n_objs / ingest_s:.1f} objects/s into the store "
+              f"({added[0]} add_data calls: each object again on its "
+              f"finalizer write's event)", flush=True)
+
+        # -- the direct client on a second card driver, fed the cluster's
+        # own stored objects (finalizers included)
+        direct = Backend(TorchDriver()).new_client([K8sValidationTarget()])
+        for t in cluster.list(TEMPLATE_GVK):
+            direct.add_template(t)
+        for link_kind in kinds:
+            for c in cluster.list(GVK("constraints.gatekeeper.sh",
+                                      "v1alpha1", link_kind)):
+                direct.add_constraint(c)
+        direct.add_data_batch(cluster.list(ns_gvk) + cluster.list(pod_gvk))
+
+        def check_statuses(what: str) -> int:
+            got = constraint_statuses(cluster, kinds)
+            if len(got) != len(constraints):
+                fail(f"manager {what}: {len(got)} constraints in the "
+                     f"cluster, not {len(constraints)}")
+            want = direct_statuses(direct, got)
+            bad = [k for k in got if got[k] != want[k]]
+            if bad:
+                fail(f"manager {what}: {len(bad)} constraints' written "
+                     f"status.violations differ from the direct client's, "
+                     f"first {bad[0]}")
+            return sum(len(v or ()) for v in got.values())
+
+        # -- 2. audit: cold (recording K1, K2 and K3), then steady
+        k1_calls, k2_calls, k3_calls = [], [], []
+        orig = (ir_eval.eval_mask, topk.topk_packed, dfa.dfa_table)
+        ir_eval.eval_mask = recording(orig[0], k1_calls)
+        topk.topk_packed = recording(orig[1], k2_calls)
+        dfa.dfa_table = recording(orig[2], k3_calls)
+        v0 = triton_variants(ir_eval)
+        try:
+            cold = mgr.audit.audit_once()
+        finally:
+            cold_counts = {"K1": ir_eval.eval_mask.launches,
+                           "K2": topk.topk_packed.launches,
+                           "K3": dfa.dfa_table.launches}
+            ir_eval.eval_mask, topk.topk_packed, dfa.dfa_table = orig
+        v1 = triton_variants(ir_eval)
+        if cold.get("skipped") or min(cold_counts.values()) <= 0:
+            fail(f"manager: the cold audit_once did not launch K1, K2 and "
+                 f"K3: {cold_counts}, report {cold.get('skipped')}")
+        # each recorded launch against its plain version now, before a
+        # later sweep can reuse a buffer (times come after stop())
+        errs = {"K1": 0.0, "K2": 0, "K3": 0.0}
+        for (program, d), out in k1_calls:
+            want = ex._eval_mask(program, d)
+            if not torch.equal(out, want):
+                fail("manager: K1 mismatch on a cold-sweep kind")
+            errs["K1"] = max(errs["K1"], max_err(out, want))
+        for (viol, rnk, k), out in k2_calls:
+            errs["K2"] = max(errs["K2"], packed_err(
+                out, topk.topk_packed_plain(viol, rnk, k), k))
+        if errs["K2"]:
+            fail("manager: K2 mismatch on a cold-sweep kind")
+        for ins, out in k3_calls:
+            want = dfa.dfa_table_plain(*ins)
+            if not torch.equal(out, want):
+                fail("manager: K3 mismatch on the K8sImageDigests table")
+            errs["K3"] = max(errs["K3"], max_err(out, want))
+        n_viol = check_statuses("cold audit")
+        warm_s = drv.wait_delta_warm()
+        steady = mgr.audit.audit_once()
+        check_statuses("steady audit")
+        print(f"phase manager audit: cold audit_once eval "
+              f"{cold['eval_seconds']:.4f}s write {cold['write_seconds']:.4f}s"
+              f" total {cold['total_seconds']:.4f}s (Triton variants {v0} -> "
+              f"{v1}; launches {cold_counts}); steady eval "
+              f"{steady['eval_seconds']:.4f}s write "
+              f"{steady['write_seconds']:.4f}s total "
+              f"{steady['total_seconds']:.4f}s; {cold['violations']} capped "
+              f"results, {cold['constraints_updated']} statuses written "
+              f"({n_viol} violations), equal to the direct client's; delta "
+              f"warm-up {warm_s if warm_s is not None else 0.0:.4f}s",
+              flush=True)
+
+        # -- 3. churn: relabel pods through the cluster, then a sweep that
+        # must take the delta plan (K4, K5) and run no full K1
+        churn_rng = random.Random(MANAGER_SEED + 2)
+        label_pool = [f"l{j}" for j in range(10)]
+        before = added[0]
+        changed = []
+        t0 = time.perf_counter()
+        for i in churn_rng.sample(range(MANAGER_PODS), MANAGER_CHURN):
+            meta = pods[i]["metadata"]
+            obj = cluster.get(pod_gvk, meta["name"], meta["namespace"])
+            old = obj["metadata"].get("labels") or {}
+            new = old
+            while new == old:
+                new = {k: "v" for k in label_pool
+                       if churn_rng.random() < 0.35}
+            obj["metadata"]["labels"] = new
+            changed.append(cluster.update(obj))
+        wait_until(lambda: added[0] >= before + MANAGER_CHURN, "the churn")
+        churn_sync_s = time.perf_counter() - t0
+        quiet(mgr, added)
+        if added[0] != before + MANAGER_CHURN:
+            fail(f"manager: {added[0] - before} add_data calls for "
+                 f"{MANAGER_CHURN} relabelled pods")
+        for o in changed:
+            direct.add_data(cluster.get(pod_gvk, o["metadata"]["name"],
+                                        o["metadata"]["namespace"]))
+        k4 = K4Calls(scatter)
+        k5_calls: list = []
+        orig_k5 = ir_eval.delta_mask
+        reset_counts(fns)
+        k4.install()
+        ir_eval.delta_mask = recording(orig_k5, k5_calls)
+        x = drv.executor
+        evals0 = (x.mask_evals, x.delta_evals)
+        try:
+            churned = mgr.audit.audit_once()
+            churn_counts = launch_counts(fns)
+        finally:
+            k4.restore()
+            ir_eval.delta_mask = orig_k5
+        d_mask, d_delta = x.mask_evals - evals0[0], x.delta_evals - evals0[1]
+        if churn_counts["K1"] or d_mask or churn_counts["K5"] <= 0 \
+                or max(churn_counts["K4"], churn_counts["K4m"]) <= 0:
+            fail(f"manager: the churned audit_once did not take the delta "
+                 f"plan: launches {churn_counts}, mask_evals {d_mask}, "
+                 f"delta_evals {d_delta}")
+        k4_batches = [a[0] for a, _ in k4.many]
+        n_k4, errs["K4"] = k4.check("the manager's churned sweep")
+        errs["K5"] = 0.0
+        for (program, d, viol_old, rows), out in k5_calls:
+            want = ex._delta_mask(program, d, viol_old, rows)
+            if not torch.equal(out, want):
+                fail("manager: K5 mismatch on a churned kind")
+            errs["K5"] = max(errs["K5"], max_err(out, want))
+        check_statuses("churned audit")
+        print(f"phase manager churn: {MANAGER_CHURN} pods relabelled through"
+              f" cluster.update and synced in {churn_sync_s:.4f}s; churned "
+              f"audit_once eval {churned['eval_seconds']:.4f}s write "
+              f"{churned['write_seconds']:.4f}s total "
+              f"{churned['total_seconds']:.4f}s, launches "
+              f"{ {k: v for k, v in churn_counts.items() if v} }, "
+              f"delta_evals {d_delta}, mask_evals {d_mask}; statuses equal "
+              f"the direct client's", flush=True)
+
+        # -- 4. admission over HTTP
+        port = mgr.webhook.port
+        reqs = manager_reviews()
+        answers = oracle.result()[3]
+        if answers is None or len(answers) != len(reqs):
+            fail("manager: the oracle process gave no manager answers")
+
+        def check_answers(got, lo: int, what: str) -> None:
+            have = [response_digest(r) for r in got]
+            if have != answers[lo:lo + len(have)]:
+                bad = next(i for i, (a, b) in enumerate(
+                    zip(have, answers[lo:])) if a != b)
+                fail(f"manager {what}: review {lo + bad} answers "
+                     f"{got[bad]['status']} unlike the per-review oracle")
+
+        saved = torch_driver.REVIEW_BATCH_MIN_EVALS
+        torch_driver.REVIEW_BATCH_MIN_EVALS = 0
+        mgr.handler.batch_mode = "always"
+        batches0 = drv.metrics.counter("review_batches_device").value
+        # the review batch's K1 variants (a mini table of bucket(8) rows)
+        # compile once, before the timed posts: a compile inside a
+        # request could outlast the submit timeout
+        t0 = time.perf_counter()
+        mgr.client.review_batch(reqs[:MANAGER_THREADS])
+        warm_rb_s = time.perf_counter() - t0
+        k1r_calls, k3r_calls = [], []
+        orig = (ir_eval.eval_mask, dfa.dfa_table)
+        ir_eval.eval_mask = recording(orig[0], k1r_calls)
+        dfa.dfa_table = recording(orig[1], k3r_calls)
+        try:
+            got, lat, wall, errors = post_all(port, reqs[:MANAGER_REVIEWS])
+        finally:
+            rb_counts = {"K1r": ir_eval.eval_mask.launches,
+                         "K3r": dfa.dfa_table.launches}
+            ir_eval.eval_mask, dfa.dfa_table = orig
+        n_batches = drv.metrics.counter("review_batches_device").value \
+            - batches0 - 1
+        errs["K1r"] = errs["K3r"] = 0.0
+        for (program, d), out in k1r_calls:
+            want = ex._eval_mask(program, d)
+            if not torch.equal(out, want):
+                fail("manager: K1 mismatch on a review batch")
+            errs["K1r"] = max(errs["K1r"], max_err(out, want))
+        for ins, out in k3r_calls:
+            want = dfa.dfa_table_plain(*ins)
+            if not torch.equal(out, want):
+                fail("manager: K3 mismatch on a review batch")
+            errs["K3r"] = max(errs["K3r"], max_err(out, want))
+        if errors:
+            fail(f"manager: admission requests failed: {errors[:3]}")
+        check_answers(got, 0, "batched admission")
+        if min(rb_counts.values()) <= 0 or n_batches <= 0:
+            fail(f"manager: the batched admissions did not run K1 and K3 on "
+                 f"the card: launches {rb_counts}, batches {n_batches}")
+        denied = sum(not r["allowed"] for r in got)
+        print(f"phase manager admission: {MANAGER_REVIEWS} reviews POSTed "
+              f"from {MANAGER_THREADS} threads (batch_mode always) in "
+              f"{wall:.4f}s = {MANAGER_REVIEWS / wall:.1f} reviews/s, latency"
+              f" p50 {quantile(lat, 0.5) * 1e3:.2f} ms p99 "
+              f"{quantile(lat, 0.99) * 1e3:.2f} ms; {n_batches} device "
+              f"batches (after one warm batch of {MANAGER_THREADS} "
+              f"{warm_rb_s:.4f}s), launches {rb_counts}; {denied} denied; "
+              f"every answer equals the per-review oracle", flush=True)
+        torch_driver.REVIEW_BATCH_MIN_EVALS = saved
+        mgr.handler.batch_mode = "auto"
+        reset_counts(fns)
+        batches0 = drv.metrics.counter("review_batches_device").value
+        got, lat, wall, errors = post_all(port, reqs[MANAGER_REVIEWS:])
+        auto_k1 = launch_counts(fns)["K1"]
+        if errors:
+            fail(f"manager: admission requests failed: {errors[:3]}")
+        check_answers(got, MANAGER_REVIEWS, "auto admission")
+        if auto_k1 or drv.metrics.counter("review_batches_device").value \
+                != batches0:
+            fail(f"manager: the shipped 'auto' mode launched K1 {auto_k1} "
+                 f"times for {MANAGER_AUTO} reviews")
+        print(f"phase manager admission auto: {MANAGER_AUTO} reviews with "
+              f"the shipped batch_mode auto (REVIEW_BATCH_MIN_EVALS "
+              f"{saved}: {len(constraints)} x {mgr.batcher.max_batch} pairs "
+              f"stay scalar) in {wall:.4f}s = {MANAGER_AUTO / wall:.1f} "
+              f"reviews/s, p50 {quantile(lat, 0.5) * 1e3:.2f} ms p99 "
+              f"{quantile(lat, 0.99) * 1e3:.2f} ms; no K1 launch; every "
+              f"answer equals the per-review oracle", flush=True)
+
+        # -- 5. the other endpoints
+        base = f"http://127.0.0.1:{port}"
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        with urllib.request.urlopen(f"{base}/debug/trace", timeout=60) as r:
+            spans = {e["name"] for e in json.loads(r.read())["traceEvents"]}
+        with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if "gatekeeper_admission_requests" not in metrics or \
+                not {"admission.request", "audit.cycle"} <= spans or \
+                health != {"state": "healthy", "backend": str(drv.device)}:
+            fail(f"manager endpoints: metrics "
+                 f"{'gatekeeper_admission_requests' in metrics}, spans "
+                 f"{sorted(spans)[:8]}, healthz {health}")
+        direct.driver.wait_delta_warm()     # the direct client's own warm
+        t0 = time.perf_counter()
+        mgr.stop()
+        stopped = True
+        stop_s = time.perf_counter() - t0
+        left = [t.name for t in threading.enumerate()
+                if t not in earlier and t.is_alive()
+                and t.name in ("reconcile-worker", "admission-batcher",
+                               "webhook-server", "audit-manager",
+                               "watch-roster-poll", "audit-warmup",
+                               "delta-warmup", "ingest-prewarm")]
+        if left:
+            fail(f"manager: threads still alive after stop(): {left}")
+        print(f"phase manager endpoints: /metrics {len(metrics)} bytes, "
+              f"/debug/trace spans include admission.request and "
+              f"audit.cycle, /healthz {health}; stop() joined every thread "
+              f"in {stop_s:.4f}s", flush=True)
+    finally:
+        if not stopped:
+            mgr.stop()
+
+    # -- 6. each kernel of the path timed at the phase's own inputs (the
+    # manager is stopped: no other thread launches during a graph
+    # capture); one entry a kernel in the kernels line
+    join_warms()
+
+    def k1_family(calls) -> dict:
+        """K1 per call and device-only and its plain version, mean over
+        the distinct programs of ``calls``, with the bound."""
+        t = collections.Counter()
+        by, seen = "bytes", {}
+        for (program, d), _out in calls:
+            seen.setdefault(id(program), (program, d))
+        for program, d in seen.values():
+            bms, by = k1_bound_of(ex, ir_eval, program, d)
+            t["bound_ms"] += bms / len(seen)
+            for key, v in k1_times(lambda: ir_eval.eval_mask(program, d),
+                                   lambda: ex._eval_mask(program,
+                                                         d)).items():
+                t[key] += v / len(seen)
+        return {**t, "bound_by": by, "library_ms": None}
+
+    rec["K1mgr"] = {"launches": cold_counts["K1"], "max_abs_err": errs["K1"],
+                    **k1_family(k1_calls)}
+    k2 = collections.Counter()
+    for (viol, rnk, k), _out in k2_calls:
+        nums = k2_numbers(topk, viol, rnk, k)
+        k2_by = nums.pop("bound_by")
+        k2.update({key: v / len(k2_calls) for key, v in nums.items()})
+    rec["K2mgr"] = {"launches": cold_counts["K2"], "max_abs_err": errs["K2"],
+                    **k2, "bound_by": k2_by}
+    rec["K3mgr"] = {"launches": cold_counts["K3"], "max_abs_err": errs["K3"],
+                    **k3_numbers(dfa, k3_calls[0][0])}
+    rec["K4mgr"] = {"launches": churn_counts["K4"], "max_abs_err": errs["K4"],
+                    **k4m_numbers(scatter, k4_batches)}
+    rec["K5mgr"] = {"launches": churn_counts["K5"], "max_abs_err": errs["K5"],
+                    **k5_numbers(ex, ir_eval, [a for a, _ in k5_calls])}
+    rec["K1rmgr"] = {"launches": rb_counts["K1r"],
+                     "max_abs_err": errs["K1r"], **k1_family(k1r_calls)}
+    rec["K3rmgr"] = {"launches": rb_counts["K3r"],
+                     "max_abs_err": errs["K3r"],
+                     **k3_numbers(dfa, k3r_calls[0][0])}
+    print(f"phase manager kernels: each equal to its plain version at the "
+          f"path's own inputs: K1 {k1_text(rec['K1mgr'])} (mean over the "
+          f"cold sweep's kinds); K2 {k2_text(rec['K2mgr'])}; K3 "
+          f"{k3_text(dfa, k3_calls[0][0], rec['K3mgr'])}; K4 batched "
+          f"{rec['K4mgr']['ms']:.4f} ms, device "
+          f"{rec['K4mgr']['device_ms']:.4f} (bound "
+          f"{rec['K4mgr']['bound_ms']:.6f}) over {n_k4} jobs in "
+          f"{len(k4_batches)} calls; K5 {k1_text(rec['K5mgr'])}; K1r "
+          f"{k1_text(rec['K1rmgr'])} (mean over the batch's kinds); K3r "
+          f"{k3_text(dfa, k3r_calls[0][0], rec['K3rmgr'])}", flush=True)
+    del direct, mgr, k1_calls, k2_calls, k3_calls, k5_calls, k1r_calls, \
+        k3r_calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
@@ -2973,6 +3610,10 @@ def main() -> int:
                       help="build K3 alone and run only the admission "
                       "phase (review batches, the library batch, K1 and K3 "
                       "at the review shapes, the micro-batcher)")
+    only.add_argument("--manager-only", action="store_true",
+                      help="build K2, K3 and K4 and run only the manager "
+                      "phase (the manager process: controllers, audit "
+                      "manager, webhook over HTTP)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3008,7 +3649,8 @@ def main() -> int:
     secs = build.build(("topk",) if args.k2_only else ("dfa",)
                        if args.k1_only or args.k3_only or args.admission_only
                        else ("devdelta", "invjoin")
-                       if args.k6k7_only else build.KERNELS)
+                       if args.k6k7_only else ("topk", "dfa", "scatter")
+                       if args.manager_only else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
           f"{ {k: round(v, 3) for k, v in secs.items()} }, triton "
@@ -3018,9 +3660,10 @@ def main() -> int:
     rec: dict[str, dict] = {}
     # the admission phase's per-review answers, in a process of their own
     # while the card runs the phases before it
-    answers = AdmissionOracle() if args.admission_only or not (
-        args.k1_only or args.k2_only or args.k3_only or args.k6k7_only) \
-        else None
+    answers = AdmissionOracle(("admission",)) if args.admission_only \
+        else AdmissionOracle(("manager",)) if args.manager_only \
+        else None if (args.k1_only or args.k2_only or args.k3_only
+                      or args.k6k7_only) else AdmissionOracle()
     try:
         return run_phases(args, card, dev, rec, answers)
     finally:
@@ -3068,6 +3711,10 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         return 0
     if args.admission_only:
         admission_phase(rec, fns, oracle=answers)
+        print(card, flush=True)
+        return 0
+    if args.manager_only:
+        manager_phase(rec, fns, oracle=answers)
         print(card, flush=True)
         return 0
 
@@ -3582,7 +4229,10 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     # ---- 10. admission: the review micro-batch on the card
     admission_phase(rec, fns, oracle=answers)
 
-    # ---- 11. kernels line, card line, final line
+    # ---- 11. manager: the process on the card, through its entry points
+    manager_phase(rec, fns, oracle=answers)
+
+    # ---- 12. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -3623,10 +4273,32 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
                 "gatekeeper_tpu/engine/veval.py:294"),
         "K3r": ("dfa_review_batch", "cuda", "gatekeeper_tpu_torch/csrc/dfa.cu",
                 "gatekeeper_tpu/engine/veval.py:227"),
+        "K1mgr": ("ir_eval_manager_audit", "triton",
+                  "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                  "gatekeeper_tpu/engine/veval.py:294"),
+        "K2mgr": ("topk_manager_audit", "cuda",
+                  "gatekeeper_tpu_torch/csrc/topk.cu",
+                  "gatekeeper_tpu/engine/veval.py:660"),
+        "K3mgr": ("dfa_manager_audit", "cuda",
+                  "gatekeeper_tpu_torch/csrc/dfa.cu",
+                  "gatekeeper_tpu/engine/veval.py:227"),
+        "K4mgr": ("scatter_rows_many_manager_churn", "cuda",
+                  "gatekeeper_tpu_torch/csrc/scatter.cu",
+                  "gatekeeper_tpu/engine/veval.py:1049"),
+        "K5mgr": ("ir_eval_delta_manager_churn", "triton",
+                  "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                  "gatekeeper_tpu/engine/veval.py:1579"),
+        "K1rmgr": ("ir_eval_manager_admission", "triton",
+                   "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                   "gatekeeper_tpu/engine/veval.py:294"),
+        "K3rmgr": ("dfa_manager_admission", "cuda",
+                   "gatekeeper_tpu_torch/csrc/dfa.cu",
+                   "gatekeeper_tpu/engine/veval.py:227"),
     }
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K1bl", "K2b",
-                "K3b", "K6", "K7", "K8g", "K8s", "K1r", "K3r"):
+                "K3b", "K6", "K7", "K8g", "K8s", "K1r", "K3r", "K1mgr",
+                "K2mgr", "K3mgr", "K4mgr", "K5mgr", "K1rmgr", "K3rmgr"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

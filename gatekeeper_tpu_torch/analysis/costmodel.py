@@ -24,8 +24,8 @@ The footprint (:mod:`.footprint`) and the partition plan
 conjuncts (:func:`node_axes`, :func:`reachable_nodes`); the devpages
 sweep prices the inventory join's input records with
 :func:`scatter_worthwhile`.  The install-time cost budget
-(``budget_mode``/``budget_units``) is not part of the port yet: its
-consumer is the policy-set admission gate.
+(:func:`budget_mode`, :func:`budget_units`) gates templates in the
+policy-set vet (analysis/policyset.py ``vet_template_cost``).
 
 Static unknowns are priced as documented upper bounds: element-axis
 width and per-constraint set length default to the minimum shape
@@ -385,3 +385,26 @@ def effective_scale() -> float:
     first ones, compiling cold."""
     s = current_scale()
     return s if s > 0.0 else prior_scale()
+
+
+# ---------------------------------------------------------------------------
+# install-time budget gate
+
+
+def budget_mode() -> str:
+    """GATEKEEPER_COST_BUDGET: 'warn' (default) records a warning,
+    'strict' rejects the template, 'off' disables the gate."""
+    mode = os.environ.get("GATEKEEPER_COST_BUDGET", "warn")
+    return mode if mode in ("warn", "strict", "off") else "warn"
+
+
+def budget_units() -> float:
+    """Per-template abstract-cost budget at REF_ROWS scale
+    (GATEKEEPER_COST_BUDGET_UNITS).  The default admits every library
+    template with ample headroom while still catching pathological
+    blowups (quadratic element-axis products, runaway table fan-out)."""
+    try:
+        return float(os.environ.get("GATEKEEPER_COST_BUDGET_UNITS",
+                                    "2e9"))
+    except ValueError:
+        return 2e9

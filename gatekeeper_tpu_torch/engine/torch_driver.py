@@ -79,7 +79,7 @@ from gatekeeper_tpu_torch.engine.executor import (BG_SHUTDOWN,
                                                   spawn_bg)
 from gatekeeper_tpu_torch.ir.lower import CannotLower, lower_template
 from gatekeeper_tpu_torch.ir.prep import build_bindings
-from gatekeeper_tpu_torch.rego.values import freeze
+from gatekeeper_tpu_torch.rego.values import Obj, freeze
 from gatekeeper_tpu_torch.utils.metrics import Metrics
 
 
@@ -173,6 +173,22 @@ which no deadline fit sees."""
 DEFAULT_PREWARM_CAP = 20
 """Cap assumed for prewarmed audit variants: the audit manager's
 per-constraint violation cap (Gatekeeper's pkg/audit/manager.go:35)."""
+
+
+def _semantic_fields(frozen) -> tuple:
+    """What of a frozen constraint document can move its verdicts: its
+    ``spec`` (match criteria, parameters, enforcement action) and its
+    labels and annotations, the fields the upstream constraint
+    framework's ``SemanticEqual`` compares.  ``status`` and the
+    server-side metadata (``resourceVersion``, ``managedFields``) are
+    outside it: what the audit manager's status writes and the
+    controllers' byPod reports change (see ROADMAP, Queue C)."""
+    if not isinstance(frozen, Obj):
+        return (frozen,)
+    meta = frozen.get("metadata")
+    if not isinstance(meta, Obj):
+        return (frozen.get("spec"), meta)
+    return (frozen.get("spec"), meta.get("labels"), meta.get("annotations"))
 
 
 class TorchTargetState(TargetState):
@@ -694,8 +710,26 @@ class TorchDriver(LocalDriver):
     @locked
     def put_constraint(self, target: str, kind: str, name: str,
                        constraint: dict) -> None:
+        """Install (or re-install) a constraint; the kind's constraint
+        version moves unless the new document's spec, labels and
+        annotations equal the installed snapshot's
+        (:func:`_semantic_fields`).  The snapshot is the frozen copy
+        taken at the previous put, so an edit made in place to the
+        installed dict still shows.  The reference bumps on every put,
+        so in its manager process every audit's status writes
+        (``auditTimestamp``, reconciled back into the engine by the
+        constraint controller) make the next sweep a full one; here the
+        next sweep keeps the churn delta plan.  The new document is
+        installed either way, and cached formatted results carry it
+        (:meth:`_pair_results`)."""
+        st = self._state(target)
+        old = st._frozen_constraints.get((kind, name))
         super().put_constraint(target, kind, name, constraint)
-        self._state(target).bump(kind)
+        if old is not None and _semantic_fields(old) == _semantic_fields(
+                st._frozen_constraints[(kind, name)]):
+            self.metrics.counter("constraint_status_only_puts").inc()
+            return
+        st.bump(kind)
 
     @locked
     def delete_constraint(self, target: str, kind: str, name: str) -> None:
@@ -1912,8 +1946,10 @@ class TorchDriver(LocalDriver):
         else:
             self.metrics.counter("format_memo_hits").inc()
         # fresh copies (own metadata dict too): downstream sets
-        # .resource and owns result.metadata
-        return [dataclasses.replace(r, metadata=dict(r.metadata))
+        # .resource and owns result.metadata.  They carry the installed
+        # constraint document: a status-only re-put keeps the cache
+        return [dataclasses.replace(r, metadata=dict(r.metadata),
+                                    constraint=c)
                 for r in ent[1]]
 
     def _row_review(self, st, handler, row, rcache):

@@ -40,23 +40,37 @@ def make_resources(n, rng):
     return out
 
 
+def north_star_templates() -> list[dict]:
+    """The north-star ConstraintTemplate documents, one a kind."""
+    return [template_doc(kind, LIBRARY[kind][0]) for kind in KINDS]
+
+
+def north_star_constraints(rng, c_per_kind: int = C_PER_KIND) -> list[dict]:
+    """3 x ``c_per_kind`` constraint documents with parameters drawn from
+    ``rng``, in the order ``setup_north_star`` installs them."""
+    out = []
+    for j in range(c_per_kind):
+        out.append(constraint_doc(
+            "K8sRequiredLabels", f"labels-{j:03d}",
+            {"labels": rng.sample([f"l{x}" for x in range(10)], k=2)}))
+        out.append(constraint_doc(
+            "K8sAllowedRepos", f"repos-{j:03d}",
+            {"repos": rng.sample(["gcr.io/", "docker.io/", "quay.io/",
+                                  "ghcr.io/"], k=2)}))
+        out.append(constraint_doc(
+            "K8sContainerLimits", f"cpu-{j:03d}",
+            {"cpu": rng.choice(["500m", "1", "2"]),
+             "memory": rng.choice(["512Mi", "2Gi"])}))
+    return out
+
+
 def setup_north_star(driver, resources, rng, c_per_kind: int = C_PER_KIND):
     """A client over ``driver`` with the north-star templates, 3 x
     ``c_per_kind`` constraints drawn from ``rng``, and ``resources``."""
     client = Backend(driver).new_client([K8sValidationTarget()])
-    for kind in KINDS:
-        client.add_template(template_doc(kind, LIBRARY[kind][0]))
-    for j in range(c_per_kind):
-        client.add_constraint(constraint_doc(
-            "K8sRequiredLabels", f"labels-{j:03d}",
-            {"labels": rng.sample([f"l{x}" for x in range(10)], k=2)}))
-        client.add_constraint(constraint_doc(
-            "K8sAllowedRepos", f"repos-{j:03d}",
-            {"repos": rng.sample(["gcr.io/", "docker.io/", "quay.io/",
-                                  "ghcr.io/"], k=2)}))
-        client.add_constraint(constraint_doc(
-            "K8sContainerLimits", f"cpu-{j:03d}",
-            {"cpu": rng.choice(["500m", "1", "2"]),
-             "memory": rng.choice(["512Mi", "2Gi"])}))
+    for doc in north_star_templates():
+        client.add_template(doc)
+    for doc in north_star_constraints(rng, c_per_kind):
+        client.add_constraint(doc)
     client.add_data_batch(resources)
     return client

@@ -1,4 +1,4 @@
-"""Admission: the micro-batcher that coalesces concurrent reviews into
-one engine pass (:mod:`.batcher`).  The JAX package's validation
-handler, HTTPS server, overload controller and bootstrap are not part
-of the port yet."""
+"""Admission: the validation handler (:mod:`.policy`), its HTTP server
+(:mod:`.server`), the brownout ladder (:mod:`.overload`), the
+micro-batcher that coalesces concurrent reviews into one engine pass
+(:mod:`.batcher`) and the in-cluster registration (:mod:`.bootstrap`)."""

@@ -56,7 +56,27 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "gatekeeper_tpu_torch.enforce.devpages",
                 "gatekeeper_tpu_torch.obs.flightrecorder",
                 "gatekeeper_tpu_torch.convert",
-                "gatekeeper_tpu_torch.utils.device"):
+                "gatekeeper_tpu_torch.utils.device",
+                "gatekeeper_tpu_torch.api.config",
+                "gatekeeper_tpu_torch.cluster.protocol",
+                "gatekeeper_tpu_torch.cluster.fake",
+                "gatekeeper_tpu_torch.utils.finalizers",
+                "gatekeeper_tpu_torch.utils.ha_status",
+                "gatekeeper_tpu_torch.utils.compile_cache",
+                "gatekeeper_tpu_torch.controllers.runtime",
+                "gatekeeper_tpu_torch.controllers.sync",
+                "gatekeeper_tpu_torch.controllers.config",
+                "gatekeeper_tpu_torch.controllers.constraint",
+                "gatekeeper_tpu_torch.controllers.constrainttemplate",
+                "gatekeeper_tpu_torch.controllers.registry",
+                "gatekeeper_tpu_torch.watch.manager",
+                "gatekeeper_tpu_torch.analysis.policyset",
+                "gatekeeper_tpu_torch.webhook.policy",
+                "gatekeeper_tpu_torch.webhook.server",
+                "gatekeeper_tpu_torch.webhook.overload",
+                "gatekeeper_tpu_torch.webhook.bootstrap",
+                "gatekeeper_tpu_torch.audit.manager",
+                "gatekeeper_tpu_torch.cmd.manager"):
         assert mod in rep["modules"]
 
 
