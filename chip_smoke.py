@@ -3,7 +3,7 @@ against its plain PyTorch version.
 
     python3 chip_smoke.py [--resources N] [--k2-only | --k1-only |
                            --k6k7-only | --k3-only | --admission-only |
-                           --manager-only]
+                           --manager-only | --reactor-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -28,7 +28,8 @@ plan (branch, stored width, ids and threads a block, blocks) and the
 live bytes.
 ``--admission-only`` builds K3 alone and runs only phase 10, the
 admission micro-batch.  ``--manager-only`` builds K2, K3 and K4 and runs
-only phase 11, the manager process.
+only phase 11, the manager process.  ``--reactor-only`` builds K2, K3,
+K4 and K6 and runs only phase 12, the event reactor.
 
 Every TorchDriver starts a background warm-up of its kinds' churn-delta
 variants (K5) after its first capped legacy sweep, and a batch ingest of
@@ -104,7 +105,7 @@ Phases (each prints one line of its numbers):
      against its plain version on random masks (overflow, permuted and
      out-of-range page tables, ragged sizes) and at [128, 131072] on
      the main phase's steady mask against its first churned mask; the
-     cold ledger build timed at 10,000 pods; then 100,000 pods x 3
+     cold ledger build timed at 10,000 pods; then 66,000 pods x 3
      constraints (the north-star templates, one constraint each) on
      driver A (GATEKEEPER_PAGES=on, GATEKEEPER_DEVPAGES=on), driver B
      (GATEKEEPER_PAGES=off, the oracle) and driver C (GATEKEEPER_PAGES=on,
@@ -139,7 +140,7 @@ Phases (each prints one line of its numbers):
      the split
   9. devpages ingress — the inventory-join kind (B7): K8sUniqueIngressHost
      alone, one constraint on Ingress (extensions, networking.k8s.io),
-     over 100,000 pods and 2,000 Ingresses in 200 namespaces (50 hosts
+     over 66,000 pods and 2,000 Ingresses in 200 namespaces (50 hosts
      shared by two, one same-name pair, the rest unique) on driver A
      (pages and devpages on), B (GATEKEEPER_PAGES=off) and
      TorchDriver(device="cpu"): a cold sweep and 3 rounds that delete 20
@@ -154,14 +155,14 @@ Phases (each prints one line of its numbers):
      kind's delta high-water and device bindings within its certificate
  10. admission — the review micro-batch (query_review_batch): 200
      constraints (K8sRequiredLabels and K8sAllowedRepos, 100 each) over
-     4,096 make_resources CREATE reviews; the scalar single-thread rate
+     2,048 make_resources CREATE reviews; the scalar single-thread rate
      over 1,024 query_review calls (4 chunks); every review's per-review
      answer (and the library batch's) from an oracle process started with
      the run (spawned, TorchDriver(device="cpu"), joined or stopped before
      the script ends), equal to those 1,024; with both routing thresholds
-     at 0, per batch size (64, 256, 1,024, 4,096) one untimed batch (its
+     at 0, per batch size (64, 256, 1,024, 2,048) one untimed batch (its
      seconds and the Triton variants it compiles) and 4 timed batches (2
-     at 1,024, 1 at 4,096: reviews/s, K1 and K3 launches, h2d bytes), each
+     at 1,024, 1 at 2,048: reviews/s, K1 and K3 launches, h2d bytes), each
      equal to per-review query_review, no variant compiled by a timed
      batch; the crossover (the smallest size whose slowest timed batch
      beats the fastest scalar chunk by more than the chunks' spread,
@@ -171,7 +172,7 @@ Phases (each prints one line of its numbers):
      prior); one batch of 1,024 make_mixed reviews (CREATE/UPDATE/DELETE)
      under the whole library, equal to per-review query_review, with K1
      and K3 launched; K1 timed at the review batch's shapes (B 1,024 and
-     4,096) per call and device-only against its plain version and bound,
+     2,048) per call and device-only against its plain version and bound,
      K3 at the library batch's; a MicroBatcher over client.review_batch
      serving 256 submits from 8 threads, every response equal to
      query_review, every batch on the device pass
@@ -180,13 +181,13 @@ Phases (each prints one line of its numbers):
      "3600"])``, its TorchDriver on the card, ``start()``): the sync
      Config, the 3 north-star templates and K8sImageDigests, 202
      constraints (the north-star draws and one K8sImageDigests), 50
-     namespaces and 20,000 make_resources pods created as cluster
+     namespaces and 10,000 make_resources pods created as cluster
      objects and synced by the controllers (objects/s); a cold and a
      steady ``audit.audit_once()`` whose written statuses equal a direct
      ``Client.audit(limit_per_constraint=20)`` on a second TorchDriver fed
      the cluster's stored objects (K1, K2, K3 launched); 200 pods
      relabelled through ``cluster.update`` and a churned ``audit_once``
-     with K4 and K5 launched and no full K1, checked the same way; 512
+     with K4 and K5 launched and no full K1, checked the same way; 256
      CREATE reviews POSTed to /v1/admit from 8 threads with batch_mode
      "always" (query_review_batch: K1r, K3r) and 64 with the shipped
      "auto" (no K1 launch), every answer equal to the oracle process's
@@ -195,10 +196,34 @@ Phases (each prints one line of its numbers):
      /healthz; ``stop()`` joins every thread; then the 7 kernels at the
      phase's own recorded inputs against their plain versions (checked
      as they were recorded) and timed per call and device-only
- 12. the kernels JSON line, the card line, and the final JSON line.
-Every phase but devpages sweeps with GATEKEEPER_PAGES=off: they measure
-the legacy sweep and assert its launch counts, and the port, like the
-reference, defaults to the paged route.
+ 12. reactor — the event reactor (enforce/reactor.py) under the
+     manager's defaults: ``Manager`` from ``parse_args(["--port", "0",
+     "--audit-interval", "3600", ...])`` with GATEKEEPER_PAGES unset (on)
+     and GATEKEEPER_DEVPAGES=on; the manager phase's 202 constraints and
+     REACTOR_PODS (2,000; ``--reactor-pods``) make_resources pods (every
+     20th with an initContainer) through the controllers, pumped on the
+     script's thread; a cold ``audit_once`` (the ledger's cold build) whose
+     statuses equal a direct capped audit (a second TorchDriver, forced
+     full sweeps: the legacy route) of the stored objects; then
+     ``start()``, and 200 ``cluster.update``s in bursts of 1, 10 and 50
+     that add or remove an initContainer of an image no
+     K8sAllowedRepos constraint allows: each must bring its 67 appear or
+     clear ledger events (one a K8sAllowedRepos constraint) within
+     REACTOR_EVENT_S, and no other event may come (event-to-verdict
+     latency p50/p99/max per burst size, updates/s); over that window
+     K4, K3, K1 and K6 launched, one K1 (the devpaged route's full mask)
+     for each K6, no K5 and no Triton compile, every recorded launch
+     equal to its plain version; the touched pods' ledger verdicts equal
+     an uncapped audit of them (TorchDriver(device="cpu")), the served
+     capped results and a following ``audit_once``'s statuses equal the
+     direct audit; one annotation update with ``watch_gap`` armed: a
+     rung-2 resync that emits no event, back to live;
+     /debug/violations over HTTP with the reactor live; ``stop()``; K4,
+     K3, K1 and K6 timed at the window's own inputs
+ 13. the kernels JSON line, the card line, and the final JSON line.
+Every phase but devpages and reactor sweeps with GATEKEEPER_PAGES=off:
+they measure the legacy sweep and assert its launch counts, and the
+port, like the reference, defaults to the paged route.
 Any mismatch or exception exits nonzero before the final line.
 """
 
@@ -1625,7 +1650,8 @@ def k6k7_only(devdelta, invjoin, dev) -> None:
           f"{n['bound_by']})", flush=True)
 
 
-DEVPAGES_PODS = 100_000
+# past 65,536 pods, so the masks keep the main phase's R_pad (131,072)
+DEVPAGES_PODS = 66_000
 DEVPAGES_PROBE_PODS = 10_000
 DEVPAGES_C_ROUNDS = 1           # churned rounds that also sweep driver C
 
@@ -2249,7 +2275,7 @@ def split_text(split: dict, wall: float) -> str:
             f"(bindings, transfers, device, stream) {rest:.4f}s")
 
 
-INGRESS_PODS = 100_000
+INGRESS_PODS = 66_000            # R_pad 131,072, as DEVPAGES_PODS
 INGRESS_COUNT = 2_000
 INGRESS_NAMESPACES = 200
 INGRESS_SHARED_HOSTS = 50
@@ -2542,7 +2568,7 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
 
 
 
-ADMISSION_SIZES = (64, 256, 1024, 4096)
+ADMISSION_SIZES = (64, 256, 1024, 2048)
 ADMISSION_KINDS = ("K8sRequiredLabels", "K8sAllowedRepos")
 ADMISSION_C_PER_KIND = 100
 ADMISSION_SCALAR = 1024
@@ -2709,7 +2735,7 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     scalar single-thread rate over ADMISSION_SCALAR ``query_review``
     calls, timed in 4 chunks; then, with both routing thresholds at 0,
     per batch size one untimed batch (the Triton variants it compiles
-    and its seconds) and 4 timed batches (2 at 1,024, 1 at 4,096):
+    and its seconds) and 4 timed batches (2 at 1,024, 1 at 2,048):
     reviews per second, K1 and K3 launches and h2d bytes per batch.
     Every batch equals per-review ``query_review`` (the first
     ADMISSION_SCALAR answers from the timed calls, all of them from
@@ -2722,7 +2748,7 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     one batch of ADMISSION_LIBRARY make_mixed reviews (CREATE, UPDATE
     and DELETE) under the whole library (K3, the operation gate, the
     inventory-join gate), K1 timed at the review batch's shape (B =
-    1,024 and 4,096) and K3 at the library batch's, and a MicroBatcher
+    1,024 and 2,048) and K3 at the library batch's, and a MicroBatcher
     serving ADMISSION_SUBMITS concurrent submits from ADMISSION_THREADS
     threads through ``client.review_batch``."""
     from gatekeeper_tpu_torch.analysis import costmodel
@@ -2787,11 +2813,11 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     path_counts = collections.Counter()
     for B in ADMISSION_SIZES:
         batch = reviews[:B]
-        # the first batch of 1,024 and 4,096 keeps K1's inputs, for its
+        # the first batch of 1,024 and 2,048 keeps K1's inputs, for its
         # times at the review batch's shape below
         store: list = []
         orig_k1 = ir_eval.eval_mask
-        if B in (1024, 4096):
+        if B >= 1024:
             ir_eval.eval_mask = recording(orig_k1, store)
         v0 = triton_variants(ir_eval)
         try:
@@ -2804,9 +2830,9 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
             calls[B] = [args for args, _res in store]
         v1 = triton_variants(ir_eval)
         check(got, 0, f"first batch of {B}")
-        # 4 timed batches, 2 at 1,024 and 1 at 4,096 (about a minute of
-        # host confirmation each there): the script's time limit
-        reps = 4 if B < 1024 else 2 if B < 4096 else 1
+        # 4 timed batches, 2 at 1,024 and 1 at 2,048 (about half a
+        # minute of host confirmation each there): the script's time limit
+        reps = 4 if B < 1024 else 2 if B < 2048 else 1
         times, h2d = [], []
         reset_counts(fns)
         for _ in range(reps):
@@ -3006,11 +3032,11 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
           f"equals query_review", flush=True)
 
 
-MANAGER_PODS = 20_000
+MANAGER_PODS = 10_000
 MANAGER_NAMESPACES = 50
 MANAGER_SEED = 31
 MANAGER_CHURN = 200
-MANAGER_REVIEWS = 512
+MANAGER_REVIEWS = 256
 MANAGER_AUTO = 64
 MANAGER_THREADS = 8
 MANAGER_DIGESTS = "K8sImageDigests"
@@ -3118,14 +3144,20 @@ def constraint_statuses(cluster, kinds) -> dict:
 STATUS_MSG_SIZE = 256    # Gatekeeper's status message cap (audit msgSize)
 
 
-def direct_statuses(direct, links) -> dict:
+def direct_statuses(direct, links, full: bool = False,
+                    results=None) -> dict:
     """What the audit manager must have written, built here and not by
-    the manager's code: ``direct``'s capped audit grouped per constraint
+    the manager's code: ``direct``'s capped audit (with ``full`` a forced
+    full sweep: the legacy route, as under GATEKEEPER_PAGES=off; or its
+    ``results`` when the caller already has them) grouped per constraint
     selfLink, at most CAP entries each in result order, each message cut
     to STATUS_MSG_SIZE characters ending in "..."; None for a constraint
     without violations."""
     lists: dict = {}
-    for r in direct.audit(limit_per_constraint=CAP).results():
+    if results is None:
+        results = direct.audit(limit_per_constraint=CAP,
+                               full=full).results()
+    for r in results:
         bucket = lists.setdefault(r.constraint["metadata"]["selfLink"], [])
         if len(bucket) == CAP:
             continue
@@ -3590,6 +3622,485 @@ def manager_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
         k3r_calls
 
 
+REACTOR_PODS = 2_000
+REACTOR_SEED = 41
+REACTOR_INIT_EVERY = 20
+REACTOR_INIT = {"name": "init0", "image": "evil.io/reactor:1"}
+REACTOR_MSG = ("initContainer <init0> has an invalid image repo "
+               "<evil.io/reactor:1>")
+REACTOR_BURSTS = ((1, 25, 25), (10, 3, 2), (50, 1, 1))  # size, adds, removes
+REACTOR_EVENT_S = 60.0
+REACTOR_POLL_S = 0.5
+
+
+def reactor_pods(n: int) -> list[dict]:
+    """``n`` make_resources pods of random.Random(REACTOR_SEED); every
+    REACTOR_INIT_EVERY-th carries REACTOR_INIT as an initContainer, so the
+    cold store already holds the initContainers axis and its strings (an
+    update that adds one lands in the element and string buckets the
+    cold sweep compiled)."""
+    from gatekeeper_tpu_torch.library.north_star import make_resources
+    pods = make_resources(n, random.Random(REACTOR_SEED))
+    for i, p in enumerate(pods):
+        if i % REACTOR_INIT_EVERY == 0:
+            p["spec"]["initContainers"] = [dict(REACTOR_INIT)]
+    return pods
+
+
+def reactor_plan(pods: list) -> tuple[list, int]:
+    """The event window's bursts as [(size, op, [pod index, ...]), ...]
+    and the index of one more pod (the watch_gap step's): for each size
+    of REACTOR_BURSTS its add bursts (REACTOR_INIT added to pods without
+    an initContainer: one appear event a K8sAllowedRepos constraint),
+    then its remove bursts over the first of the same pods (one clear
+    event a constraint), 200 updates in all."""
+    pool = [i for i in range(len(pods)) if i % REACTOR_INIT_EVERY]
+    plan, at = [], 0
+    for size, adds, removes in REACTOR_BURSTS:
+        mine = pool[at:at + size * adds]
+        at += size * adds
+        for b in range(adds):
+            plan.append((size, "add", mine[b * size:(b + 1) * size]))
+        for b in range(removes):
+            plan.append((size, "remove", mine[b * size:(b + 1) * size]))
+    return plan, pool[at]
+
+
+def reactor_ingest(mgr, pods: list) -> dict:
+    """The manager phase's policy set (manager_docs) and ``pods`` (with
+    MANAGER_NAMESPACES namespaces) created as cluster objects and synced
+    by the controllers, pumped to a fixed point on this thread
+    (``plane.run_until_idle``, the manager not started); then the cold
+    ``audit_once`` and the reconciles of its status writes.  Returns the
+    seconds and the cold report."""
+    cfg, templates, constraints = manager_docs()
+    cluster = mgr.cluster
+    t0 = time.perf_counter()
+    cluster.create(copy.deepcopy(cfg))
+    for t in templates:
+        cluster.create(copy.deepcopy(t))
+    mgr.plane.run_until_idle()
+    for c in constraints:
+        cluster.create(copy.deepcopy(c))
+    mgr.plane.run_until_idle()
+    policy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(MANAGER_NAMESPACES):
+        cluster.create({"apiVersion": "v1", "kind": "Namespace",
+                        "metadata": {"name": f"ns{i}"}})
+    for p in pods:
+        cluster.create(copy.deepcopy(p))
+    mgr.plane.run_until_idle()
+    ingest_s = time.perf_counter() - t0
+    cold = mgr.audit.audit_once()
+    mgr.plane.run_until_idle()
+    return {"policy_s": policy_s, "ingest_s": ingest_s, "cold": cold,
+            "constraints": len(constraints), "templates": templates}
+
+
+def ledger_verdicts(led, idents=None) -> list:
+    """The ledger's confirmed verdicts as sorted (kind, constraint,
+    "ns/name", msg), for the resources ``idents`` ((ns, name) pairs) or
+    all."""
+    return sorted((kind, cname, f"{ident[0]}/{ident[1]}", r.msg)
+                  for kind, ent in list(led.entries.items())
+                  for _row, (ident, by_c) in list(ent.rows.items())
+                  if idents is None or tuple(ident) in idents
+                  for cname, rs in by_c.items() for r in rs)
+
+
+def reactor_phase(rec: dict, fns: dict,
+                  n_pods: int = REACTOR_PODS) -> None:
+    """The event reactor on the card (``gatekeeper_tpu_torch.cmd.manager``
+    ``Manager`` with GATEKEEPER_PAGES unset, the default, and
+    GATEKEEPER_DEVPAGES=on, its TorchDriver on the card, webhook on a
+    free port): the manager phase's 202 constraints and ``n_pods`` pods
+    through the controllers; a cold ``audit_once`` whose statuses equal a
+    direct capped audit of the stored objects; the manager started with
+    no sweep due; 200 ``cluster.update``s in bursts of 1, 10 and 50, each
+    adding or removing REACTOR_INIT, whose 67 appear or clear ledger
+    events (one a K8sAllowedRepos constraint) must arrive within
+    REACTOR_EVENT_S and no other event (event-to-verdict latency per
+    burst size); over the window K4, K3, K1 and K6 launched (one K1, the
+    devpaged route's full mask, for each K6), no K5, no Triton compile,
+    every recorded launch equal to its plain version; the touched pods'
+    ledger verdicts equal an uncapped direct audit of them, the served
+    capped results and a following ``audit_once``'s statuses equal the
+    direct capped audit; one annotation update with ``watch_gap`` armed
+    (rung 2, a clean resync: no event), back to live; /debug/violations
+    over HTTP with the reactor live; ``stop()``.  Then K4, K3, K1 and K6
+    timed at the reactor's own inputs."""
+    import urllib.request
+
+    from gatekeeper_tpu_torch.api.config import GVK
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.cmd.manager import Manager, parse_args
+    from gatekeeper_tpu_torch.controllers.constrainttemplate import \
+        TEMPLATE_GVK
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import (devdelta, dfa, ir_eval,
+                                              scatter)
+    from gatekeeper_tpu_torch.resilience import faults
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+
+    t_phase = time.perf_counter()
+    steps: dict = {}
+    os.environ.pop("GATEKEEPER_PAGES", None)        # the default: on
+    os.environ["GATEKEEPER_DEVPAGES"] = "on"
+    ns_gvk, pod_gvk = GVK("", "v1", "Namespace"), GVK("", "v1", "Pod")
+    pods = reactor_pods(n_pods)
+    plan, gap_pod = reactor_plan(pods)
+    earlier = set(threading.enumerate())
+    mgr = Manager(parse_args(["--port", "0", "--audit-interval", "3600",
+                              "--watch-poll-interval", str(REACTOR_POLL_S),
+                              "--device", "cuda"]))
+    stopped = False
+    try:
+        # -- 1. the reactor, built under the default pages mode
+        if mgr.reactor is None:
+            fail("reactor: the manager built no event reactor with "
+                 "GATEKEEPER_PAGES unset")
+        drv, cluster, rx = mgr.client.driver, mgr.cluster, mgr.reactor
+        if drv.device.type != "cuda":
+            fail(f"reactor: the manager's driver is on {drv.device}")
+
+        # -- 2-3. ingest through the controllers, the cold audit
+        v0 = triton_variants(ir_eval)
+        t = reactor_ingest(mgr, pods)
+        cold, kinds = t["cold"], sorted(
+            d["spec"]["crd"]["spec"]["names"]["kind"]
+            for d in t["templates"])
+        n_objs = MANAGER_NAMESPACES + n_pods
+        st = drv._state(TARGET)
+        if st.table.n_rows != n_objs or cold.get("skipped"):
+            fail(f"reactor: {st.table.n_rows} objects in the store, not "
+                 f"{n_objs}; cold report {cold.get('skipped')}")
+        pages = drv.last_sweep_phases["pages"]
+        dvs = drv.last_sweep_phases["devpages"]
+        if pages["kinds_paged"] != len(kinds) or \
+                dvs.get("kinds_device") != len(kinds):
+            fail(f"reactor: the cold sweep paged {pages['kinds_paged']} "
+                 f"kinds, {dvs.get('kinds_device')} on the device")
+        # the direct client on the CPU (the kernels' plain versions): no
+        # compile and no warm thread of its own beside the window
+        t0 = time.perf_counter()
+        direct = Backend(TorchDriver(device="cpu")).new_client(
+            [K8sValidationTarget()])
+        for tdoc in cluster.list(TEMPLATE_GVK):
+            direct.add_template(tdoc)
+        con_gvks = [GVK("constraints.gatekeeper.sh", "v1alpha1", k)
+                    for k in kinds]
+        for g in con_gvks:
+            for c in cluster.list(g):
+                direct.add_constraint(c)
+        direct.add_data_batch(cluster.list(ns_gvk) + cluster.list(pod_gvk))
+
+        def check_statuses(what: str, results=None) -> int:
+            got = constraint_statuses(cluster, kinds)
+            if len(got) != t["constraints"]:
+                fail(f"reactor {what}: {len(got)} constraints in the "
+                     f"cluster, not {t['constraints']}")
+            want = direct_statuses(direct, got, full=True, results=results)
+            bad = [k for k in got if got[k] != want[k]]
+            if bad:
+                fail(f"reactor {what}: {len(bad)} constraints' written "
+                     f"status.violations differ from the direct client's,"
+                     f" first {bad[0]}")
+            return sum(len(v or ()) for v in got.values())
+
+        n_viol = check_statuses("cold audit")
+        steps["direct_s"] = time.perf_counter() - t0
+        led = st.ledger
+        print(f"phase reactor ingest: {len(kinds)} templates and "
+              f"{t['constraints']} constraints in {t['policy_s']:.4f}s; "
+              f"{MANAGER_NAMESPACES} namespaces and {n_pods} pods "
+              f"synced by the controllers in {t['ingest_s']:.4f}s; cold "
+              f"audit_once (paged, devpages) eval "
+              f"{cold['eval_seconds']:.4f}s write "
+              f"{cold['write_seconds']:.4f}s total "
+              f"{cold['total_seconds']:.4f}s, ledger "
+              f"{led.total_violations()} violations ({n_viol} in the "
+              f"capped statuses, equal to the direct client's); Triton "
+              f"variants {v0} -> {triton_variants(ir_eval)}", flush=True)
+
+        # -- 4. the warms joined, then the manager started (no sweep due)
+        mgr.start()
+        join_warms()
+        drv.wait_delta_warm()
+        wait_until(lambda: "Pod" in rx._subs, "the reactor's Pod stream")
+        if rx.error is not None or rx.state != "live":
+            fail(f"reactor: not live at start: {rx.state}, {rx.error!r}")
+
+        # -- 5. the event window
+        seen: list = []
+        led.subscribe(lambda ev: seen.append((time.perf_counter(), ev)))
+        names = [c["metadata"]["name"] for c in cluster.list(
+            GVK("constraints.gatekeeper.sh", "v1alpha1", "K8sAllowedRepos"))]
+        k4 = K4Calls(scatter)
+        k1_calls, k3_calls, k5_calls, k6_calls = [], [], [], []
+        orig = (ir_eval.eval_mask, dfa.dfa_table, ir_eval.delta_mask,
+                devdelta.mask_delta)
+        reset_counts(fns)
+        k4.install()
+        ir_eval.eval_mask = recording(orig[0], k1_calls)
+        dfa.dfa_table = recording(orig[1], k3_calls)
+        ir_eval.delta_mask = recording(orig[2], k5_calls)
+        devdelta.mask_delta = recording(orig[3], k6_calls)
+        v1 = triton_variants(ir_eval)
+        counters0 = dict(rx.counters)
+        lat: dict = collections.defaultdict(list)
+        n_seen = 0
+        t_window = time.perf_counter()
+        try:
+            for size, op, idx in plan:
+                want = {}
+                t_up = {}
+                for i in idx:
+                    meta = pods[i]["metadata"]
+                    obj = cluster.get(pod_gvk, meta["name"],
+                                      meta["namespace"])
+                    if op == "add":
+                        obj["spec"]["initContainers"] = [dict(REACTOR_INIT)]
+                    else:
+                        obj["spec"].pop("initContainers")
+                    res = f"{meta['namespace']}/{meta['name']}"
+                    for cname in names:
+                        want[("appear" if op == "add" else "clear",
+                              cname, res)] = res
+                    t_up[res] = time.perf_counter()
+                    cluster.update(obj)
+                got_at: dict = {}
+                t0 = time.perf_counter()
+                while len(got_at) < len(want):
+                    for ts, ev in seen[n_seen:]:
+                        key = (ev["op"], ev["constraint"], ev["resource"])
+                        if ev["kind"] != "K8sAllowedRepos" \
+                                or ev["msg"] != REACTOR_MSG \
+                                or key not in want or key in got_at:
+                            fail(f"reactor: unexpected ledger event {ev}")
+                        got_at[key] = ts
+                        n_seen += 1
+                    if time.perf_counter() - t0 > REACTOR_EVENT_S:
+                        fail(f"reactor: {len(want) - len(got_at)} of "
+                             f"{len(want)} expected ledger events did not "
+                             f"arrive in {REACTOR_EVENT_S:.0f}s (burst "
+                             f"{size} {op}); reactor {rx.counters}")
+                    time.sleep(0.001)
+                last = collections.defaultdict(float)
+                for key, ts in got_at.items():
+                    last[key[2]] = max(last[key[2]], ts)
+                lat[size] += [last[r] - t_up[r] for r in t_up]
+            window_s = time.perf_counter() - t_window
+            time.sleep(REACTOR_POLL_S)      # a late stray event would show
+            if len(seen) != n_seen:
+                fail(f"reactor: unexpected ledger event {seen[n_seen][1]}")
+            counts = launch_counts(fns)
+        finally:
+            k4.restore()
+            (ir_eval.eval_mask, dfa.dfa_table, ir_eval.delta_mask,
+             devdelta.mask_delta) = orig
+        v2 = triton_variants(ir_eval)
+        rungs = {k: rx.counters.get(k, 0) - counters0.get(k, 0)
+                 for k in ("events", "rung1", "rereacts", "rung2", "rung3",
+                           "coalesced_pages", "react_errors")}
+        if counts["K6"] <= 0 or max(counts["K4"], counts["K4m"]) <= 0 \
+                or counts["K1"] != counts["K6"] or counts["K5"] \
+                or counts["K7"] or v2 != v1 or rungs["rung2"] \
+                or rungs["react_errors"]:
+            fail(f"reactor: the event window's launches {counts}, Triton "
+                 f"variants {v1} -> {v2}, rungs {rungs}")
+        errs = {"K6": 0.0, "K1": 0.0, "K3": 0.0}
+        for ins, out in k6_calls:
+            errs["K6"] = max(errs["K6"], k6_check(
+                devdelta, ins, "the reactor's window", got=out)[1])
+        for (program, d), out in k1_calls:
+            want_m = ex._eval_mask(program, d)
+            if not torch.equal(out, want_m):
+                fail("reactor: K1 mismatch on a devpaged react")
+            errs["K1"] = max(errs["K1"], max_err(out, want_m))
+        for ins, out in k3_calls:
+            want_t = dfa.dfa_table_plain(*ins)
+            if not torch.equal(out, want_t):
+                fail("reactor: K3 mismatch on a devpaged react")
+            errs["K3"] = max(errs["K3"], max_err(out, want_t))
+        k4_batches = [a[0] for a, _ in k4.many]
+        n_k4, errs["K4"] = k4.check("the reactor's window")
+        n_updates = sum(len(idx) for _s, _o, idx in plan)
+        lat_txt = "; ".join(
+            f"burst {size}: p50 {quantile(v, 0.5) * 1e3:.2f} ms p99 "
+            f"{quantile(v, 0.99) * 1e3:.2f} ms max {max(v) * 1e3:.2f} ms "
+            f"({len(v)} updates)" for size, v in sorted(lat.items()))
+        print(f"phase reactor events: {n_updates} cluster.updates in "
+              f"{len(plan)} bursts in {window_s:.4f}s = "
+              f"{n_updates / window_s:.1f} updates/s, {n_seen} ledger "
+              f"events ({n_seen / window_s:.1f}/s), every expected one and "
+              f"no other; event-to-verdict {lat_txt}; reactor {rungs}; "
+              f"launches { {k: v for k, v in counts.items() if v} } (one "
+              f"K1, the devpaged full mask, a K6), {n_k4} K4 jobs, Triton "
+              f"variants {v1} -> {v2}; K1, K3, K4, K6 equal their plain "
+              f"versions", flush=True)
+
+        # -- 7. the ledger against the direct client
+        t0 = time.perf_counter()
+        touched = sorted({i for _s, _o, idx in plan for i in idx})
+        idents = set()
+        for i in touched:
+            meta = pods[i]["metadata"]
+            direct.add_data(cluster.get(pod_gvk, meta["name"],
+                                        meta["namespace"]))
+            idents.add((meta["namespace"], meta["name"]))
+        few = Backend(TorchDriver(device="cpu")).new_client(
+            [K8sValidationTarget()])
+        for tdoc in cluster.list(TEMPLATE_GVK):
+            few.add_template(tdoc)
+        for g in con_gvks:
+            for c in cluster.list(g):
+                few.add_constraint(c)
+        few.add_data_batch([
+            cluster.get(pod_gvk, pods[i]["metadata"]["name"],
+                        pods[i]["metadata"]["namespace"]) for i in touched])
+        want_v = sorted(
+            (r.constraint["kind"], r.constraint["metadata"]["name"],
+             f"{r.resource['metadata']['namespace']}/"
+             f"{r.resource['metadata']['name']}", r.msg)
+            for r in few.audit(full=True).results()
+            if r.resource["kind"] == "Pod")
+        got_v = ledger_verdicts(led, idents)
+        if got_v != want_v:
+            fail(f"reactor: the ledger's verdicts of the {len(touched)} "
+                 f"touched pods differ from an uncapped audit of them "
+                 f"({len(got_v)} against {len(want_v)})")
+        served = norm(mgr.client.audit(limit_per_constraint=CAP).results())
+        folded = drv.last_sweep_phases["pages"]
+        oracle_res = direct.audit(limit_per_constraint=CAP,
+                                  full=True).results()
+        oracle = norm(oracle_res)
+        if served != oracle or folded["events"] or \
+                folded["rows_reevaluated"]:
+            fail(f"reactor: the ledger's capped results differ from the "
+                 f"direct client's, or the ledger was not current "
+                 f"(events {folded['events']}, rows "
+                 f"{folded['rows_reevaluated']})")
+        after = mgr.audit.audit_once()
+        n_viol = check_statuses("audit after the events", oracle_res)
+        steps["checks_s"] = time.perf_counter() - t0
+
+        # -- 8. watch_gap armed for one annotation update: rung 2
+        counters0 = dict(rx.counters)
+        faults.reset_for_tests()
+        seq0 = led.seq
+        meta = pods[gap_pod]["metadata"]
+        obj = cluster.get(pod_gvk, meta["name"], meta["namespace"])
+        obj["metadata"].setdefault("annotations", {})["reactor"] = "gap"
+        os.environ["GATEKEEPER_FAULT"] = "watch_gap"
+        try:
+            t0 = time.perf_counter()
+            cluster.update(obj)
+        finally:
+            os.environ.pop("GATEKEEPER_FAULT", None)
+        wait_until(lambda: rx.counters.get("rung2", 0)
+                   > counters0.get("rung2", 0) and rx.state == "live",
+                   "the reactor's rung-2 resync")
+        gap_s = time.perf_counter() - t0
+        gap = {k: rx.counters.get(k, 0) - counters0.get(k, 0)
+               for k in ("faults_watch_gap", "pathology_gap", "rung2",
+                         "rung3", "resync_errors")}
+        if gap["faults_watch_gap"] != 1 or gap["pathology_gap"] != 1 \
+                or gap["rung2"] != 1 or gap["rung3"] or \
+                gap["resync_errors"] or led.seq != seq0:
+            fail(f"reactor: watch_gap took {gap}, ledger events "
+                 f"{led.seq - seq0}")
+        direct.add_data(cluster.get(pod_gvk, meta["name"],
+                                    meta["namespace"]))
+        served = norm(mgr.client.audit(limit_per_constraint=CAP).results())
+        if served != norm(direct.audit(limit_per_constraint=CAP,
+                                       full=True).results()):
+            fail("reactor: the ledger differs from the direct client's "
+                 "after the rung-2 resync")
+        print(f"phase reactor resync: after the events, the touched pods' "
+              f"{len(got_v)} ledger verdicts equal an uncapped audit of "
+              f"them, the served capped results the direct client's (the "
+              f"ledger current: no event, no row re-evaluated), and "
+              f"audit_once eval {after['eval_seconds']:.4f}s write "
+              f"{after['write_seconds']:.4f}s wrote statuses equal to it "
+              f"({n_viol} violations); watch_gap on one annotation update:"
+              f" {gap}, a clean rung-2 resync (no ledger event) back to "
+              f"live in {gap_s:.4f}s, the ledger equal to the direct "
+              f"client's", flush=True)
+
+        # -- 9. /debug/violations, stop()
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{mgr.webhook.port}/debug/violations",
+                timeout=60) as r:
+            doc = json.loads(r.read())
+        mine = [x for x in doc.get("reactors", ())
+                if x["name"] == rx.name and "Pod" in x["kinds"]]
+        if len(mine) != 1 or mine[0]["state"] != "live" or \
+                rx.error is not None:
+            fail(f"reactor: /debug/violations reactors {mine}, error "
+                 f"{rx.error!r}")
+        t0 = time.perf_counter()
+        mgr.stop()
+        stopped = True
+        stop_s = time.perf_counter() - t0
+        left = [th.name for th in threading.enumerate()
+                if th not in earlier and th.is_alive()
+                and th.name in ("reconcile-worker", "admission-batcher",
+                                "webhook-server", "audit-manager",
+                                "watch-roster-poll", "audit-warmup",
+                                "delta-warmup", "ingest-prewarm",
+                                f"{rx.name}-pump")]
+        if left:
+            fail(f"reactor: threads still alive after stop(): {left}")
+        print(f"phase reactor endpoints: /debug/violations has the reactor "
+              f"live ({mine[0]['counters'].get('rung1', 0)} rung-1 "
+              f"reacts); stop() joined every thread in {stop_s:.4f}s",
+              flush=True)
+    finally:
+        if not stopped:
+            try:
+                mgr.stop()
+            except Exception:       # noqa: BLE001 — the phase's own
+                pass                # failure is the one reported
+        os.environ["GATEKEEPER_PAGES"] = "off"
+        os.environ.pop("GATEKEEPER_DEVPAGES", None)
+
+    # -- each kernel of the window at its own inputs, timed
+    t0 = time.perf_counter()
+    join_warms()
+    ins6 = max(k6_calls, key=lambda c: c[0][0].shape[1])[0]
+    rec["K6rx"] = {"launches": counts["K6"], "max_abs_err": errs["K6"],
+                   **k6_numbers(devdelta, *ins6)}
+    (program, d), _ = k1_calls[-1]
+    bms, by = k1_bound_of(ex, ir_eval, program, d)
+    rec["K1rx"] = {"launches": counts["K1"], "max_abs_err": errs["K1"],
+                   "bound_ms": bms, "bound_by": by, "library_ms": None,
+                   **k1_times(lambda: ir_eval.eval_mask(program, d),
+                              lambda: ex._eval_mask(program, d))}
+    rec["K3rx"] = {"launches": counts["K3"], "max_abs_err": errs["K3"],
+                   **k3_numbers(dfa, k3_calls[-1][0])}
+    rec["K4rx"] = {"launches": counts["K4"],
+                   "max_abs_err": errs["K4"],
+                   **k4m_numbers(scatter, k4_batches[-8:])}
+    print(f"phase reactor kernels: at the reactor's own inputs, each equal "
+          f"to its plain version: K6 {list(ins6[0].shape)} k {ins6[3]} "
+          f"{k6_text(rec['K6rx'])}; K1 {list(d['__cvalid__'].shape)} x "
+          f"{list(d['__alive__'].shape)} {k1_text(rec['K1rx'])}; K3 "
+          f"{k3_text(dfa, k3_calls[-1][0], rec['K3rx'])}; K4 batched "
+          f"{rec['K4rx']['ms']:.4f} ms, device "
+          f"{rec['K4rx']['device_ms']:.4f} (bound "
+          f"{rec['K4rx']['bound_ms']:.6f}) over {n_k4} jobs in "
+          f"{len(k4_batches)} calls", flush=True)
+    steps["kernels_s"] = time.perf_counter() - t0
+    print(f"phase reactor took {time.perf_counter() - t_phase:.1f}s: "
+          f"cold build {t['cold']['total_seconds']:.1f}s, direct client "
+          f"{steps['direct_s']:.1f}s, window {window_s:.1f}s, checks "
+          f"{steps['checks_s']:.1f}s, rung-2 resync {gap_s:.1f}s, kernel "
+          f"timing {steps['kernels_s']:.1f}s", flush=True)
+    del direct, few, mgr, k1_calls, k3_calls, k5_calls, k6_calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
@@ -3614,6 +4125,14 @@ def main() -> int:
                       help="build K2, K3 and K4 and run only the manager "
                       "phase (the manager process: controllers, audit "
                       "manager, webhook over HTTP)")
+    only.add_argument("--reactor-only", action="store_true",
+                      help="build K2, K3, K4 and K6 and run only the "
+                      "reactor phase (the manager with pages and devpages "
+                      "on: watch events into the verdict ledger)")
+    ap.add_argument("--reactor-pods", type=int, default=REACTOR_PODS,
+                    help="pods of the reactor phase (REACTOR_PODS by "
+                    "default): its cold ledger build and rung-2 resync "
+                    "confirm about 250 verdicts a pod on the host")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3650,7 +4169,9 @@ def main() -> int:
                        if args.k1_only or args.k3_only or args.admission_only
                        else ("devdelta", "invjoin")
                        if args.k6k7_only else ("topk", "dfa", "scatter")
-                       if args.manager_only else build.KERNELS)
+                       if args.manager_only else
+                       ("topk", "dfa", "scatter", "devdelta")
+                       if args.reactor_only else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
           f"{ {k: round(v, 3) for k, v in secs.items()} }, triton "
@@ -3663,7 +4184,8 @@ def main() -> int:
     answers = AdmissionOracle(("admission",)) if args.admission_only \
         else AdmissionOracle(("manager",)) if args.manager_only \
         else None if (args.k1_only or args.k2_only or args.k3_only
-                      or args.k6k7_only) else AdmissionOracle()
+                      or args.k6k7_only or args.reactor_only) \
+        else AdmissionOracle()
     try:
         return run_phases(args, card, dev, rec, answers)
     finally:
@@ -3693,6 +4215,14 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
     fns = kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin,
                      residency)
+    # each phase's wall seconds, printed before the kernels line
+    took: dict[str, float] = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        took[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
 
     def counts_of(*keys) -> dict:
         return {k: v for k, v in launch_counts(fns).items() if k in keys}
@@ -3715,6 +4245,10 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         return 0
     if args.manager_only:
         manager_phase(rec, fns, oracle=answers)
+        print(card, flush=True)
+        return 0
+    if args.reactor_only:
+        reactor_phase(rec, fns, args.reactor_pods)
         print(card, flush=True)
         return 0
 
@@ -4214,25 +4748,39 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
           flush=True)
     del dig, dc, st, arrays
 
+    mark("random kernels, library, main, churn, check, K3 store")
+
     # ---- 6. fleet: N clusters' stores stacked into one batched sweep
     # per kind (B9)
     fleet_phase(rec, fns, dev)
+    mark("fleet")
 
     # ---- 7. devpages: the paged audit with device-resident deltas (B6),
     # then 8. devpages budget: the residency planner (B8)
     devpages_phase(rec, fns, dev, main_masks)
     del main_masks
+    mark("devpages, budget")
 
     # ---- 9. devpages ingress: the inventory-join kind on the device (B7)
     ingress_phase(rec, fns, dev)
+    mark("ingress")
 
     # ---- 10. admission: the review micro-batch on the card
     admission_phase(rec, fns, oracle=answers)
+    mark("admission")
 
     # ---- 11. manager: the process on the card, through its entry points
     manager_phase(rec, fns, oracle=answers)
+    mark("manager")
 
-    # ---- 12. kernels line, card line, final line
+    # ---- 12. reactor: the manager's default paged route, watch events
+    # folded into the verdict ledger between sweeps
+    reactor_phase(rec, fns, args.reactor_pods)
+    mark("reactor")
+    print(f"phase timing: seconds a phase after the build {took}, "
+          f"{sum(took.values()):.1f}s in all", flush=True)
+
+    # ---- 13. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -4294,11 +4842,23 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         "K3rmgr": ("dfa_manager_admission", "cuda",
                    "gatekeeper_tpu_torch/csrc/dfa.cu",
                    "gatekeeper_tpu/engine/veval.py:227"),
+        "K4rx": ("scatter_rows_many_reactor", "cuda",
+                 "gatekeeper_tpu_torch/csrc/scatter.cu",
+                 "gatekeeper_tpu/engine/veval.py:1049"),
+        "K3rx": ("dfa_reactor", "cuda", "gatekeeper_tpu_torch/csrc/dfa.cu",
+                 "gatekeeper_tpu/engine/veval.py:227"),
+        "K1rx": ("ir_eval_reactor", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/engine/veval.py:294"),
+        "K6rx": ("devdelta_reactor", "cuda",
+                 "gatekeeper_tpu_torch/csrc/devdelta.cu",
+                 "gatekeeper_tpu/engine/veval.py:1185"),
     }
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K1bl", "K2b",
                 "K3b", "K6", "K7", "K8g", "K8s", "K1r", "K3r", "K1mgr",
-                "K2mgr", "K3mgr", "K4mgr", "K5mgr", "K1rmgr", "K3rmgr"):
+                "K2mgr", "K3mgr", "K4mgr", "K5mgr", "K1rmgr", "K3rmgr",
+                "K4rx", "K3rx", "K1rx", "K6rx"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

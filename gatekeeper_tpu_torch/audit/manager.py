@@ -27,9 +27,12 @@ and per-phase durations into ``last_sweep`` and the cumulative
 Trimmed for the port: the sweep report carries no ``backend_state`` or
 ``degraded`` and no recovery listener re-warms after a backend
 recovery (the supervisor is ROADMAP A8), the store snapshot after a
-sweep is a no-op (ROADMAP A8), and no event reactor observes the
-sweeps (ROADMAP A4c).  The audit warm-up's error is raised by
-the next ``audit_once`` instead of being swallowed.
+sweep is a no-op (ROADMAP A8).  The audit warm-up's error is raised by
+the next ``audit_once`` instead of being swallowed, and so is the
+attached event reactor's kept error (enforce/reactor.py), after that
+sweep has run: the sweep is the fallback that repairs the ledger.  The
+loop logs a kept reactor error after each sweep and leaves it kept, so
+the reactor's ``stop()`` raises it.
 """
 
 from __future__ import annotations
@@ -92,6 +95,8 @@ class AuditManager:
         self._ledger_lock = threading.Lock()
         # the audit warm-ups start() began (utils/compile_cache.AuditWarm)
         self._warms: list = []
+        # the event reactor observing sweep completions (attach_reactor)
+        self._reactor = None
 
     # ------------------------------------------------------------------
     # continuous enforcement subscription
@@ -114,6 +119,14 @@ class AuditManager:
             self._ledger_clean.discard((ev.get("kind", ""),
                                         ev.get("constraint", "")))
 
+    def attach_reactor(self, reactor) -> None:
+        """Let the event reactor (enforce/reactor.py) observe sweep
+        completions: while its watch stream is degraded the periodic
+        sweep is the enforcement freshness bound, and the reactor's
+        health payload reports the age of the last one.  The next
+        ``audit_once`` raises the reactor's kept error after its sweep."""
+        self._reactor = reactor
+
     # ------------------------------------------------------------------
     # one sweep
 
@@ -126,7 +139,19 @@ class AuditManager:
         the report carries the driver's per-phase pipeline breakdown
         (``host_prep_s``, ``h2d_s``, ``device_s``, ``overlap_fraction``)
         so "full sweep" and "memoized steady" stay two separately
-        metered numbers."""
+        metered numbers.
+
+        A kept event-reactor error is raised once the sweep is done."""
+        report = self._cycle(full)
+        err = self._reactor.take_error() if self._reactor is not None \
+            else None
+        if err is not None:
+            raise err
+        return report
+
+    def _cycle(self, full: bool = False) -> dict:
+        """The sweep and its report: ``audit_once`` without the reactor's
+        kept error."""
         self._raise_warm_error()
         t0 = self._now()
         # audit.cycle parents the driver's audit.sweep span, so one
@@ -140,6 +165,8 @@ class AuditManager:
             self.metrics.counter("audit_violations").inc(report["violations"])
             self.metrics.timer("audit_sweep_seconds").observe(
                 report["total_seconds"])
+            if self._reactor is not None:
+                self._reactor.note_sweep()
         self.last_sweep = report
         if report["skipped"]:
             _log.debug("audit skipped: template CRD not deployed")
@@ -365,10 +392,16 @@ class AuditManager:
             if self._stop.wait(timeout=self.interval):
                 return
             try:
-                self.audit_once()
+                self._cycle()
             except Exception as e:  # log-and-continue (:130-133)
                 _log.error("audit sweep failed", error=e)
                 self.metrics.counter("audit_errors").inc()
+            # a kept reactor error stays kept (the reactor's stop()
+            # raises it) and is logged after every sweep
+            err = self._reactor.error if self._reactor is not None \
+                else None
+            if err is not None:
+                _log.error("event reactor failed", error=err)
 
 
 def gvk_of_constraint(obj: dict) -> GVK:

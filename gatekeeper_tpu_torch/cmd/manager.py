@@ -10,8 +10,8 @@ start everything and block (main.go:100).
 
 Flags mirror the reference's flag set (audit/manager.go:34-35,
 webhook/policy.go:47-49).  The cluster is this build's in-memory
-apiserver (a real deployment would swap in an adapter with the same
-surface); ``--demo`` seeds the demo/basic scenario (1k namespaces +
+apiserver, or a real one through ``--kubeconfig`` (cluster/kube.py);
+``--demo`` seeds the demo/basic scenario (1k namespaces +
 required-labels template) and runs one audit sweep so the whole stack
 is observable end-to-end.
 
@@ -20,17 +20,19 @@ without a card that raises, as utils/device does — pass ``--device cpu``
 for the plain PyTorch path).  Run it as
 ``python -m gatekeeper_tpu_torch.cmd.manager``.
 
+Under ``GATEKEEPER_PAGES`` (on by default) the manager builds the event
+reactor (enforce/reactor.py), which turns each watch event into a
+single-page re-evaluation of the verdict ledger between sweeps.
+
 Trimmed for the port, each refused when asked for:
-- ``--kubeconfig`` (cluster/kube.py) and ``--engine-worker-url``
-  (client/remote_driver.py) — ROADMAP A3, the next slice;
+- ``--engine-worker-url`` (client/remote_driver.py) — ROADMAP A3, the
+  next slice;
 - ``GATEKEEPER_FLIGHT_ADMISSION`` (the admission corpus) — the same;
 - ``GATEKEEPER_SNAPSHOT_DIR`` (warm-restart snapshots, which the
-  reference's ``main`` turns on by default) — ROADMAP A8.
-Not built: the external-data runtime and the Provider kind (ROADMAP A5),
-and, under ``GATEKEEPER_PAGES`` (on by default), the event reactor
-(ROADMAP A4c).  Audit sweeps still take the paged route and its ledger;
-only the reactor's watch-driven page re-evaluation between sweeps is
-missing.
+  reference's ``main`` turns on by default) — ROADMAP A8;
+- a ``GATEKEEPER_FAULT`` whose seam the port lacks
+  (resilience/faults.py).
+Not built: the external-data runtime and the Provider kind (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from gatekeeper_tpu_torch.controllers.constrainttemplate import TEMPLATE_GVK
 from gatekeeper_tpu_torch.controllers.registry import ControlPlane, add_to_manager
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
 from gatekeeper_tpu_torch.errors import ClientError
+from gatekeeper_tpu_torch.resilience import faults
 from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
 from gatekeeper_tpu_torch.utils.metrics import Metrics
 from gatekeeper_tpu_torch.webhook.batcher import MicroBatcher
@@ -66,27 +69,29 @@ _log = logger("manager")
 NS_GVK = GVK("", "v1", "Namespace")
 
 
-def bootstrap_cluster(cluster: FakeCluster) -> None:
+def bootstrap_cluster(cluster) -> None:
     """Install what deploy/gatekeeper.yaml installs: the base CRDs /
-    served kinds the controllers and audit manager expect, with the
-    in-memory cluster's discovery seeded.  (The reference's branch for a
-    real apiserver, which serves core kinds already, comes with
-    cluster/kube.py: ROADMAP A3, the next slice.)"""
-    cluster.register_kind(TEMPLATE_GVK, "constrainttemplates")
-    cluster.register_kind(CONFIG_GVK, "configs")
-    # (the reference also serves and installs the external-data
-    # Provider kind: ROADMAP A5, no provider controller in the port)
-    # core kinds every conformant apiserver serves (sync configs
-    # routinely watch these; the fake's discovery must agree)
-    for kind, plural in (("Namespace", "namespaces"), ("Pod", "pods"),
-                         ("Service", "services"),
-                         ("ConfigMap", "configmaps"),
-                         ("Secret", "secrets"),
-                         ("ServiceAccount", "serviceaccounts")):
-        cluster.register_kind(GVK("", "v1", kind), plural)
-    cluster.register_kind(GVK("apps", "v1", "Deployment"), "deployments")
-    cluster.register_kind(GVK("networking.k8s.io", "v1", "Ingress"),
-                          "ingresses")
+    served kinds the controllers and audit manager expect.  A real
+    apiserver (cluster.kube.KubeCluster) serves core kinds already and
+    gets only the CRDs applied; the FakeCluster also needs its
+    discovery seeded."""
+    if hasattr(cluster, "register_kind"):
+        cluster.register_kind(TEMPLATE_GVK, "constrainttemplates")
+        cluster.register_kind(CONFIG_GVK, "configs")
+        # (the reference also serves and installs the external-data
+        # Provider kind: ROADMAP A5, no provider controller in the port)
+        # core kinds every conformant apiserver serves (sync configs
+        # routinely watch these; the fake's discovery must agree)
+        for kind, plural in (("Namespace", "namespaces"), ("Pod", "pods"),
+                             ("Service", "services"),
+                             ("ConfigMap", "configmaps"),
+                             ("Secret", "secrets"),
+                             ("ServiceAccount", "serviceaccounts")):
+            cluster.register_kind(GVK("", "v1", kind), plural)
+        cluster.register_kind(GVK("apps", "v1", "Deployment"),
+                              "deployments")
+        cluster.register_kind(GVK("networking.k8s.io", "v1", "Ingress"),
+                              "ingresses")
     from gatekeeper_tpu_torch.webhook.bootstrap import apply_crd
     apply_crd(cluster, CRD_NAME, "templates.gatekeeper.sh", "v1alpha1",
               "ConstraintTemplate", "constrainttemplates")
@@ -98,11 +103,6 @@ def refuse_unported(args: argparse.Namespace) -> None:
     """Raise ClientError for a flag or variable that asks for a layer the
     port has not got yet, naming its ROADMAP item: never run without
     it silently."""
-    if getattr(args, "kubeconfig", None):
-        raise ClientError(
-            "--kubeconfig: the real-apiserver cluster (cluster/kube.py) is "
-            "not yet ported to gatekeeper_tpu_torch (ROADMAP A3, the next "
-            "slice); the manager runs on its in-memory cluster")
     if getattr(args, "engine_worker_url", None):
         raise ClientError(
             "--engine-worker-url: the engine worker split "
@@ -113,17 +113,27 @@ def refuse_unported(args: argparse.Namespace) -> None:
             "GATEKEEPER_SNAPSHOT_DIR: warm-restart snapshots are not yet "
             "ported to gatekeeper_tpu_torch (ROADMAP A8); unset it")
     refuse_admission_corpus()
+    faults.check_armed()
 
 
 class Manager:
     """Everything main() builds, held together for tests and the demo."""
 
-    def __init__(self, args: argparse.Namespace):
+    def __init__(self, args: argparse.Namespace, cluster=None):
         refuse_unported(args)
         self.metrics = Metrics()
-        # the in-memory cluster: --kubeconfig is refused until
-        # cluster/kube.py is ported (ROADMAP A3, the next slice)
-        self.cluster = FakeCluster()
+        if cluster is not None:
+            self.cluster = cluster
+        elif getattr(args, "kubeconfig", None):
+            # real apiserver: the whole control plane binds to it through
+            # the cluster protocol (reference main.go:43-51)
+            from gatekeeper_tpu_torch.cluster.kube import KubeCluster
+            self.cluster = KubeCluster.from_kubeconfig(args.kubeconfig)
+        else:
+            self.cluster = FakeCluster()
+        # async clusters deliver watch events on stream threads; the
+        # deterministic pump must settle instead of assuming inline events
+        self.async_cluster = not isinstance(self.cluster, FakeCluster)
         bootstrap_cluster(self.cluster)
         # the engine on the card unless --device says otherwise; no CPU
         # fallback when the card is missing (utils/device)
@@ -174,12 +184,18 @@ class Manager:
                                   interval=args.audit_interval,
                                   violations_limit=args.constraint_violations_limit,
                                   metrics=self.metrics)
-        # (with GATEKEEPER_PAGES on, the reference couples the watch
-        # stream to the paged store through an event reactor that
-        # re-evaluates single pages between sweeps: ROADMAP A4c.  The
-        # port builds none; its sweeps still take the paged route and
-        # its verdict ledger)
+        # continuous enforcement (pages on): couple the watch stream to
+        # the paged store so a single-object event becomes a single-page
+        # re-eval, with the periodic sweep as degraded-mode fallback.
+        # The sync controllers own store writes; the reactor only
+        # schedules re-evaluation (apply_objects stays False).
+        from gatekeeper_tpu_torch.enforce.ledger import pages_mode
         self.reactor = None
+        if pages_mode():
+            from gatekeeper_tpu_torch.enforce.reactor import Reactor
+            self.reactor = Reactor(self.client, cluster=self.cluster,
+                                   metrics=self.metrics)
+            self.audit.attach_reactor(self.reactor)
         self.watch_poll_interval = getattr(args, "watch_poll_interval", 5.0)
         self._poll_stop = None
         self._poll_thread = None
@@ -201,6 +217,10 @@ class Manager:
                 except Exception as e:
                     _log.error("webhook bootstrap failed", error=e)
         self.audit.start()
+        if self.reactor is not None:
+            self.reactor.sync_subscriptions(
+                self.plane.watch_manager.watched_gvks())
+            self.reactor.start()
         # roster poll loop (reference updateManagerLoop, 5 s —
         # watch/manager.go:165-178): a GVK whose CRD becomes served
         # AFTER registration is picked up without any roster mutation
@@ -210,6 +230,12 @@ class Manager:
             while not self._poll_stop.wait(self.watch_poll_interval):
                 try:
                     self.plane.watch_manager.poll_once()
+                    if self.reactor is not None:
+                        # the reactor's subscriptions track the watch
+                        # roster: a kind gaining/losing sync intent
+                        # attaches/detaches its stream
+                        self.reactor.sync_subscriptions(
+                            self.plane.watch_manager.watched_gvks())
                 except Exception as e:   # log-and-continue like the loop
                     _log.warning("watch poll error", error=e)
         self._poll_thread = threading.Thread(
@@ -221,24 +247,29 @@ class Manager:
         background warms too, so no thread launches on the card once
         this returns (a CUDA-graph capture fails if another thread
         launches).  A warm's error stays with the driver for its next
-        query."""
+        query; the reactor's kept error, when no sweep took it, is raised
+        once everything has stopped."""
         if getattr(self, "_poll_stop", None) is not None:
             self._poll_stop.set()
             self._poll_thread.join(timeout=10)
             self._poll_stop = None
-        self.audit.stop()
-        if self.webhook is not None:
-            self.webhook.stop()
-        self.batcher.stop()
-        self.plane.mgr.stop()
-        drv = self.client.driver
-        warms = [getattr(drv, "delta_warm", None),
-                 getattr(drv, "ingest_warm", None)]
-        for warm in warms:
-            for t in ([warm.thread] if hasattr(warm, "thread")
-                      else getattr(warm, "threads", None) or []):
-                if t is not None:
-                    t.join()
+        try:
+            if self.reactor is not None:
+                self.reactor.stop()
+        finally:
+            self.audit.stop()
+            if self.webhook is not None:
+                self.webhook.stop()
+            self.batcher.stop()
+            self.plane.mgr.stop()
+            drv = self.client.driver
+            warms = [getattr(drv, "delta_warm", None),
+                     getattr(drv, "ingest_warm", None)]
+            for warm in warms:
+                for t in ([warm.thread] if hasattr(warm, "thread")
+                          else getattr(warm, "threads", None) or []):
+                    if t is not None:
+                        t.join()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -265,8 +296,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="watch roster poll period in seconds "
                         "(watch/manager.go:172)")
     p.add_argument("--kubeconfig", default=None,
-                   help="kubeconfig path for a real apiserver (not yet "
-                        "ported: refused); absent -> in-memory cluster")
+                   help="kubeconfig path for a real apiserver; absent -> "
+                        "in-memory cluster (tests/demo) unless running "
+                        "in-cluster")
     p.add_argument("--cert-dir", default="/certs",
                    help="TLS cert dir for the webhook server "
                         "(tls.crt/tls.key, policy.go:76-79)")
@@ -316,7 +348,7 @@ def run_demo(mgr: Manager, n_namespaces: int = 1000) -> dict:
                         '  msg := sprintf("you must provide labels: %v", '
                         '[missing])\n}\n'}]},
     })
-    mgr.plane.run_until_idle()
+    mgr.plane.run_until_idle(settle=2.0 if mgr.async_cluster else 0.0)
     cluster.create({
         "apiVersion": "constraints.gatekeeper.sh/v1alpha1",
         "kind": "K8sRequiredLabels",
@@ -325,7 +357,7 @@ def run_demo(mgr: Manager, n_namespaces: int = 1000) -> dict:
                                       "kinds": ["Namespace"]}]},
                  "parameters": {"labels": ["gatekeeper"]}},
     })
-    mgr.plane.run_until_idle()
+    mgr.plane.run_until_idle(settle=2.0 if mgr.async_cluster else 0.0)
     report = mgr.audit.audit_once()
     con = cluster.get(GVK("constraints.gatekeeper.sh", "v1alpha1",
                           "K8sRequiredLabels"), "ns-must-have-gk")

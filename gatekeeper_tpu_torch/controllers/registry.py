@@ -40,20 +40,32 @@ class ControlPlane:
     template_controller: ReconcileConstraintTemplate
     config_controller: ReconcileConfig
 
-    def run_until_idle(self, max_steps: int = 100_000) -> int:
+    def run_until_idle(self, max_steps: int = 100_000,
+                       settle: float = 0.0) -> int:
         """Pump reconciles to a fixed point, interleaving watch-roster
         polls (the reference's 5 s updateManagerLoop picks up CRDs that
         appeared mid-reconcile; here the poll happens whenever the work
-        queue drains).  The in-memory cluster delivers watch events
-        inline with each mutation, so an empty queue is the fixed point
-        (the reference's ``settle`` wait for a real apiserver's stream
-        threads comes with cluster/kube.py: ROADMAP A3, the next slice)."""
+        queue drains).
+
+        ``settle`` (seconds): with an asynchronous cluster (real
+        apiserver — watch events arrive on stream threads, not inline
+        with mutations) an empty queue may just mean "events in flight";
+        keep waiting up to `settle` for more work before declaring the
+        fixed point."""
+        import time as _time
         total = 0
         while True:
             total += self.mgr.run_until_idle(max_steps)
             gen = self.watch_manager.generation
             self.watch_manager.poll_once()
-            if self.watch_manager.generation == gen and not self.mgr._queue:
+            if self.watch_manager.generation != gen or self.mgr._queue:
+                continue
+            if settle <= 0:
+                return total
+            deadline = _time.monotonic() + settle
+            while _time.monotonic() < deadline and not self.mgr._queue:
+                _time.sleep(0.02)
+            if not self.mgr._queue:
                 return total
 
 

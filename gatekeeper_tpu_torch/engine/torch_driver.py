@@ -53,8 +53,10 @@ finds its kernels built.  An admission micro-batch
 constraint) pairs or more runs as one [C, B] device pass per kind (K3,
 K1) over a throwaway mini table, and only its candidates are verified on
 the host; ``predict_review_batch_seconds`` prices a batch with the
-static cost model.  The watch-driven reactor, shadow and replay what-if
-and sharding are not part of this port yet.
+static cost model.  ``react_kind`` and ``resync_kind`` fold the store's
+dirty pages into the ledger between sweeps for the watch-driven reactor
+(enforce/reactor.py).  Shadow and replay what-if and sharding are not
+part of this port yet.
 """
 
 from __future__ import annotations
@@ -189,6 +191,25 @@ def _semantic_fields(frozen) -> tuple:
     if not isinstance(meta, Obj):
         return (frozen.get("spec"), meta)
     return (frozen.get("spec"), meta.get("labels"), meta.get("annotations"))
+
+
+def _ledger_digest(constraints: list[dict]) -> str:
+    """The ledger entry's constraint-set digest over what can move a
+    kind's verdicts: each constraint's kind and name, its ``spec`` and
+    its labels and annotations.  The reference digests whole documents,
+    so every audit's status writes, coming back as constraint re-puts,
+    rebuild every paged kind at the next sweep or react; here, as for
+    ``put_constraint``'s version (``_semantic_fields``), they do not
+    (ROADMAP Queue C)."""
+    from gatekeeper_tpu_torch.enforce.ledger import constraints_digest
+    view = []
+    for c in constraints:
+        meta = c.get("metadata") or {}
+        view.append({"kind": c.get("kind"), "name": meta.get("name"),
+                     "labels": meta.get("labels"),
+                     "annotations": meta.get("annotations"),
+                     "spec": c.get("spec")})
+    return constraints_digest(view)
 
 
 class TorchTargetState(TargetState):
@@ -1325,15 +1346,14 @@ class TorchDriver(LocalDriver):
         bit-identical to the full path's top-k + refill emission."""
         from gatekeeper_tpu_torch.analysis.footprint import (MATCH_PATHS,
                                                              paths_intersect)
-        from gatekeeper_tpu_torch.enforce.ledger import (VerdictLedger,
-                                                         constraints_digest)
+        from gatekeeper_tpu_torch.enforce.ledger import VerdictLedger
         table = st.table
         if st.ledger is None:
             st.ledger = VerdictLedger(target)
         led = st.ledger
         ent = led.entry(kind)
         conver = self.con_version_of(st, kind)
-        condigest = constraints_digest(constraints)
+        condigest = _ledger_digest(constraints)
         rebuild = None
         if ent.gen < 0:
             rebuild = "cold"
@@ -1451,7 +1471,10 @@ class TorchDriver(LocalDriver):
         ent.n_rows = table.n_rows
         ent.conver = conver
         ent.condigest = condigest
-        self._ledger_serve(ent, constraints, row_order, kind, limit, tagged)
+        if tagged is not None:
+            # the reactor's rungs (react_kind) maintain without serving
+            self._ledger_serve(ent, constraints, row_order, kind, limit,
+                               tagged)
 
     def _ledger_apply_row(self, st, target, handler, compiled, constraints,
                           kind, led, rcache, row, pg) -> int:
@@ -1507,6 +1530,190 @@ class TorchDriver(LocalDriver):
                                    dataclasses.replace(
                                        r, metadata=dict(r.metadata))))
                 emitted += len(results)
+
+    # ------------------------------------------------------------------
+    # continuous-enforcement entry points (enforce/reactor.py)
+
+    def _react_kinds(self, st, kind: str | None) -> list[str]:
+        """The template kinds a react or resync of ``kind`` covers: every
+        kind for None, the kind itself for a template kind, and for a
+        resource kind (what the reactor's watch streams carry: ``Pod``)
+        every template kind whose constraints can match it
+        (``_observable_kinds``; a wildcard match counts).  The reference
+        looks a resource kind up among the template kinds, finds none,
+        and leaves the ledger to the next sweep (ROADMAP Queue C)."""
+        if kind is None:
+            return sorted(st.templates)
+        if kind in st.templates:
+            return [kind]
+        out = []
+        for k in sorted(st.templates):
+            obs = self._observable_kinds(st.templates[k],
+                                         self._kind_constraints(st, k))
+            if obs is None or kind in obs:
+                out.append(k)
+        return out
+
+    def react_kind(self, target: str,
+                   kind: str | None = None) -> dict | None:
+        """Rung 1 of the reactor's resync ladder: fold the store's
+        dirty pages into the VerdictLedger for one kind (every eligible
+        kind when None; the template kinds that can match it for a
+        resource kind) with no sweep in between — the single-event →
+        single-page re-eval path.  Serving is skipped (verdicts are
+        *maintained*; the next audit formats from the updated ledger).
+        Under ``GATEKEEPER_DEVPAGES`` a kind with dirty pages takes the
+        device-resident route (K4, K7, K3, K1, K6).  Returns the paged
+        accounting dict, or None when pages are off or nothing was
+        eligible."""
+        from gatekeeper_tpu_torch.enforce.devpages import (
+            devpages_mode as _dv_mode, fresh_stats as _dv_fresh)
+        from gatekeeper_tpu_torch.enforce.ledger import pages_mode
+        if not pages_mode():
+            return None
+        st = self._state(target)
+        if not isinstance(st, TorchTargetState):
+            return None
+        handler = self.targets[target]
+        pg = {"pages_evaluated": 0, "pages_skipped": 0, "rows_padded": 0,
+              "rows_reevaluated": 0, "evaluations_saved": 0,
+              "widen_fallbacks": 0, "full_builds": 0, "events": 0}
+        dirty: set[int] = set()
+        dv = _dv_fresh() if (_dv_mode() and not self.scalar_only) else None
+        reacted = 0
+        with self._prep_lock:
+            ordered_rows, row_order = self._ensure_order(st)
+            rcache: dict[int, tuple] = {}
+            for k in self._react_kinds(st, kind):
+                compiled = st.templates.get(k)
+                if compiled is None:
+                    continue
+                constraints = self._kind_constraints(st, k)
+                if not constraints:
+                    continue
+                if self._pages_ineligible(st, k, compiled) is not None:
+                    continue
+                self._paged_kind(st, target, handler, compiled,
+                                 constraints, ordered_rows, row_order, k,
+                                 None, None, rcache, pg, dirty, dv)
+                reacted += 1
+        if reacted == 0:
+            return None
+        pg["kinds"] = reacted
+        pg["dirty_pages"] = len(dirty)
+        if dv is not None:
+            pg["devpages"] = dv
+        m = self.metrics
+        m.counter("reactor_reacts_total").inc()
+        if st.ledger is not None:
+            m.gauge("ledger_violations").set(
+                st.ledger.total_violations())
+        return pg
+
+    def resync_kind(self, target: str,
+                    kind: str | None = None) -> dict | None:
+        """Rungs 2/3: force a whole-kind rebuild that DIFF-APPLIES
+        against the existing ledger rows — the entry is marked cold but
+        keeps its verdicts, so a clean resync emits zero events and a
+        divergent one emits exactly the true appear/clear delta, never
+        a drop-and-replay phantom storm.  (The reference also discards
+        the kind's pending snapshot adoption here: the port has no
+        snapshot tier, ROADMAP A8.)"""
+        from gatekeeper_tpu_torch.enforce.ledger import pages_mode
+        if not pages_mode():
+            return None
+        st = self._state(target)
+        if not isinstance(st, TorchTargetState):
+            return None
+        with self._prep_lock:
+            led = st.ledger
+            for k in self._react_kinds(st, kind):
+                if led is not None:
+                    ent = led.entries.get(k)
+                    if ent is not None:
+                        ent.gen = -1
+        # _prep_lock released: react_kind re-acquires it (plain Lock,
+        # not reentrant)
+        out = self.react_kind(target, kind)
+        self.metrics.counter("reactor_resyncs_total").inc()
+        return out
+
+    @locked_read
+    def devpages_report(self, target: str) -> dict:
+        """Per-kind device-residency eligibility for ``probe --pages``:
+        kind -> None (device-resident eligible) or the blocking
+        reason.  Reflects the live gates — with GATEKEEPER_DEVPAGES
+        off the cross-row relaxation is off too, so an inventory-join
+        kind reports its host-path reason."""
+        from gatekeeper_tpu_torch.enforce.devpages import devpages_mode
+        st = self._state(target)
+        out: dict[str, str | None] = {}
+        if not isinstance(st, TorchTargetState):
+            return out
+        on = devpages_mode()
+        for kind in sorted(st.templates):
+            compiled = st.templates[kind]
+            reason = self._pages_ineligible(st, kind, compiled)
+            if reason is None:
+                if not on:
+                    reason = "devpages-off"
+                elif self.scalar_only:
+                    reason = "scalar-only"
+                elif compiled.vectorized is None:
+                    reason = "not-vectorized"
+            out[kind] = reason
+        return out
+
+    @locked_read
+    def page_of_object(self, target: str, obj) -> int | None:
+        """Row page an event object lands in — the reactor's
+        coalescing hint.  None when unhandled or not resident."""
+        handler = self.targets.get(target)
+        if handler is None:
+            return None
+        try:
+            key, _meta, _doc = handler.process_data(obj)
+        except Exception:   # noqa: BLE001 — unhandled/malformed event
+            return None
+        st = self._state(target)
+        row = st.table.lookup(key)
+        return None if row is None else st.table.page_of(row)
+
+    @locked_read
+    def kind_residents(self, target: str, api_version: str,
+                       kind: str) -> list[str]:
+        """Store keys of every resident row of (apiVersion, kind) — the
+        deletion scan for a rung-2 relist (Client.sync_kind)."""
+        st = self._state(target)
+        table = st.table
+        out: list[str] = []
+        for key, row in list(table.rows_items()):
+            meta = table.meta_at(row)
+            if meta is not None and meta.kind == kind \
+                    and meta.api_version == api_version:
+                out.append(key)
+        return out
+
+    def ledger_rv(self, target: str, kind: str) -> int:
+        """The kind's live RV watermark (0 = none recorded) — seeds the
+        reactor's first-event staleness check.  (The reference also
+        reads a restored snapshot's watermark map here: the port has no
+        snapshot tier, ROADMAP A8, so nothing fills ``ledger_restored``.)"""
+        st = self._state(target)
+        if not isinstance(st, TorchTargetState):
+            return 0
+        led = st.ledger
+        if led is not None:
+            ent = led.entries.get(kind)
+            if ent is not None and ent.rv:
+                return int(ent.rv)
+        return 0
+
+    def store_generation(self, target: str) -> int:
+        """The store's write generation: the reactor re-reacts a kind it
+        reacted moments ago when this moved (a sync controller's write
+        that landed after the react)."""
+        return int(self._state(target).table.generation)
 
     # ------------------------------------------------------------------
     # the audit sweep

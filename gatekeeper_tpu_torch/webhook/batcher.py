@@ -23,11 +23,9 @@ entries that are already expired or withdrawn *before* device dispatch,
 then sizes the batch so the cost-model-predicted evaluation latency
 fits the tightest deadline in the batch.
 
-Trimmed for the port: the JAX package's ``queue_storm`` fault seam (a
-one-shot stall of batch formation injected through its fault registry)
-is left out until the port has that registry.  The Stage-7 rung ladder
-(``certified_rungs``) is kept: the port's client returns None for it
-(no Stage 7 yet), so deadline shrinking halves.
+The Stage-7 rung ladder (``certified_rungs``) is kept: the port's
+client returns None for it (no Stage 7 yet), so deadline shrinking
+halves.
 """
 
 from __future__ import annotations
@@ -38,6 +36,7 @@ import time
 from typing import Callable
 
 from gatekeeper_tpu_torch.errors import GatekeeperError
+from gatekeeper_tpu_torch.resilience import faults
 from gatekeeper_tpu_torch.utils.metrics import Metrics
 
 DEFAULT_QUEUE_CAPACITY = 2048
@@ -339,6 +338,13 @@ class MicroBatcher:
                 if self.max_wait > 0 and len(self._queue) == 1 \
                         and not self._stop:
                     self._wake.wait(self.max_wait)
+            # fault seam: queue_storm stalls batch formation once (a
+            # simulated consumer stall) so the bounded queue absorbs —
+            # and then sheds — a pressure spike; the sleep is outside
+            # the lock so submits keep landing against the bound
+            if faults.take("queue_storm"):
+                time.sleep(float(os.environ.get(
+                    "GATEKEEPER_FAULT_STALL_S", "0.25")))
             with self._wake:
                 batch = self._take_batch(time.monotonic())
             batch = self._fit_to_deadline(batch)

@@ -10,9 +10,8 @@ machinery a cluster would provide; the serving semantics live here.
 
 Trimmed for the port: ``/healthz`` answers 200 with ``state: healthy``
 and the driver's device (the reference's backend supervisor and its
-restart-cache counters are ROADMAP A8), ``/metrics`` carries no
-supervisor registry, and ``/debug/violations`` has no ``reactors`` key
-(ROADMAP A4c).
+restart-cache counters are ROADMAP A8) and ``/metrics`` carries no
+supervisor registry.
 """
 
 from __future__ import annotations
@@ -171,13 +170,14 @@ class WebhookServer:
                 if self.path.split("?", 1)[0] == "/debug/violations":
                     # the continuously-true violation set + the recent
                     # delta event stream (enforce/ledger.py): one JSON
-                    # document per live VerdictLedger.  The reference
-                    # adds its event reactors' state under "reactors"
-                    # (enforce/reactor.py, ROADMAP A4c, not ported)
+                    # document per live VerdictLedger
                     import json as _json
                     from gatekeeper_tpu_torch.enforce.ledger import \
                         export_all
+                    from gatekeeper_tpu_torch.enforce.reactor import \
+                        export_state
                     doc = export_all()
+                    doc["reactors"] = export_state()
                     payload = _json.dumps(doc, default=str).encode()
                     self.send_response(200)
                     self.send_header("Content-Type", "application/json")

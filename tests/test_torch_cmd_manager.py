@@ -269,10 +269,10 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, env, item", [
-    (["--kubeconfig", "/nonexistent/kubeconfig"], {}, "ROADMAP A3"),
     (["--engine-worker-url", "http://127.0.0.1:1"], {}, "ROADMAP A3"),
     ([], {"GATEKEEPER_SNAPSHOT_DIR": "/tmp/snapshots"}, "ROADMAP A8"),
     ([], {"GATEKEEPER_FLIGHT_ADMISSION": "1"}, "ROADMAP A3"),
+    ([], {"GATEKEEPER_FAULT": "device_lost"}, "ROADMAP A8"),
 ])
 def test_unported_flags_and_variables_raise(argv, env, item, monkeypatch):
     """Each flag or variable that asks for a layer the port lacks is
@@ -288,6 +288,45 @@ def test_unported_flags_and_variables_raise(argv, env, item, monkeypatch):
     assert built == []
 
 
+def test_kubeconfig_builds_a_kube_cluster(tmp_path, monkeypatch):
+    """``--kubeconfig`` binds the manager to a real apiserver through
+    cluster/kube.py (here the HTTP stub of tests/fake_apiserver.py),
+    while the flags of layers still missing go on raising."""
+    from gatekeeper_tpu.cluster.fake import FakeCluster as StubCluster
+    from gatekeeper_tpu_torch.cluster.kube import KubeCluster
+    from tests.fake_apiserver import FakeApiServer
+    from gatekeeper_tpu.api.config import GVK as StubGVK
+    fc = StubCluster()
+    fc.register_kind(StubGVK("apiextensions.k8s.io", "v1beta1",
+                             "CustomResourceDefinition"),
+                     "customresourcedefinitions")
+    stub = FakeApiServer(fc).start()
+    path = tmp_path / "kubeconfig"
+    path.write_text(yaml.safe_dump({
+        "current-context": "c",
+        "contexts": [{"name": "c", "context": {"cluster": "c", "user": "u"}}],
+        "clusters": [{"name": "c", "cluster": {"server": stub.url + "/"}}],
+        "users": [{"name": "u", "user": {"token": "t"}}]}))
+    try:
+        mgr = Manager(parse_args(["--kubeconfig", str(path), "--port", "-1"]
+                                 + CPU))
+        mgr.cluster.close()
+        assert isinstance(mgr.cluster, KubeCluster) and mgr.async_cluster
+        assert mgr.cluster._server == stub.url
+        assert mgr.cluster._headers == {"Authorization": "Bearer t"}
+        for argv, env in ((["--engine-worker-url", "http://127.0.0.1:1"],
+                           {}),
+                          ([], {"GATEKEEPER_SNAPSHOT_DIR": "/tmp/snapshots"})):
+            with monkeypatch.context() as m:
+                for k, v in env.items():
+                    m.setenv(k, v)
+                with pytest.raises(ClientError, match="not yet ported"):
+                    Manager(parse_args(["--kubeconfig", str(path), "--port",
+                                        "-1"] + CPU + argv))
+    finally:
+        stub.stop()
+
+
 def test_main_sets_no_snapshot_dir(monkeypatch, capsys):
     """The reference's main turns warm-restart snapshots on by default;
     the port's leaves GATEKEEPER_SNAPSHOT_DIR alone (ROADMAP A8)."""
@@ -300,13 +339,18 @@ def test_main_sets_no_snapshot_dir(monkeypatch, capsys):
 
 
 def test_no_reactor_and_no_provider_kind_under_pages(monkeypatch):
-    """With GATEKEEPER_PAGES on (the default) the reference builds an
-    event reactor; the port builds none (ROADMAP A4c), and its sweeps
-    still take the paged route.  No Provider kind is served or
-    installed (ROADMAP A5)."""
-    monkeypatch.setenv("GATEKEEPER_PAGES", "on")
+    """With GATEKEEPER_PAGES on (the default) the manager builds an event
+    reactor and attaches it to the audit manager, as the reference does;
+    with pages off it builds none.  Its sweeps take the paged route.  No
+    Provider kind is served or installed (ROADMAP A5)."""
+    from gatekeeper_tpu_torch.enforce.reactor import Reactor
+    monkeypatch.setenv("GATEKEEPER_PAGES", "off")
+    assert Manager(parse_args(["--port", "-1"] + CPU)).reactor is None
+    monkeypatch.delenv("GATEKEEPER_PAGES")
     mgr = Manager(parse_args(["--port", "-1"] + CPU))
-    assert mgr.reactor is None
+    assert isinstance(mgr.reactor, Reactor)
+    assert mgr.audit._reactor is mgr.reactor
+    assert mgr.reactor._apply_objects is False
     assert not mgr.cluster.kind_served(
         GVK("externaldata.gatekeeper.sh", "v1beta1", "Provider"))
     out = run_demo(mgr, n_namespaces=40)

@@ -623,6 +623,16 @@ class TestPortEndpoints:
         assert json.loads(body) == {"state": "healthy", "backend": want}
 
     def test_debug_violations_has_no_reactors(self, handler):
+        """``/debug/violations`` carries ``reactors``, every live event
+        reactor's ``state_payload()``, keyed and shaped as the
+        reference's."""
+        import gc
+
+        from gatekeeper_tpu.enforce.reactor import Reactor as JReactor
+        from gatekeeper_tpu_torch.enforce.reactor import Reactor
+        gc.collect()                # reactors of earlier tests
+        rx = Reactor(handler.client, name="debug-reactor")
+        ref = JReactor(handler.client, name="debug-reactor")
         server = WebhookServer(handler, port=0)
         server.start()
         try:
@@ -632,7 +642,12 @@ class TestPortEndpoints:
             server.stop()
         doc = json.loads(body)
         assert status == 200 and "ledgers" in doc
-        assert "reactors" not in doc
+        mine = [r for r in doc["reactors"] if r["name"] == "debug-reactor"]
+        want = ref.state_payload()
+        assert len(mine) == 1 and mine[0].keys() == want.keys()
+        assert mine[0]["state"] == want["state"] == "live"
+        assert mine[0]["kinds"] == want["kinds"] == {}
+        del rx, ref
 
     def test_metrics_carry_no_supervisor_registry(self, handler):
         server = WebhookServer(handler, port=0)
