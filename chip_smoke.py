@@ -3,7 +3,7 @@ against its plain PyTorch version.
 
     python3 chip_smoke.py [--resources N] [--k2-only | --k1-only |
                            --k6k7-only | --k3-only | --admission-only |
-                           --manager-only | --reactor-only]
+                           --manager-only | --reactor-only | --worker-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -29,7 +29,8 @@ live bytes.
 ``--admission-only`` builds K3 alone and runs only phase 10, the
 admission micro-batch.  ``--manager-only`` builds K2, K3 and K4 and runs
 only phase 11, the manager process.  ``--reactor-only`` builds K2, K3,
-K4 and K6 and runs only phase 12, the event reactor.
+K4 and K6 and runs only phase 12, the event reactor.  ``--worker-only``
+builds K2, K3 and K4 and runs only phase 13, the engine worker split.
 
 Every TorchDriver starts a background warm-up of its kinds' churn-delta
 variants (K5) after its first capped legacy sweep, and a batch ingest of
@@ -64,7 +65,14 @@ Phases (each prints one line of its numbers):
        launch; K5 on the every-op programs at random rows;
        the library set (48 device-lowered templates) over 2,000
        make_mixed rows through TorchDriver on the card — K1 on every
-       program, K3 on the regex template — with the sweep's launch counts
+       program, K3 on the regex template — with the sweep's launch
+       counts; its capped results equal TorchDriver(device="cpu")'s on
+       the same store; then two forced full sweeps (``full_sweeps``):
+       results equal the memoized sweep's, no Triton variant compiled,
+       K1, K2 and K3 launched, device_s > 0, h2d_bytes the kinds'
+       Bindings.nbytes(), overlap_fraction under 0.05, the last sweep's
+       recorded launches equal to their plain versions; the phase dicts
+       printed
   4. main path — TorchDriver() with the north-star set (3 templates x 67
      constraints = 201) over --resources pods, cap 20: the ingest (its
      eager mirror's seconds), the wait for its ingest warm (its seconds,
@@ -87,7 +95,11 @@ Phases (each prints one line of its numbers):
      their plain versions on the churn's own inputs, their times at the
      churn's shapes (K4 per job and per batched call, each per call and
      device-only from a CUDA graph, beside torch.index_copy timed the
-     same ways), and device memory that stops growing
+     same ways), and device memory that stops growing; then the
+     full-sweep pair of 3d on the churned store (K1 and K2; results
+     equal the last churned sweep's, itself equal to the CPU driver's),
+     and K1, K2 (here) and K3 (the library's) timed at the full
+     sweeps' recorded inputs
   6. fleet — the fleet audit (B9): batched K1, K2 and K3 against their
      plain versions on stacked every-op cases (N 1-5, ragged sizes) and
      random masks; (a) 4 north-star clusters (100k, 90k, 80k and 60k
@@ -155,14 +167,14 @@ Phases (each prints one line of its numbers):
      kind's delta high-water and device bindings within its certificate
  10. admission — the review micro-batch (query_review_batch): 200
      constraints (K8sRequiredLabels and K8sAllowedRepos, 100 each) over
-     2,048 make_resources CREATE reviews; the scalar single-thread rate
+     1,024 make_resources CREATE reviews; the scalar single-thread rate
      over 1,024 query_review calls (4 chunks); every review's per-review
      answer (and the library batch's) from an oracle process started with
      the run (spawned, TorchDriver(device="cpu"), joined or stopped before
      the script ends), equal to those 1,024; with both routing thresholds
-     at 0, per batch size (64, 256, 1,024, 2,048) one untimed batch (its
+     at 0, per batch size (64, 256, 1,024) one untimed batch (its
      seconds and the Triton variants it compiles) and 4 timed batches (2
-     at 1,024, 1 at 2,048: reviews/s, K1 and K3 launches, h2d bytes), each
+     at 1,024: reviews/s, K1 and K3 launches, h2d bytes), each
      equal to per-review query_review, no variant compiled by a timed
      batch; the crossover (the smallest size whose slowest timed batch
      beats the fastest scalar chunk by more than the chunks' spread,
@@ -171,8 +183,8 @@ Phases (each prints one line of its numbers):
      units per second at each size (the slowest, rounded down: the cost
      prior); one batch of 1,024 make_mixed reviews (CREATE/UPDATE/DELETE)
      under the whole library, equal to per-review query_review, with K1
-     and K3 launched; K1 timed at the review batch's shapes (B 1,024 and
-     2,048) per call and device-only against its plain version and bound,
+     and K3 launched; K1 timed at the review batch's shape (B 1,024)
+     per call and device-only against its plain version and bound,
      K3 at the library batch's; a MicroBatcher over client.review_batch
      serving 256 submits from 8 threads, every response equal to
      query_review, every batch on the device pass
@@ -181,7 +193,7 @@ Phases (each prints one line of its numbers):
      "3600"])``, its TorchDriver on the card, ``start()``): the sync
      Config, the 3 north-star templates and K8sImageDigests, 202
      constraints (the north-star draws and one K8sImageDigests), 50
-     namespaces and 10,000 make_resources pods created as cluster
+     namespaces and MANAGER_PODS (5,000) make_resources pods created as cluster
      objects and synced by the controllers (objects/s); a cold and a
      steady ``audit.audit_once()`` whose written statuses equal a direct
      ``Client.audit(limit_per_constraint=20)`` on a second TorchDriver fed
@@ -200,7 +212,7 @@ Phases (each prints one line of its numbers):
      manager's defaults: ``Manager`` from ``parse_args(["--port", "0",
      "--audit-interval", "3600", ...])`` with GATEKEEPER_PAGES unset (on)
      and GATEKEEPER_DEVPAGES=on; the manager phase's 202 constraints and
-     REACTOR_PODS (2,000; ``--reactor-pods``) make_resources pods (every
+     REACTOR_PODS (1,200; ``--reactor-pods``) make_resources pods (every
      20th with an initContainer) through the controllers, pumped on the
      script's thread; a cold ``audit_once`` (the ledger's cold build) whose
      statuses equal a direct capped audit (a second TorchDriver, forced
@@ -220,7 +232,24 @@ Phases (each prints one line of its numbers):
      rung-2 resync that emits no event, back to live;
      /debug/violations over HTTP with the reactor live; ``stop()``; K4,
      K3, K1 and K6 timed at the window's own inputs
- 13. the kernels JSON line, the card line, and the final JSON line.
+ 13. worker — the engine worker split (``worker_phase``): (a) an
+     in-process EngineWorker over TorchDriver on the card behind the
+     Manager of ``parse_args([... "--engine-worker-url", url])``: the
+     manager phase's 202 constraints, 50 namespaces and WORKER_PODS
+     (2,000) pods through the controllers and the HTTP seam (objects/s);
+     a cold (K1, K2, K3 recorded and held against plain), steady,
+     churned (WORKER_CHURN pods: K4, K5, no full K1) and full=True
+     audit_once (a forced
+     full sweep in the worker), each with statuses equal to a direct
+     capped audit; WORKER_REVIEWS (128) reviews POSTed from 8 threads,
+     answers equal to the oracle process's; (b)
+     ReplicaPool.spawn_workers(2) on the card: the card's used memory
+     grown by a context a worker, each replica's capped audit and the
+     pool's equal to the direct client's, and WORKER_REVIEWS reviews
+     through a ValidationHandler over the pool at 1 and 2 replicas
+     (reviews/s), answers equal to the oracle's; K1, K2, K3 timed at
+     (a)'s cold inputs
+ 14. the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages and reactor sweeps with GATEKEEPER_PAGES=off:
 they measure the legacy sweep and assert its launch counts, and the
 port, like the reference, defaults to the paged route.
@@ -231,6 +260,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import hashlib
 import json
@@ -1027,6 +1057,23 @@ def k1_times(run, plain, iters: int = 20) -> dict:
     CUDA graph), and its plain version per call."""
     return {"ms": cuda_ms(run, iters), "device_ms": graph_ms(run, iters),
             "plain_ms": cuda_ms(plain, iters=3, warmup=1)}
+
+
+def k1_family(ex, ir_eval, calls) -> dict:
+    """K1 per call and device-only and its plain version, mean over the
+    distinct programs of ``calls`` (recorded ``((program, d), out)``),
+    with the bound."""
+    t = collections.Counter()
+    by, seen = "bytes", {}
+    for (program, d), _out in calls:
+        seen.setdefault(id(program), (program, d))
+    for program, d in seen.values():
+        bms, by = k1_bound_of(ex, ir_eval, program, d)
+        t["bound_ms"] += bms / len(seen)
+        for key, v in k1_times(lambda: ir_eval.eval_mask(program, d),
+                               lambda: ex._eval_mask(program, d)).items():
+            t[key] += v / len(seen)
+    return {**t, "bound_by": by, "library_ms": None}
 
 
 def k1_text(n: dict) -> str:
@@ -2568,7 +2615,7 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
 
 
 
-ADMISSION_SIZES = (64, 256, 1024, 2048)
+ADMISSION_SIZES = (64, 256, 1024)
 ADMISSION_KINDS = ("K8sRequiredLabels", "K8sAllowedRepos")
 ADMISSION_C_PER_KIND = 100
 ADMISSION_SCALAR = 1024
@@ -2735,7 +2782,7 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     scalar single-thread rate over ADMISSION_SCALAR ``query_review``
     calls, timed in 4 chunks; then, with both routing thresholds at 0,
     per batch size one untimed batch (the Triton variants it compiles
-    and its seconds) and 4 timed batches (2 at 1,024, 1 at 2,048):
+    and its seconds) and 4 timed batches (2 from 1,024 on, 1 from 2,048):
     reviews per second, K1 and K3 launches and h2d bytes per batch.
     Every batch equals per-review ``query_review`` (the first
     ADMISSION_SCALAR answers from the timed calls, all of them from
@@ -2747,8 +2794,8 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     the defaults of ``REVIEW_BATCH_MIN_EVALS`` and the cost prior.  Then
     one batch of ADMISSION_LIBRARY make_mixed reviews (CREATE, UPDATE
     and DELETE) under the whole library (K3, the operation gate, the
-    inventory-join gate), K1 timed at the review batch's shape (B =
-    1,024 and 2,048) and K3 at the library batch's, and a MicroBatcher
+    inventory-join gate), K1 timed at the review batch's shape (each B
+    from 1,024 on) and K3 at the library batch's, and a MicroBatcher
     serving ADMISSION_SUBMITS concurrent submits from ADMISSION_THREADS
     threads through ``client.review_batch``."""
     from gatekeeper_tpu_torch.analysis import costmodel
@@ -2813,7 +2860,7 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     path_counts = collections.Counter()
     for B in ADMISSION_SIZES:
         batch = reviews[:B]
-        # the first batch of 1,024 and 2,048 keeps K1's inputs, for its
+        # the first batch of 1,024 and more keeps K1's inputs, for its
         # times at the review batch's shape below
         store: list = []
         orig_k1 = ir_eval.eval_mask
@@ -2830,7 +2877,7 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
             calls[B] = [args for args, _res in store]
         v1 = triton_variants(ir_eval)
         check(got, 0, f"first batch of {B}")
-        # 4 timed batches, 2 at 1,024 and 1 at 2,048 (about half a
+        # 4 timed batches, 2 from 1,024 and 1 from 2,048 (about half a
         # minute of host confirmation each there): the script's time limit
         reps = 4 if B < 1024 else 2 if B < 2048 else 1
         times, h2d = [], []
@@ -3032,7 +3079,7 @@ def admission_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
           f"equals query_review", flush=True)
 
 
-MANAGER_PODS = 10_000
+MANAGER_PODS = 5_000
 MANAGER_NAMESPACES = 50
 MANAGER_SEED = 31
 MANAGER_CHURN = 200
@@ -3571,25 +3618,8 @@ def manager_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     # manager is stopped: no other thread launches during a graph
     # capture); one entry a kernel in the kernels line
     join_warms()
-
-    def k1_family(calls) -> dict:
-        """K1 per call and device-only and its plain version, mean over
-        the distinct programs of ``calls``, with the bound."""
-        t = collections.Counter()
-        by, seen = "bytes", {}
-        for (program, d), _out in calls:
-            seen.setdefault(id(program), (program, d))
-        for program, d in seen.values():
-            bms, by = k1_bound_of(ex, ir_eval, program, d)
-            t["bound_ms"] += bms / len(seen)
-            for key, v in k1_times(lambda: ir_eval.eval_mask(program, d),
-                                   lambda: ex._eval_mask(program,
-                                                         d)).items():
-                t[key] += v / len(seen)
-        return {**t, "bound_by": by, "library_ms": None}
-
     rec["K1mgr"] = {"launches": cold_counts["K1"], "max_abs_err": errs["K1"],
-                    **k1_family(k1_calls)}
+                    **k1_family(ex, ir_eval, k1_calls)}
     k2 = collections.Counter()
     for (viol, rnk, k), _out in k2_calls:
         nums = k2_numbers(topk, viol, rnk, k)
@@ -3604,7 +3634,8 @@ def manager_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     rec["K5mgr"] = {"launches": churn_counts["K5"], "max_abs_err": errs["K5"],
                     **k5_numbers(ex, ir_eval, [a for a, _ in k5_calls])}
     rec["K1rmgr"] = {"launches": rb_counts["K1r"],
-                     "max_abs_err": errs["K1r"], **k1_family(k1r_calls)}
+                     "max_abs_err": errs["K1r"],
+                     **k1_family(ex, ir_eval, k1r_calls)}
     rec["K3rmgr"] = {"launches": rb_counts["K3r"],
                      "max_abs_err": errs["K3r"],
                      **k3_numbers(dfa, k3r_calls[0][0])}
@@ -3622,7 +3653,7 @@ def manager_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
         k3r_calls
 
 
-REACTOR_PODS = 2_000
+REACTOR_PODS = 1_200
 REACTOR_SEED = 41
 REACTOR_INIT_EVERY = 20
 REACTOR_INIT = {"name": "init0", "image": "evil.io/reactor:1"}
@@ -4101,6 +4132,496 @@ def reactor_phase(rec: dict, fns: dict,
     del direct, few, mgr, k1_calls, k3_calls, k5_calls, k6_calls
 
 
+class RecordK123:
+    """While entered, K1, K2 and K3 stand in under their modules' names
+    by recording wrappers (``recording``): each call's arguments and
+    result land in ``calls["K1"]``, ``["K2"]`` and ``["K3"]``, and each
+    wrapper counts the launches."""
+
+    def __init__(self):
+        from gatekeeper_tpu_torch.kernels import dfa, ir_eval, topk
+        self._slots = ((ir_eval, "eval_mask", "K1"),
+                       (topk, "topk_packed", "K2"), (dfa, "dfa_table", "K3"))
+        self.calls: dict[str, list] = {k: [] for *_, k in self._slots}
+        self._orig: list = []
+
+    def __enter__(self) -> "RecordK123":
+        for mod, name, key in self._slots:
+            fn = getattr(mod, name)
+            self._orig.append((mod, name, fn))
+            setattr(mod, name, recording(fn, self.calls[key]))
+        return self
+
+    def counts(self) -> dict:
+        return {key: getattr(mod, name).launches
+                for mod, name, key in self._slots}
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+        self._orig.clear()
+
+
+def check_k123(ex, calls: dict, what: str) -> dict:
+    """Every recorded K1, K2 and K3 launch of ``calls`` (RecordK123)
+    against its plain version on the same inputs: the largest error of
+    each (0 or the run fails)."""
+    from gatekeeper_tpu_torch.kernels import dfa, topk
+    torch.cuda.synchronize()
+    errs = {"K1": 0.0, "K2": 0, "K3": 0.0}
+    for (program, d), out in calls["K1"]:
+        want = ex._eval_mask(program, d)
+        if not torch.equal(out, want):
+            fail(f"{what}: K1 mismatch")
+        errs["K1"] = max(errs["K1"], max_err(out, want))
+    for (viol, rnk, k), out in calls["K2"]:
+        errs["K2"] = max(errs["K2"], packed_err(
+            out, topk.topk_packed_plain(viol, rnk, k), k))
+    if errs["K2"]:
+        fail(f"{what}: K2 mismatch")
+    for ins, out in calls["K3"]:
+        want = dfa.dfa_table_plain(*ins)
+        if not torch.equal(out, want):
+            fail(f"{what}: K3 mismatch")
+        errs["K3"] = max(errs["K3"], max_err(out, want))
+    return errs
+
+
+def k123_entries(rec: dict, suffix: str, calls: dict, counts: dict,
+                 errs: dict) -> None:
+    """The kernels-line entries ``K1<suffix>``, ``K2<suffix>`` and
+    ``K3<suffix>`` (those with recorded calls): each timed per call and
+    device-only at the path's recorded inputs (K1 and K2 mean over its
+    kinds), with its launches on the path and its error against plain.
+    Every warm thread is joined first (a CUDA-graph capture fails while
+    another thread launches)."""
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.kernels import dfa, ir_eval, topk
+    join_warms()
+    if calls["K1"]:
+        rec["K1" + suffix] = {"launches": counts["K1"],
+                              "max_abs_err": errs["K1"],
+                              **k1_family(ex, ir_eval, calls["K1"])}
+    if calls["K2"]:
+        k2 = collections.Counter()
+        for (viol, rnk, k), _out in calls["K2"]:
+            nums = k2_numbers(topk, viol, rnk, k)
+            by = nums.pop("bound_by")
+            k2.update({key: v / len(calls["K2"]) for key, v in nums.items()})
+        rec["K2" + suffix] = {"launches": counts["K2"],
+                              "max_abs_err": errs["K2"], **k2,
+                              "bound_by": by}
+    if calls["K3"]:
+        rec["K3" + suffix] = {"launches": counts["K3"],
+                              "max_abs_err": errs["K3"],
+                              **k3_numbers(dfa, calls["K3"][0][0])}
+
+
+FULL_SWEEP_OVERLAP_MAX = 0.05   # a full sweep's overlap_fraction, at most
+FULL_SWEEPS = 2                 # forced full sweeps a store
+
+
+def full_sweeps(drv, fns, want: list, what: str, need: tuple,
+                record: dict | None = None) -> dict:
+    """FULL_SWEEPS forced full sweeps (``QueryOpts(full=True)``, cap CAP)
+    on ``drv``, each with the launch counts set to 0 just before it and
+    read just after.  Each must return ``want`` (the memoized sweep's
+    results, which the caller holds equal to
+    ``TorchDriver(device="cpu")``'s), compile no Triton variant, launch
+    each kernel of ``need``, report ``serial``, ``device_s`` > 0,
+    ``h2d_bytes`` equal to the sum of the kinds' ``Bindings.nbytes()``
+    and an ``overlap_fraction`` under FULL_SWEEP_OVERLAP_MAX (the kinds
+    run one at a time).  With ``record`` the last sweep's K1, K2 and K3
+    calls are kept there (``calls``, ``counts``) and checked against
+    their plain versions.  Returns the sweeps' wall seconds, launches and
+    phases, in order."""
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.kernels import ir_eval
+    out: dict = {"sweeps": []}
+    join_warms()
+    for i in range(FULL_SWEEPS):
+        last = i == FULL_SWEEPS - 1
+        v0 = triton_variants(ir_eval)
+        with RecordK123() if record is not None and last \
+                else contextlib.nullcontext() as r:
+            reset_counts(fns)
+            t0 = time.perf_counter()
+            res, _ = drv.query_audit(TARGET, QueryOpts(
+                limit_per_constraint=CAP, full=True))
+            wall = time.perf_counter() - t0
+            counts = r.counts() if r is not None else {
+                k: v for k, v in launch_counts(fns).items()
+                if k in ("K1", "K2", "K3")}
+        v1 = triton_variants(ir_eval)
+        ph = drv.last_sweep_phases
+        nbytes = sum(b.nbytes() for _k, b in
+                     drv._state(TARGET).bindings_cache.values())
+        if norm(res) != want:
+            fail(f"{what}: full sweep {i}'s results differ from the "
+                 f"memoized sweep's")
+        if None in (v0, v1) or v1 != v0:
+            fail(f"{what}: full sweep {i} compiled Triton variants ({v0} "
+                 f"before, {v1} after)")
+        if not ph.get("full") or ph["serial"] is not True \
+                or ph["device_s"] <= 0 or ph["h2d_bytes"] != nbytes:
+            fail(f"{what}: full sweep {i}'s phases {ph} (the kinds' "
+                 f"bindings hold {nbytes} bytes)")
+        if ph["overlap_fraction"] >= FULL_SWEEP_OVERLAP_MAX:
+            fail(f"{what}: full sweep {i} overlapped "
+                 f"{ph['overlap_fraction']}")
+        if min(counts[k] for k in need) <= 0:
+            fail(f"{what}: full sweep {i} launched {counts}, not each of "
+                 f"{need}")
+        att = ph.get("attribution") or {"templates": []}
+        drift = [t["drift"] for t in att["templates"]
+                 if t["drift"] is not None]
+        out["sweeps"].append({
+            "wall_s": round(wall, 4), "launches": counts,
+            "phases": {k: v for k, v in ph.items()
+                       if k not in ("pages", "devpages", "attribution")},
+            "attribution": {
+                "templates": len(att["templates"]),
+                "device_s": att.get("device_s"),
+                "drift": [min(drift), max(drift)] if drift else None}})
+        if r is not None:
+            record["calls"], record["counts"] = r.calls, counts
+            record["errs"] = check_k123(ex, r.calls, what)
+    return out
+
+
+WORKER_PODS = 2_000
+WORKER_CHURN = 40
+WORKER_REVIEWS = 128
+WORKER_REPLICAS = 2
+WORKER_START_S = 300.0
+WORKER_CONTEXT_MIN = 256 << 20   # card bytes a worker's context holds, at least
+
+
+def worker_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
+    """The engine worker split on the card.  (a) An in-process
+    ``EngineWorker`` (a fresh ``TorchDriver`` on the card at each
+    ``init``, served on a thread) behind the manager built from
+    ``parse_args([... "--engine-worker-url", <url>])``: the manager
+    phase's policy, MANAGER_NAMESPACES namespaces and WORKER_PODS pods
+    through the controllers and the HTTP seam (objects/s); a cold, a
+    steady, a churned (WORKER_CHURN pods relabelled) and a ``full=True``
+    ``audit_once``, each with the launch counts set to 0 just before it:
+    K1, K2 and K3 launched cold (each recorded launch equal to its
+    plain version), K4 and K5 and no full K1 churned, a forced full
+    sweep in the worker (its phases); statuses equal to a direct capped
+    audit on a second TorchDriver fed the cluster's stored objects;
+    WORKER_REVIEWS CREATE reviews POSTed from MANAGER_THREADS threads
+    (the shipped batch_mode auto: one scalar query a review through the
+    worker), every answer equal to the oracle process's.  (b)
+    ``ReplicaPool.spawn_workers(WORKER_REPLICAS)`` on the card: the
+    card's used memory (``torch.cuda.mem_get_info``) grown by at least
+    WORKER_CONTEXT_MIN a worker, both pids in ``nvidia-smi
+    --query-compute-apps`` where it shows this pid namespace, a capped
+    audit through the pool and through each replica equal to the direct
+    client's, and
+    WORKER_REVIEWS reviews through a ValidationHandler over the pool
+    from MANAGER_THREADS threads at 1 replica and at 2 (reviews/s),
+    every answer equal to the oracle's.  Then K1, K2 and K3 timed at
+    (a)'s cold sweep's inputs."""
+    from gatekeeper_tpu_torch.api.config import GVK
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.client.remote_driver import (EngineWorker,
+                                                           RemoteDriver)
+    from gatekeeper_tpu_torch.client.replica_pool import ReplicaPool
+    from gatekeeper_tpu_torch.cmd.manager import Manager, parse_args
+    from gatekeeper_tpu_torch.controllers.constrainttemplate import \
+        TEMPLATE_GVK
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.library.north_star import make_resources
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
+
+    from gatekeeper_tpu_torch.engine import torch_driver
+
+    # every kind on the device in this process (K8sImageDigests' one
+    # constraint included), as the phases before it leave it
+    saved_small = torch_driver.SMALL_WORKLOAD_EVALS
+    torch_driver.SMALL_WORKLOAD_EVALS = 0
+    ns_gvk, pod_gvk = GVK("", "v1", "Namespace"), GVK("", "v1", "Pod")
+    cfg, templates, constraints = manager_docs()
+    kinds = sorted({t["spec"]["crd"]["spec"]["names"]["kind"]
+                    for t in templates})
+    pods = make_resources(WORKER_PODS, random.Random(MANAGER_SEED))
+    reqs = manager_reviews()[:WORKER_REVIEWS]
+    answers = oracle.result()[3]
+    if answers is None:
+        fail("worker: the oracle process gave no manager answers")
+    answers = answers[:WORKER_REVIEWS]
+
+    def check_answers(got, what: str) -> None:
+        have = [response_digest(r) for r in got]
+        if have != answers:
+            bad = next(i for i, (a, b) in enumerate(zip(have, answers))
+                       if a != b)
+            fail(f"worker {what}: review {bad} answers {got[bad]['status']} "
+                 f"unlike the per-review oracle")
+
+    # -- (a) the manager over an in-process worker
+    worker = EngineWorker(TorchDriver)
+    worker.start()
+    mgr = Manager(parse_args(["--port", "0", "--audit-interval", "3600",
+                              "--engine-worker-url", worker.url]))
+    if not isinstance(mgr.client.driver, RemoteDriver):
+        fail(f"worker: the manager's driver is {mgr.client.driver}")
+    mgr.start()
+    try:
+        cluster, drv = mgr.cluster, worker.driver
+        if drv.device.type != "cuda":
+            fail(f"worker: the worker's driver is on {drv.device}")
+        added = [0]
+        add_data = mgr.client.add_data
+
+        def counting(obj):
+            out = add_data(obj)
+            added[0] += 1
+            return out
+
+        mgr.client.add_data = counting
+        t0 = time.perf_counter()
+        cluster.create(copy.deepcopy(cfg))
+        for t in templates:
+            cluster.create(copy.deepcopy(t))
+        for c in constraints:
+            cluster.create(copy.deepcopy(c))
+        wait_until(lambda: sum(len(v) for v in mgr.client.constraints
+                               .values()) == len(constraints)
+                   and mgr.plane.watch_manager.watched_gvks() >=
+                   {ns_gvk, pod_gvk}, "the templates and constraints")
+        policy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(MANAGER_NAMESPACES):
+            cluster.create({"apiVersion": "v1", "kind": "Namespace",
+                            "metadata": {"name": f"ns{i}"}})
+        for p in pods:
+            cluster.create(copy.deepcopy(p))
+        n_objs = MANAGER_NAMESPACES + WORKER_PODS
+        st = drv._state(TARGET)
+        wait_until(lambda: st.table.n_rows >= n_objs, "the ingest")
+        ingest_s = time.perf_counter() - t0
+        quiet(mgr, added)
+        if st.table.n_rows != n_objs:
+            fail(f"worker: the worker's store holds {st.table.n_rows} "
+                 f"objects, not {n_objs}")
+        print(f"phase worker ingest: {len(constraints)} constraints "
+              f"reconciled into the worker in {policy_s:.4f}s; "
+              f"{n_objs} objects synced through the controllers and the "
+              f"worker's HTTP seam in {ingest_s:.4f}s = "
+              f"{n_objs / ingest_s:.1f} objects/s ({added[0]} add_data "
+              f"calls)", flush=True)
+
+        direct = Backend(TorchDriver()).new_client([K8sValidationTarget()])
+        for t in cluster.list(TEMPLATE_GVK):
+            direct.add_template(t)
+        for kind in kinds:
+            for c in cluster.list(GVK("constraints.gatekeeper.sh",
+                                      "v1alpha1", kind)):
+                direct.add_constraint(c)
+        direct.add_data_batch(cluster.list(ns_gvk) + cluster.list(pod_gvk))
+
+        def check_statuses(what: str) -> int:
+            got = constraint_statuses(cluster, kinds)
+            want = direct_statuses(direct, got)
+            bad = [k for k in got if got[k] != want[k]]
+            if len(got) != len(constraints) or bad:
+                fail(f"worker {what}: {len(bad)} of {len(got)} constraints' "
+                     f"written status.violations differ from the direct "
+                     f"client's")
+            return sum(len(v or ()) for v in got.values())
+
+        # cold, recording K1, K2 and K3 in the worker's driver
+        with RecordK123() as r:
+            reset_counts(fns)
+            cold = mgr.audit.audit_once()
+            cold_counts = r.counts()
+        cold_calls = r.calls
+        if min(cold_counts.values()) <= 0:
+            fail(f"worker: the cold audit_once launched {cold_counts}")
+        errs = check_k123(ex, cold_calls, "worker cold audit")
+        n_viol = check_statuses("cold audit")
+        drv.wait_delta_warm()
+        steady = mgr.audit.audit_once()
+        check_statuses("steady audit")
+
+        churn_rng = random.Random(MANAGER_SEED + 2)
+        label_pool = [f"l{j}" for j in range(10)]
+        before = added[0]
+        changed = []
+        for i in churn_rng.sample(range(WORKER_PODS), WORKER_CHURN):
+            meta = pods[i]["metadata"]
+            obj = cluster.get(pod_gvk, meta["name"], meta["namespace"])
+            old = obj["metadata"].get("labels") or {}
+            new = old
+            while new == old:
+                new = {k: "v" for k in label_pool
+                       if churn_rng.random() < 0.35}
+            obj["metadata"]["labels"] = new
+            changed.append(cluster.update(obj))
+        wait_until(lambda: added[0] >= before + WORKER_CHURN, "the churn")
+        quiet(mgr, added)
+        for o in changed:
+            direct.add_data(cluster.get(pod_gvk, o["metadata"]["name"],
+                                        o["metadata"]["namespace"]))
+        reset_counts(fns)
+        churned = mgr.audit.audit_once()
+        churn_counts = launch_counts(fns)
+        if churn_counts["K1"] or churn_counts["K5"] <= 0 \
+                or max(churn_counts["K4"], churn_counts["K4m"]) <= 0:
+            fail(f"worker: the churned audit_once did not take the delta "
+                 f"plan: launches {churn_counts}")
+        check_statuses("churned audit")
+
+        reset_counts(fns)
+        full = mgr.audit.audit_once(full=True)
+        full_counts = {k: v for k, v in launch_counts(fns).items()
+                       if k in ("K1", "K2", "K3")}
+        ph = drv.last_sweep_phases
+        if min(full_counts.values()) <= 0 or not ph.get("full") \
+                or ph["device_s"] <= 0:
+            fail(f"worker: audit_once(full=True) ran no forced full sweep "
+                 f"in the worker: launches {full_counts}, phases "
+                 f"{ {k: v for k, v in ph.items() if k != 'pages'} }")
+        check_statuses("full audit")
+        print(f"phase worker audit: audit_once through the worker, eval + "
+              f"write: cold {cold['eval_seconds']:.4f} + "
+              f"{cold['write_seconds']:.4f}s (launches {cold_counts}), "
+              f"steady {steady['eval_seconds']:.4f} + "
+              f"{steady['write_seconds']:.4f}s, churned "
+              f"{churned['eval_seconds']:.4f} + "
+              f"{churned['write_seconds']:.4f}s (launches "
+              f"{ {k: v for k, v in churn_counts.items() if v} }), "
+              f"full=True {full['eval_seconds']:.4f} + "
+              f"{full['write_seconds']:.4f}s (launches {full_counts}; the "
+              f"worker's phases host_prep {ph['host_prep_s']} h2d "
+              f"{ph['h2d_s']} device {ph['device_s']} format "
+              f"{ph['format_s']} wall {ph['pipeline_wall_s']} overlap "
+              f"{ph['overlap_fraction']}); {n_viol} status violations "
+              f"equal to the direct client's after each", flush=True)
+
+        got, lat, wall, errors = post_all(mgr.webhook.port, reqs)
+        if errors:
+            fail(f"worker: admission requests failed: {errors[:3]}")
+        check_answers(got, "admission")
+        print(f"phase worker admission: {len(reqs)} reviews POSTed from "
+              f"{MANAGER_THREADS} threads (batch_mode auto, one query a "
+              f"review through the worker) in {wall:.4f}s = "
+              f"{len(reqs) / wall:.1f} reviews/s, p50 "
+              f"{quantile(lat, 0.5) * 1e3:.2f} ms p99 "
+              f"{quantile(lat, 0.99) * 1e3:.2f} ms; every answer equals "
+              f"the per-review oracle", flush=True)
+        direct_res = norm(direct.audit(limit_per_constraint=CAP).results())
+        direct.driver.wait_delta_warm()
+        objs = cluster.list(ns_gvk) + cluster.list(pod_gvk)
+    finally:
+        mgr.stop()
+        worker.stop()
+    join_warms()
+    k123_entries(rec, "wk", cold_calls, cold_counts, errs)
+    del mgr, worker, drv, st, direct, cold_calls, r
+
+    # -- (b) a pool of worker processes on the card
+    def compute_apps() -> list:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout
+        return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+    apps0 = compute_apps()
+    free0, _total = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    pool = ReplicaPool.spawn_workers(WORKER_REPLICAS, timeout=WORKER_START_S)
+    try:
+        start_s = time.perf_counter() - t0
+        pids = [p.pid for p in pool._procs]
+        client = Backend(pool).new_client([K8sValidationTarget()])
+        for t in templates:
+            client.add_template(t)
+        for c in constraints:
+            client.add_constraint(c)
+        t0 = time.perf_counter()
+        client.add_data_batch(objs)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pooled = client.audit(limit_per_constraint=CAP).results()
+        audit_s = time.perf_counter() - t0
+        if norm(pooled) != direct_res:
+            fail("worker pool: the capped audit through the pool differs "
+                 "from the direct client's on the same objects")
+        # each replica audits on its own card context too (the pool's
+        # audit ran on one of them)
+        full_pool = pool.drivers
+        for d in full_pool:
+            pool.drivers = [d]
+            if norm(client.audit(limit_per_constraint=CAP).results()) \
+                    != direct_res:
+                fail(f"worker pool: replica {d.url} audits unlike the "
+                     f"direct client")
+        pool.drivers = full_pool
+        # each worker holds a CUDA context of its own: the card's used
+        # memory grows by at least WORKER_CONTEXT_MIN a worker, and where
+        # nvidia-smi shows this process's pid namespace (a container may
+        # list every process under one pid) both pids are listed
+        free1, _total = torch.cuda.mem_get_info()
+        apps = compute_apps()
+        listed = [ln.split(",")[0].strip() for ln in apps]
+        if free0 - free1 < WORKER_REPLICAS * WORKER_CONTEXT_MIN or (
+                len(set(listed)) == len(listed)
+                and not {str(p) for p in pids} <= set(listed)):
+            fail(f"worker pool: the card's used memory grew "
+                 f"{free0 - free1} bytes with {WORKER_REPLICAS} workers "
+                 f"{pids}; nvidia-smi compute apps {apps} (before the "
+                 f"spawn {apps0})")
+        rates = {}
+        handler = ValidationHandler(client)
+        for n in (1, WORKER_REPLICAS):
+            pool.drivers = full_pool[:n]
+            got = [None] * len(reqs)
+            errors: list = []
+
+            def serve(w):
+                try:
+                    for i in range(w, len(reqs), MANAGER_THREADS):
+                        got[i] = handler.handle(reqs[i])
+                except Exception as e:      # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=serve, args=(w,))
+                       for w in range(MANAGER_THREADS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(600)
+            rates[n] = len(reqs) / (time.perf_counter() - t0)
+            if errors:
+                fail(f"worker pool: reviews failed: {errors[:3]}")
+            check_answers(got, f"pool of {n}")
+        pool.drivers = full_pool
+        print(f"phase worker pool: {WORKER_REPLICAS} worker processes on "
+              f"the card (pids {pids}; the card's used memory "
+              f"{free0 - free1} bytes more than before the spawn; "
+              f"nvidia-smi compute apps {apps0} before, {apps} after) up in "
+              f"{start_s:.2f}s; each replica's capped audit equal to the "
+              f"direct client's; the store "
+              f"broadcast in {load_s:.4f}s; a capped audit through the pool "
+              f"{audit_s:.4f}s, {len(pooled)} results as the direct "
+              f"client's; {len(reqs)} reviews from {MANAGER_THREADS} "
+              f"threads through a ValidationHandler over the pool: "
+              + ", ".join(f"{n} replica{'s' if n > 1 else ''} "
+                          f"{rates[n]:.1f} reviews/s" for n in rates)
+              + "; every answer equals the per-review oracle", flush=True)
+    finally:
+        pool.close()
+    torch_driver.SMALL_WORKLOAD_EVALS = saved_small
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
@@ -4129,6 +4650,10 @@ def main() -> int:
                       help="build K2, K3, K4 and K6 and run only the "
                       "reactor phase (the manager with pages and devpages "
                       "on: watch events into the verdict ledger)")
+    only.add_argument("--worker-only", action="store_true",
+                      help="build K2, K3 and K4 and run only the worker "
+                      "phase (the manager over an engine worker, a pool of "
+                      "worker processes)")
     ap.add_argument("--reactor-pods", type=int, default=REACTOR_PODS,
                     help="pods of the reactor phase (REACTOR_PODS by "
                     "default): its cold ledger build and rung-2 resync "
@@ -4169,7 +4694,7 @@ def main() -> int:
                        if args.k1_only or args.k3_only or args.admission_only
                        else ("devdelta", "invjoin")
                        if args.k6k7_only else ("topk", "dfa", "scatter")
-                       if args.manager_only else
+                       if args.manager_only or args.worker_only else
                        ("topk", "dfa", "scatter", "devdelta")
                        if args.reactor_only else build.KERNELS)
     import triton
@@ -4182,7 +4707,8 @@ def main() -> int:
     # the admission phase's per-review answers, in a process of their own
     # while the card runs the phases before it
     answers = AdmissionOracle(("admission",)) if args.admission_only \
-        else AdmissionOracle(("manager",)) if args.manager_only \
+        else AdmissionOracle(("manager",)) \
+        if args.manager_only or args.worker_only \
         else None if (args.k1_only or args.k2_only or args.k3_only
                       or args.k6k7_only or args.reactor_only) \
         else AdmissionOracle()
@@ -4249,6 +4775,10 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         return 0
     if args.reactor_only:
         reactor_phase(rec, fns, args.reactor_pods)
+        print(card, flush=True)
+        return 0
+    if args.worker_only:
+        worker_phase(rec, fns, oracle=answers)
         print(card, flush=True)
         return 0
 
@@ -4419,6 +4949,28 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
           f"launches {lib_counts}; {lib_warm}; K1 == "
           f"plain on {n_k1} programs; K3 == plain on {k3[0]}: "
           f"{k3_text(dfa, k3[1], k3_lib)}", flush=True)
+    # forced full sweeps of the library store: many kinds, each with its
+    # own phase seconds; held against the memoized sweep and the CPU
+    # driver on the same store
+    lib_cpu = TorchDriver(device="cpu")
+    cpu_lib = Backend(lib_cpu).new_client([K8sValidationTarget()])
+    for t, con in all_docs():
+        cpu_lib.add_template(t)
+        cpu_lib.add_constraint(con)
+    cpu_lib.add_data_batch(make_mixed(random.Random(0), LIBRARY_ROWS))
+    if norm(lib_cpu.query_audit(TARGET, QueryOpts(
+            limit_per_constraint=CAP))[0]) != norm(lib_res):
+        fail("library: the card's capped sweep differs from "
+             "TorchDriver(device='cpu')")
+    del lib_cpu, cpu_lib
+    fs_lib: dict = {}
+    lib_full = full_sweeps(lib_drv, fns, norm(lib_res), "library",
+                           ("K1", "K2", "K3"), record=fs_lib)
+    print(f"phase full sweep library: {len(st.templates)} templates x "
+          f"{LIBRARY_ROWS} rows, cap {CAP}, results equal the memoized "
+          f"sweep's and TorchDriver(cpu)'s, no Triton variant compiled, "
+          f"h2d_bytes = the kinds' Bindings.nbytes(): {json.dumps(lib_full)}",
+          flush=True)
     del lib_drv, lib, st
 
     # ---- 4. main path: north star on the card
@@ -4695,6 +5247,16 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     print(f"phase churn memory: memory_allocated after each sweep {mem}; "
           f"third - second {mem[2] - mem[1]} bytes (< one mask, "
           f"{c_pad * r_pad})", flush=True)
+    # forced full sweeps of the churned north-star store, against the
+    # last churned sweep (equal to TorchDriver(cpu)'s)
+    fs_ns: dict = {}
+    ns_full = full_sweeps(drv, fns, norm(res), "north star", ("K1", "K2"),
+                          record=fs_ns)
+    print(f"phase full sweep north star: {args.resources} pods x 201 "
+          f"constraints, cap {CAP}, after the churn: results equal the "
+          f"memoized sweep's and TorchDriver(cpu)'s, no Triton variant "
+          f"compiled, h2d_bytes = the kinds' Bindings.nbytes(): "
+          f"{json.dumps(ns_full)}", flush=True)
     del drv, client, cpu, cpu_client, x
 
     # the scalar oracle on a subsample
@@ -4747,6 +5309,23 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
           f"to plain on the string table, {k3_text(dfa, ins, rec['K3'])}",
           flush=True)
     del dig, dc, st, arrays
+    # K1 and K2 at the north-star full sweep's recorded inputs, K3 at the
+    # library full sweep's (the north star has no regex template)
+    k123_entries(rec, "fs", {"K1": fs_ns["calls"]["K1"],
+                             "K2": fs_ns["calls"]["K2"],
+                             "K3": fs_lib["calls"]["K3"]},
+                 {"K1": fs_ns["counts"]["K1"], "K2": fs_ns["counts"]["K2"],
+                  "K3": fs_lib["counts"]["K3"]},
+                 {"K1": fs_ns["errs"]["K1"], "K2": fs_ns["errs"]["K2"],
+                  "K3": fs_lib["errs"]["K3"]})
+    print(f"phase full sweep kernels: each recorded launch of the "
+          f"last full sweeps equal to its plain version; K1 "
+          f"{k1_text(rec['K1fs'])} and K2 {k2_text(rec['K2fs'])} at the "
+          f"north star's, K3 "
+          f"{k3_text(dfa, fs_lib['calls']['K3'][0][0], rec['K3fs'])} at "
+          f"the library's; launches on the last sweeps: north star "
+          f"{fs_ns['counts']}, library {fs_lib['counts']}", flush=True)
+    del fs_ns, fs_lib
 
     mark("random kernels, library, main, churn, check, K3 store")
 
@@ -4777,10 +5356,15 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     # folded into the verdict ledger between sweeps
     reactor_phase(rec, fns, args.reactor_pods)
     mark("reactor")
+
+    # ---- 13. worker: the engine in a worker process behind the manager,
+    # and a pool of worker processes on the card
+    worker_phase(rec, fns, oracle=answers)
+    mark("worker")
     print(f"phase timing: seconds a phase after the build {took}, "
           f"{sum(took.values()):.1f}s in all", flush=True)
 
-    # ---- 13. kernels line, card line, final line
+    # ---- 14. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -4853,12 +5437,31 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         "K6rx": ("devdelta_reactor", "cuda",
                  "gatekeeper_tpu_torch/csrc/devdelta.cu",
                  "gatekeeper_tpu/engine/veval.py:1185"),
+        "K1fs": ("ir_eval_full_sweep", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/engine/veval.py:294"),
+        "K2fs": ("topk_full_sweep", "cuda",
+                 "gatekeeper_tpu_torch/csrc/topk.cu",
+                 "gatekeeper_tpu/engine/veval.py:660"),
+        "K3fs": ("dfa_full_sweep", "cuda",
+                 "gatekeeper_tpu_torch/csrc/dfa.cu",
+                 "gatekeeper_tpu/engine/veval.py:227"),
+        "K1wk": ("ir_eval_worker_audit", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/engine/veval.py:294"),
+        "K2wk": ("topk_worker_audit", "cuda",
+                 "gatekeeper_tpu_torch/csrc/topk.cu",
+                 "gatekeeper_tpu/engine/veval.py:660"),
+        "K3wk": ("dfa_worker_audit", "cuda",
+                 "gatekeeper_tpu_torch/csrc/dfa.cu",
+                 "gatekeeper_tpu/engine/veval.py:227"),
     }
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K1bl", "K2b",
                 "K3b", "K6", "K7", "K8g", "K8s", "K1r", "K3r", "K1mgr",
                 "K2mgr", "K3mgr", "K4mgr", "K5mgr", "K1rmgr", "K3rmgr",
-                "K4rx", "K3rx", "K1rx", "K6rx"):
+                "K4rx", "K3rx", "K1rx", "K6rx", "K1fs", "K2fs", "K3fs",
+                "K1wk", "K2wk", "K3wk"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -313,41 +313,48 @@ def scatter_worthwhile(n_changed: int, n_total: int,
 #
 # (units, measured_device_seconds) samples fed back here close the
 # predict -> measure -> recalibrate loop the Learned-Performance-Model
-# paper describes (the reference feeds every full sweep's per-template
-# attribution; the port has no attribution layer yet, so only callers
-# of record_sample feed it).  Bounded window so the scale tracks the
-# current backend rather than averaging over a demotion.
+# paper describes.  Two windows: "review", the one effective_scale (and
+# so the micro-batcher's deadline fit) reads, and "audit", which every
+# forced full sweep's per-template attribution feeds
+# (obs/attribution.py).  The reference feeds one window from both; the
+# port keeps an audit's device seconds out of the admission price, as a
+# sweep's kernels are not a review batch's wall (ROADMAP Queue C).
+# Bounded windows so a scale tracks the current backend rather than
+# averaging over a demotion.
 
 _CAL_WINDOW = 256
 _cal_lock = threading.Lock()
-_cal_samples: collections.deque = collections.deque(maxlen=_CAL_WINDOW)
+_cal_samples: dict[str, collections.deque] = {
+    w: collections.deque(maxlen=_CAL_WINDOW) for w in ("review", "audit")}
 
 
-def record_sample(units: float, seconds: float) -> None:
+def record_sample(units: float, seconds: float,
+                  window: str = "review") -> None:
     """Feed one measured (units, device_seconds) calibration sample."""
     if units > 0 and seconds > 0:
         with _cal_lock:
-            _cal_samples.append((units, seconds))
+            _cal_samples[window].append((units, seconds))
 
 
-def current_scale() -> float:
+def current_scale(window: str = "review") -> float:
     """Seconds-per-unit fitted over the recent sample window (0.0
     while uncalibrated)."""
     with _cal_lock:
-        samples = list(_cal_samples)
+        samples = list(_cal_samples[window])
     return calibrate(samples)
 
 
-def calibration_info() -> dict:
+def calibration_info(window: str = "review") -> dict:
     with _cal_lock:
-        n = len(_cal_samples)
-    return {"samples": n, "scale": current_scale()}
+        n = len(_cal_samples[window])
+    return {"samples": n, "scale": current_scale(window)}
 
 
 def reset_calibration() -> None:
-    """Drop the sample window (tests)."""
+    """Drop both sample windows (tests)."""
     with _cal_lock:
-        _cal_samples.clear()
+        for samples in _cal_samples.values():
+            samples.clear()
 
 
 # Static prior for the uncalibrated window: weighted units a review

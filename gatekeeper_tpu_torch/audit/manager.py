@@ -200,10 +200,10 @@ class AuditManager:
         report["eval_seconds"] = self._now() - t_eval
         report["violations"] = len(results)
         report["full"] = full
-        # surface the driver's sweep stanzas (the JAX driver records
-        # host_prep_s / h2d_s / device_s / overlap_fraction per sweep,
-        # the port's TorchDriver its pages and devpages stanzas; the
-        # scalar oracle has no pipeline and reports nothing)
+        # surface the driver's sweep stanzas (a forced full sweep's
+        # host_prep_s / h2d_s / device_s / overlap_fraction and its
+        # attribution, every sweep's pages stanza; the scalar oracle and
+        # a remote driver report nothing)
         phases = getattr(self.client.driver, "last_sweep_phases", None)
         if phases:
             for k in ("host_prep_s", "h2d_s", "device_s",
@@ -218,7 +218,9 @@ class AuditManager:
         record_event("audit_sweep", full=full,
                      violations=report["violations"],
                      eval_seconds=report["eval_seconds"],
-                     device_s=phases.get("device_s") if phases else None)
+                     device_s=report.get("device_s"),
+                     host_prep_s=report.get("host_prep_s"),
+                     overlap_fraction=report.get("overlap_fraction"))
 
         # (the reference reports its backend supervisor's serving
         # posture here, ``backend_state`` and ``degraded``: ROADMAP A8.

@@ -17,17 +17,15 @@ is observable end-to-end.
 
 The port builds a ``TorchDriver`` on ``--device`` (``cuda`` by default;
 without a card that raises, as utils/device does — pass ``--device cpu``
-for the plain PyTorch path).  Run it as
-``python -m gatekeeper_tpu_torch.cmd.manager``.
+for the plain PyTorch path), or with ``--engine-worker-url`` a
+``RemoteDriver`` to an engine worker process (cmd/worker.py), which then
+owns the card.  Run it as ``python -m gatekeeper_tpu_torch.cmd.manager``.
 
 Under ``GATEKEEPER_PAGES`` (on by default) the manager builds the event
 reactor (enforce/reactor.py), which turns each watch event into a
 single-page re-evaluation of the verdict ledger between sweeps.
 
 Trimmed for the port, each refused when asked for:
-- ``--engine-worker-url`` (client/remote_driver.py) — ROADMAP A3, the
-  next slice;
-- ``GATEKEEPER_FLIGHT_ADMISSION`` (the admission corpus) — the same;
 - ``GATEKEEPER_SNAPSHOT_DIR`` (warm-restart snapshots, which the
   reference's ``main`` turns on by default) — ROADMAP A8;
 - a ``GATEKEEPER_FAULT`` whose seam the port lacks
@@ -60,8 +58,7 @@ from gatekeeper_tpu_torch.resilience import faults
 from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
 from gatekeeper_tpu_torch.utils.metrics import Metrics
 from gatekeeper_tpu_torch.webhook.batcher import MicroBatcher
-from gatekeeper_tpu_torch.webhook.policy import (ValidationHandler,
-                                                 refuse_admission_corpus)
+from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
 from gatekeeper_tpu_torch.webhook.server import DEFAULT_PORT, WebhookServer
 
 _log = logger("manager")
@@ -103,16 +100,10 @@ def refuse_unported(args: argparse.Namespace) -> None:
     """Raise ClientError for a flag or variable that asks for a layer the
     port has not got yet, naming its ROADMAP item: never run without
     it silently."""
-    if getattr(args, "engine_worker_url", None):
-        raise ClientError(
-            "--engine-worker-url: the engine worker split "
-            "(client/remote_driver.py, cmd/worker.py) is not yet ported "
-            "to gatekeeper_tpu_torch (ROADMAP A3, the next slice)")
     if os.environ.get("GATEKEEPER_SNAPSHOT_DIR"):
         raise ClientError(
             "GATEKEEPER_SNAPSHOT_DIR: warm-restart snapshots are not yet "
             "ported to gatekeeper_tpu_torch (ROADMAP A8); unset it")
-    refuse_admission_corpus()
     faults.check_armed()
 
 
@@ -135,10 +126,18 @@ class Manager:
         # deterministic pump must settle instead of assuming inline events
         self.async_cluster = not isinstance(self.cluster, FakeCluster)
         bootstrap_cluster(self.cluster)
-        # the engine on the card unless --device says otherwise; no CPU
-        # fallback when the card is missing (utils/device)
-        driver = TorchDriver(tracing=False,
-                             device=getattr(args, "device", None))
+        if getattr(args, "engine_worker_url", None):
+            # engine-process split: the evaluation engine (and the card)
+            # live in a worker process behind the Driver seam
+            # (reference drivers/remote analogue, remote.go:49)
+            from gatekeeper_tpu_torch.client.remote_driver import \
+                RemoteDriver
+            driver = RemoteDriver(args.engine_worker_url)
+        else:
+            # the engine on the card unless --device says otherwise; no
+            # CPU fallback when the card is missing (utils/device)
+            driver = TorchDriver(tracing=False,
+                                 device=getattr(args, "device", None))
         self.client = Backend(driver).new_client([K8sValidationTarget()])
         # (the reference installs its process-global external-data
         # runtime here: ROADMAP A5)
@@ -291,7 +290,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="admission micro-batch size cap")
     p.add_argument("--engine-worker-url", default=None,
                    help="run evaluation in a separate engine worker "
-                        "process at this URL (not yet ported: refused)")
+                        "process at this URL (cmd/worker.py; --device is "
+                        "then the worker's)")
     p.add_argument("--watch-poll-interval", type=float, default=5.0,
                    help="watch roster poll period in seconds "
                         "(watch/manager.go:172)")
@@ -381,7 +381,8 @@ def main(argv=None) -> int:
     _log.info("gatekeeper-tpu-torch manager up",
               webhook_port=mgr.webhook.port if mgr.webhook else "off",
               audit_interval_s=args.audit_interval,
-              device=str(mgr.client.driver.device))
+              device=str(getattr(mgr.client.driver, "device",
+                                 args.engine_worker_url)))
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())

@@ -55,8 +55,14 @@ K1) over a throwaway mini table, and only its candidates are verified on
 the host; ``predict_review_batch_seconds`` prices a batch with the
 static cost model.  ``react_kind`` and ``resync_kind`` fold the store's
 dirty pages into the ledger between sweeps for the watch-driven reactor
-(enforce/reactor.py).  Shadow and replay what-if and sharding are not
-part of this port yet.
+(enforce/reactor.py).  A forced full sweep (``QueryOpts.full``) drops
+every memo layer and dispatches its kinds one at a time, each finished
+before the next kind's prep, with its host prep, upload, device and
+format seconds, bytes uploaded and overlap reported in
+``last_sweep_phases``: the reference's ``GATEKEEPER_FULL_SWEEP_SERIAL``
+mode.  The reference's default, a pool of 8 dispatch threads, lost to
+it on the card's host at every store measured (ROADMAP Queue C).
+Shadow and replay what-if and sharding are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -1726,12 +1732,9 @@ class TorchDriver(LocalDriver):
         st = self._state(target)
         if not isinstance(st, TorchTargetState):
             return super().query_audit(target, opts)
-        handler = self.targets[target]
         tracing = opts.tracing if opts is not None else self.default_tracing
         limit = opts.limit_per_constraint if opts is not None else None
         full = opts.full if opts is not None else False
-        trace: list | None = [] if tracing else None
-        m = self.metrics
 
         if full:
             # forced full sweep: drop every layer of sweep memoization
@@ -1744,6 +1747,38 @@ class TorchDriver(LocalDriver):
                 st.fmt_cache = {}
 
         ordered_rows, row_order = self._ensure_order(st)
+        # the sweep's root span; the stages' spans, recorded after they
+        # ran, name it as their parent
+        from gatekeeper_tpu_torch.obs.trace import get_tracer
+        tracer = get_tracer()
+        with tracer.span("audit.sweep", cat="audit", target=target,
+                         full=full, rows=len(ordered_rows)) as sweep_sp:
+            out = self._sweep(st, target, ordered_rows, row_order, tracing,
+                              limit, full, tracer, tracer.current(),
+                              t_start)
+            if sweep_sp is not None:
+                sweep_sp.args["results"] = len(out[0])
+        return out
+
+    def _sweep(self, st, target, ordered_rows, row_order, tracing, limit,
+               full, tracer, sweep_ctx, t_start) \
+            -> tuple[list[Result], str | None]:
+        """The body of :meth:`query_audit` under its ``audit.sweep``
+        span.
+
+        Phase 1, under ``_prep_lock``: host prep of each kind, then its
+        launch.  A non-full sweep's launches run on while the next kind
+        is prepared; a forced full sweep stages each kind's uploads and
+        waits for its kernels before the next kind's prep, so each
+        stage's seconds are its own.  Phase 2: each kind formatted in
+        dispatch order; the tagged sort restores the scalar driver's
+        order.  A full sweep reports its stage seconds in
+        ``last_sweep_phases``, with the per-template attribution of its
+        device time (obs/attribution.py)."""
+        handler = self.targets[target]
+        trace: list | None = [] if tracing else None
+        m = self.metrics
+        ex = self.executor
         rank = self._row_rank(st, row_order)
         # continuous enforcement (enforce/): on non-full, untraced
         # sweeps eligible kinds skip the per-kind device sweep — only
@@ -1763,18 +1798,59 @@ class TorchDriver(LocalDriver):
         pg_dirty_pages: set[int] = set()
         dv_on = pg_on and devpages_mode() and not self.scalar_only
         dv_stats = fresh_stats() if dv_on else None
+        # a full sweep's phase sums, each measured on the sweep thread
+        # where its stage ran; every kind's stages end before the next
+        # kind's begin, so their sum stays within the sweep's wall
+        ph = {"host_prep_s": 0.0, "h2d_s": 0.0, "device_s": 0.0,
+              "format_s": 0.0, "h2d_bytes": 0}
+        per_kind_dev: dict[str, float] = {}
+
+        def launch(mode, prog, bindings):
+            if mode == "topk":
+                return ex.run_topk_async(prog, bindings, limit)
+            return ex.run_async(prog, bindings)
+
+        def dispatch(mode, kind, prog, bindings):
+            # a full sweep's kind: staging its uploads migrates (so the
+            # launch takes the full plan), and device_s runs from the
+            # first launch until the kind's end event completed
+            t0 = time.perf_counter()
+            ex.stage_uploads(bindings)
+            t1 = time.perf_counter()
+            handle = launch(mode, prog, bindings).block()
+            t2 = time.perf_counter()
+            tracer.add_complete("kind.h2d", cat="h2d", t0=t0, t1=t1,
+                                parent=sweep_ctx, kind=kind)
+            tracer.add_complete("kind.device", cat="device", t0=t1, t1=t2,
+                                parent=sweep_ctx, kind=kind, mode=mode)
+            ph["h2d_s"] += t1 - t0
+            ph["device_s"] += t2 - t1
+            ph["h2d_bytes"] += bindings.nbytes()
+            per_kind_dev[kind] = per_kind_dev.get(kind, 0.0) + (t2 - t1)
+            return handle
+
+        def prep_done(kind, t0):
+            now = time.perf_counter()
+            tracer.add_complete("kind.host_prep", cat="host_prep", t0=t0,
+                                t1=now, parent=sweep_ctx, kind=kind)
+            ph["host_prep_s"] += now - t0
+
         # phase 1, on the sweep thread: host prep and dispatch per kind.
-        # Launches are asynchronous, so kind N's device work overlaps
-        # kind N+1's host prep.
+        # Launches are asynchronous, so on a non-full sweep kind N's
+        # device work overlaps kind N+1's host prep
         specs: list[tuple] = []
+        t_pipe = time.perf_counter()
         with self._prep_lock:
+            tk = time.perf_counter()
             self._prefetch_axes(st)
+            prep_done("__axes__", tk)
             sweep_kinds = sorted(st.templates)
             if full and trace is None and not self.scalar_only:
                 # forced full sweeps (no paged kinds) dispatch in the
                 # Stage-8 order; phase 2's tagged sort keeps the results
                 sweep_kinds = self.memsurface_sweep_order(st, sweep_kinds)
             for kind in sweep_kinds:
+                tk = time.perf_counter()
                 compiled = st.templates[kind]
                 constraints = self._kind_constraints(st, kind)
                 if not constraints:
@@ -1799,6 +1875,7 @@ class TorchDriver(LocalDriver):
                     # amortize a device dispatch
                     specs.append(("scalar", kind, compiled, constraints,
                                   None, None, mask, None))
+                    prep_done(kind, tk)
                     continue
                 bindings = self._kind_bindings(st, kind, compiled,
                                                constraints)
@@ -1809,22 +1886,20 @@ class TorchDriver(LocalDriver):
                     m.counter("f32_unsafe_scalar_fallbacks").inc()
                     specs.append(("scalar", kind, compiled, constraints,
                                   None, None, mask, None))
+                    prep_done(kind, tk)
                     continue
                 self._install_gates(st, kind, bindings, mask, mask_delta,
                                     rank, padded)
                 prog = compiled.vectorized.program
+                mode = "topk" if limit is not None else "mask"
+                prep_done(kind, tk)
                 if full:
-                    # the reference stages a forced full sweep's uploads
-                    # first; staging migrates, so the dispatch below
-                    # takes the full plan
-                    self.executor.stage_uploads(bindings)
-                if limit is not None:
-                    handle = self.executor.run_topk_async(prog, bindings,
-                                                          limit)
-                    mode = "topk"
+                    handle = dispatch(mode, kind, prog, bindings)
                 else:
-                    handle = self.executor.run_async(prog, bindings)
-                    mode = "mask"
+                    with tracer.span("device.dispatch", cat="device",
+                                     parent=sweep_ctx, kind=kind,
+                                     mode=mode):
+                        handle = launch(mode, prog, bindings)
                 specs.append((mode, kind, compiled, constraints, prog,
                               bindings, mask, handle))
         t_prep = time.perf_counter()
@@ -1836,6 +1911,7 @@ class TorchDriver(LocalDriver):
         tagged: list[tuple[tuple, Result]] = []
         for mode, kind, compiled, constraints, prog, bindings, mask, \
                 handle in specs:
+            tf = time.perf_counter()
             if mode == "pages":
                 # the devpages path fills the reader-side caches
                 # (_kind_bindings) that _prep_lock serializes
@@ -1858,8 +1934,13 @@ class TorchDriver(LocalDriver):
                                   constraints, mask, ordered_rows,
                                   row_order, kind, limit, trace, tagged,
                                   rcache)
+            tf2 = time.perf_counter()
+            tracer.add_complete("kind.format", cat="format", t0=tf, t1=tf2,
+                                parent=sweep_ctx, kind=kind, mode=mode)
+            ph["format_s"] += tf2 - tf
+        pipeline_wall = time.perf_counter() - t_pipe
+        m.timer("audit_format").observe(ph["format_s"])
         tagged.sort(key=lambda kv: kv[0])
-        m.timer("audit_format").observe(time.perf_counter() - t_prep)
         # warm the churn-delta variants in the background once: the
         # first sweep after data churn otherwise compiles one per kind
         if limit is not None and self.delta_warm is None \
@@ -1871,12 +1952,48 @@ class TorchDriver(LocalDriver):
         m.counter("audit_results").inc(len(tagged))
         m.timer("audit_sweep_wall").observe(time.perf_counter() - t_start)
         m.gauge("audit_resources").set(len(ordered_rows))
+        phases: dict = {"full": full}
+        if full:
+            # overlap_fraction: the share of the summed stage seconds
+            # hidden under other stages, the reference's key; the stages
+            # here run one after another, so it stays 0
+            sum_ph = ph["host_prep_s"] + ph["h2d_s"] + ph["device_s"] \
+                + ph["format_s"]
+            overlap = max(0.0, (sum_ph - pipeline_wall) / sum_ph) \
+                if sum_ph > 0 else 0.0
+            phases.update({
+                "serial": True,
+                "host_prep_s": round(ph["host_prep_s"], 6),
+                "h2d_s": round(ph["h2d_s"], 6),
+                "device_s": round(ph["device_s"], 6),
+                "format_s": round(ph["format_s"], 6),
+                "h2d_bytes": int(ph["h2d_bytes"]),
+                "pipeline_wall_s": round(pipeline_wall, 6),
+                "overlap_fraction": round(overlap, 4),
+            })
+            # the measured device time apportioned per template by the
+            # cost model's units; the per-kind seconds anchor the drift
+            # report and the audit calibration (obs/attribution.py)
+            dev_entries = [(sp[1], sp[2].vectorized, len(sp[3]))
+                           for sp in specs if sp[0] in ("topk", "mask")]
+            if dev_entries and ph["device_s"] > 0:
+                from gatekeeper_tpu_torch.obs.attribution import \
+                    attribute_sweep
+                phases["attribution"] = attribute_sweep(
+                    dev_entries, ph["device_s"], len(ordered_rows),
+                    measured=per_kind_dev, metrics=m)
+            m.counter("full_sweeps").inc()
+            m.timer("full_sweep_host_prep").observe(ph["host_prep_s"])
+            m.timer("full_sweep_h2d").observe(ph["h2d_s"])
+            m.timer("full_sweep_device").observe(ph["device_s"])
+            m.timer("full_sweep_format").observe(ph["format_s"])
+            m.gauge("full_sweep_h2d_bytes").set(float(ph["h2d_bytes"]))
+            m.gauge("full_sweep_overlap_fraction").set(overlap)
         # continuous-enforcement stanzas: which kinds served from the
         # ledger vs fell back (with reasons), page-level work, the delta
         # events emitted, and the device-resident path's accounting
         led = st.ledger
-        self.last_sweep_phases = {"full": full}
-        self.last_sweep_phases["pages"] = {
+        phases["pages"] = {
             "enabled": pg_on,
             "page_rows": st.table.page_rows,
             "n_pages": st.table.n_pages,
@@ -1894,8 +2011,9 @@ class TorchDriver(LocalDriver):
             if led is not None else 0,
             "events": int(pg_stats["events"]),
         }
-        self.last_sweep_phases["devpages"] = {"enabled": dv_on} \
+        phases["devpages"] = {"enabled": dv_on} \
             if dv_stats is None else {"enabled": True, **dv_stats}
+        self.last_sweep_phases = phases
         if dv_stats is not None:
             m.counter("store_h2d_bytes_total").inc(int(dv_stats["h2d_bytes"]))
             m.gauge("devpages_scatter_rows").set(
@@ -1912,6 +2030,13 @@ class TorchDriver(LocalDriver):
             m.counter("store_dirtylog_overflow_total").inc(
                 overflows - st.dirtylog_overflows_seen)
             st.dirtylog_overflows_seen = overflows
+        # flight recorder: one event a sweep, so a later dump shows the
+        # sweeps that led up to it
+        from gatekeeper_tpu_torch.obs.flightrecorder import record_event
+        record_event("sweep", full=full, results=len(tagged),
+                     wall_s=time.perf_counter() - t_start,
+                     device_s=ph["device_s"] if full else None,
+                     scalar_only=self.scalar_only)
         return [r for _, r in tagged], \
             ("\n".join(trace) if trace is not None else None)
 

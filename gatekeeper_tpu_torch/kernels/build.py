@@ -31,6 +31,13 @@ KERNELS = ("topk", "dfa", "scatter", "devdelta", "invjoin",
 GENCODE = "arch=compute_90a,code=sm_90a"
 
 _LOCK = threading.Lock()
+# held around the C launches of K2 and K3, which raise a kernel's
+# dynamic shared-memory limit (cudaFuncSetAttribute, process-wide) the
+# first time a launch needs more: two threads raising it to different
+# sizes at once (an audit sweep beside an admission batch, or an engine
+# worker's request threads) could leave it below what one of them
+# launches with.  A launch only enqueues, so holding it is cheap
+LAUNCH_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict = {}     # (name, symbol) -> bound C function
 

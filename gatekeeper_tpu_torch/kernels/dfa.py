@@ -256,7 +256,7 @@ def _launch(trans, accept, strbytes, ok, xv, prefix, n_b, n_ids, width,
         arr = geometry(dev, *key[1:])
         geo = _GEOMETRY[key] = (arr, ctypes.addressof(arr))
     fn = build.entry("dfa", "gk_dfa_scan", _SCAN_ARGTYPES)
-    with build.on_device(dev):
+    with build.on_device(dev), build.LAUNCH_LOCK:
         err = fn(geo[1], strbytes.data_ptr(), trans.data_ptr(),
                  accept.data_ptr(), ok.data_ptr(), xv.data_ptr(),
                  out.data_ptr(), build.stream(dev))

@@ -221,7 +221,7 @@ def _launch(viol: torch.Tensor, rank: torch.Tensor | None,
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
                           device=viol.device)
     fn = build.entry("topk", "gk_topk_packed", _ARGTYPES)
-    with build.on_device(viol.device):
+    with build.on_device(viol.device), build.LAUNCH_LOCK:
         err = fn(viol.data_ptr(),
                  rank.data_ptr() if rank is not None else None,
                  out.data_ptr(), scratch.data_ptr(), n_rows, rows_per_rank,

@@ -50,8 +50,8 @@ snapshot tier, A8), ``slow_provider`` (external data, A5) and
 Arming one of them raises ``ClientError`` naming its item wherever the
 armed set is read (``check_armed``, ``active``, ``take``): a fault that
 no seam would fire is never silently ignored.  A fired fault is put on
-the flight recorder's ring; the ring's dump to disk comes with the
-flight recorder's next slice (ROADMAP A3).
+the flight recorder's ring and the ring is dumped to disk
+(obs/flightrecorder.py ``dump``).
 """
 
 from __future__ import annotations
@@ -107,12 +107,14 @@ def take(name: str) -> bool:
             return False
         _fired.add(name)
     # a fired fault is a synthetic failure event: put it on the flight
-    # recorder (best-effort — the injection seam must behave exactly like
-    # the real failure it simulates)
+    # recorder and dump the ring (best-effort — the injection seam must
+    # behave exactly like the real failure it simulates)
     try:
         from gatekeeper_tpu_torch.obs.flightrecorder import \
             get_flight_recorder
-        get_flight_recorder().record("fault_trip", fault=name)
+        rec = get_flight_recorder()
+        rec.record("fault_trip", fault=name)
+        rec.dump(f"fault:{name}")
     except Exception:   # noqa: BLE001
         pass
     return True

@@ -19,15 +19,14 @@ Requests ride the micro-batcher when one is attached (SURVEY §7 step 7):
 concurrent Handle calls coalesce into one engine pass per batch window.
 
 In the port ``_batching_pays`` reads the port's own
-``engine/torch_driver.REVIEW_BATCH_MIN_EVALS``, and the flight recorder
-gets each admission's summary event only: the admission corpus
-(``GATEKEEPER_FLIGHT_ADMISSION=1``) is refused until ROADMAP A3's next
-slice ports it.
+``engine/torch_driver.REVIEW_BATCH_MIN_EVALS``.  Every admission goes to
+the flight recorder: a summary event on its ring and, under
+``GATEKEEPER_FLIGHT_ADMISSION=1``, the redacted request in the durable
+admission corpus (obs/flightrecorder.py ``record_admission``).
 """
 
 from __future__ import annotations
 
-import os
 import time
 
 from gatekeeper_tpu_torch.api.config import (CONFIG_NAME, CONFIG_NAMESPACE, Config,
@@ -50,21 +49,6 @@ def deny(code: int, message: str) -> dict:
     return {"allowed": False, "status": {"code": code, "message": message}}
 
 
-ADMISSION_CORPUS_NOT_PORTED = (
-    "GATEKEEPER_FLIGHT_ADMISSION: the admission corpus (the flight "
-    "recorder's capture log) is not yet ported to gatekeeper_tpu_torch "
-    "(ROADMAP A3, the next slice); unset it or set it to 0")
-
-
-def refuse_admission_corpus() -> None:
-    """Raise when ``GATEKEEPER_FLIGHT_ADMISSION`` asks for the admission
-    corpus (any value but empty or ``0``, as the reference reads it):
-    the port would otherwise record nothing where the reference
-    records every request."""
-    if os.environ.get("GATEKEEPER_FLIGHT_ADMISSION", "") not in ("", "0"):
-        raise ClientError(ADMISSION_CORPUS_NOT_PORTED)
-
-
 def is_gk_service_account(user_info: dict) -> bool:
     """policy.go:199-207: group system:serviceaccounts:gatekeeper-system."""
     groups = (user_info or {}).get("groups") or []
@@ -76,7 +60,6 @@ class ValidationHandler:
                  batcher=None, metrics: Metrics | None = None,
                  log=lambda *_: None, batch_mode: str = "auto",
                  overload=None):
-        refuse_admission_corpus()
         self.client = client
         self.cluster = cluster
         self.injected_config = injected_config  # test hook (policy.go:121)
@@ -242,23 +225,29 @@ class ValidationHandler:
         return out
 
     def _record_admission(self, request, out, results, warnings) -> None:
-        """The flight recorder's summary event of one admission (the
-        ring half of the reference's ``record_admission``); never
-        raises.  The replayable corpus the reference also writes under
-        ``GATEKEEPER_FLIGHT_ADMISSION=1`` (rollout/capture's durable
-        log) is not ported yet (ROADMAP A3, the next slice):
-        :func:`refuse_admission_corpus` stops a handler from being built
-        with it asked for, so no request is dropped from a corpus
-        silently."""
+        """Flight-recorder hook: the ring gets a summary event, and with
+        GATEKEEPER_FLIGHT_ADMISSION=1 the durable capture log gets the
+        full (redacted, byte-capped) request plus verdicts for
+        offline replay — enqueued only, never a disk write on this
+        path.  Never raises.  The capture log's health (segments
+        written, records dropped under flood) is surfaced as webhook
+        gauges so a starved capture path is visible."""
         try:
-            from gatekeeper_tpu_torch.obs.flightrecorder import record_event
-            obj = (request.get("object") or {})
-            record_event("admission",
-                         operation=request.get("operation"),
-                         kind=((request.get("kind") or {}).get("kind")),
-                         name=(obj.get("metadata") or {}).get("name"),
-                         allowed=bool(out.get("allowed")),
-                         verdicts=len(results or ()))
+            from gatekeeper_tpu_torch.obs.flightrecorder import \
+                get_flight_recorder
+            rec = get_flight_recorder()
+            rec.record_admission(
+                request, bool(out.get("allowed")), verdicts=results,
+                warnings=warnings)
+            st = rec.capture_stats()
+            if st is not None:
+                self.metrics.gauge(
+                    "admission_capture_segments",
+                    "capture-log segments on disk").set(st["segments"])
+                self.metrics.gauge(
+                    "admission_capture_drops",
+                    "corpus records dropped by the bounded capture "
+                    "queue").set(st["dropped"])
         except Exception:
             pass
 

@@ -4,8 +4,11 @@ against the reference: the flows of tests/test_cmd_manager.py with
 steps) over HTTP against the port's Manager, read from the in-repo
 YAMLs; the demo flow's statuses equal the reference Manager's;
 ``python -m gatekeeper_tpu_torch.cmd.manager --demo --device cpu`` in a
-subprocess; the default device (cuda, raising without a card); and
-every trimmed flag or variable refused by name.
+subprocess; the default device (cuda, raising without a card); a
+manager over an engine worker (``--engine-worker-url``) equal to the
+in-process one; the admission corpus under
+``GATEKEEPER_FLIGHT_ADMISSION``; and every trimmed variable refused by
+name.
 """
 
 import json
@@ -269,9 +272,7 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, env, item", [
-    (["--engine-worker-url", "http://127.0.0.1:1"], {}, "ROADMAP A3"),
     ([], {"GATEKEEPER_SNAPSHOT_DIR": "/tmp/snapshots"}, "ROADMAP A8"),
-    ([], {"GATEKEEPER_FLIGHT_ADMISSION": "1"}, "ROADMAP A3"),
     ([], {"GATEKEEPER_FAULT": "device_lost"}, "ROADMAP A8"),
 ])
 def test_unported_flags_and_variables_raise(argv, env, item, monkeypatch):
@@ -291,7 +292,7 @@ def test_unported_flags_and_variables_raise(argv, env, item, monkeypatch):
 def test_kubeconfig_builds_a_kube_cluster(tmp_path, monkeypatch):
     """``--kubeconfig`` binds the manager to a real apiserver through
     cluster/kube.py (here the HTTP stub of tests/fake_apiserver.py),
-    while the flags of layers still missing go on raising."""
+    while the variables of layers still missing go on raising."""
     from gatekeeper_tpu.cluster.fake import FakeCluster as StubCluster
     from gatekeeper_tpu_torch.cluster.kube import KubeCluster
     from tests.fake_apiserver import FakeApiServer
@@ -314,17 +315,76 @@ def test_kubeconfig_builds_a_kube_cluster(tmp_path, monkeypatch):
         assert isinstance(mgr.cluster, KubeCluster) and mgr.async_cluster
         assert mgr.cluster._server == stub.url
         assert mgr.cluster._headers == {"Authorization": "Bearer t"}
-        for argv, env in ((["--engine-worker-url", "http://127.0.0.1:1"],
-                           {}),
-                          ([], {"GATEKEEPER_SNAPSHOT_DIR": "/tmp/snapshots"})):
-            with monkeypatch.context() as m:
-                for k, v in env.items():
-                    m.setenv(k, v)
-                with pytest.raises(ClientError, match="not yet ported"):
-                    Manager(parse_args(["--kubeconfig", str(path), "--port",
-                                        "-1"] + CPU + argv))
+        with monkeypatch.context() as m:
+            m.setenv("GATEKEEPER_SNAPSHOT_DIR", "/tmp/snapshots")
+            with pytest.raises(ClientError, match="not yet ported"):
+                Manager(parse_args(["--kubeconfig", str(path), "--port",
+                                    "-1"] + CPU))
     finally:
         stub.stop()
+
+
+def _namespace_review(name: str) -> dict:
+    return {"uid": "u1", "kind": {"group": "", "version": "v1",
+                                  "kind": "Namespace"},
+            "operation": "CREATE", "name": name,
+            "userInfo": {"username": "alice", "groups": []},
+            "object": {"apiVersion": "v1", "kind": "Namespace",
+                       "metadata": {"name": name}}}
+
+
+def test_engine_worker_url_serves_through_a_worker():
+    """``--engine-worker-url`` builds a RemoteDriver to an engine worker
+    (here ``EngineWorker`` over ``TorchDriver(device="cpu")`` on a
+    thread): the demo flow's statuses and a webhook answer equal the
+    in-process manager's, and ``audit_once(full=True)`` runs a forced
+    full sweep in the worker."""
+    from gatekeeper_tpu_torch.client.remote_driver import (EngineWorker,
+                                                           RemoteDriver)
+    worker = EngineWorker(lambda: TorchDriver(device="cpu"))
+    worker.start()
+    try:
+        remote = Manager(parse_args(["--port", "-1", "--engine-worker-url",
+                                     worker.url]))
+        assert isinstance(remote.client.driver, RemoteDriver)
+        local = Manager(parse_args(["--port", "-1"] + CPU))
+        outs = [run_demo(m, n_namespaces=40) for m in (remote, local)]
+        statuses = []
+        for m in (remote, local):
+            con = m.cluster.get(GVK("constraints.gatekeeper.sh", "v1alpha1",
+                                    "K8sRequiredLabels"), "ns-must-have-gk")
+            st = dict(con["status"])
+            assert st.pop("auditTimestamp")
+            statuses.append(st)
+        assert statuses[0] == statuses[1]
+        assert len(statuses[0]["violations"]) == 20
+        req = _namespace_review("unlabelled")
+        answer = remote.handler.handle(req)
+        assert answer == local.handler.handle(req)
+        assert answer["allowed"] is False
+        report = remote.audit.audit_once(full=True)
+        assert worker.driver.last_sweep_phases["full"] is True
+        assert report["violations"] == outs[1]["sweep"]["violations"]
+    finally:
+        worker.stop()
+
+
+def test_flight_admission_records_the_corpus(monkeypatch, tmp_path):
+    """``GATEKEEPER_FLIGHT_ADMISSION=1`` builds the manager, and its
+    webhook handler persists each admission into the corpus, which
+    reads back with the handler's answer."""
+    from gatekeeper_tpu_torch.obs.flightrecorder import \
+        load_admission_corpus
+    monkeypatch.setenv("GATEKEEPER_FLIGHT_ADMISSION", "1")
+    monkeypatch.setenv("GATEKEEPER_FLIGHT_DIR", str(tmp_path))
+    mgr = Manager(parse_args(["--port", "-1"] + CPU))
+    run_demo(mgr, n_namespaces=4)
+    out = mgr.handler.handle(_namespace_review("corpus-ns"))
+    events = [e for e in load_admission_corpus(str(tmp_path))
+              if e["request"]["name"] == "corpus-ns"]
+    assert len(events) == 1
+    assert events[0]["allowed"] is out["allowed"] is False
+    assert [v["name"] for v in events[0]["verdicts"]] == ["ns-must-have-gk"]
 
 
 def test_main_sets_no_snapshot_dir(monkeypatch, capsys):

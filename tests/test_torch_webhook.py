@@ -4,8 +4,8 @@ micro-batcher, HTTP, /metrics and the server's hardening) on the port's
 ValidationHandler and WebhookServer over its LocalDriver and
 TorchDriver(device="cpu"); a parity sequence of the basic and agilebank
 demo YAMLs through the port's handler and the reference's (JaxDriver on
-the CPU), equal field for field; the port's trims (/healthz, the
-refused admission corpus); and the endpoints under admission load.
+the CPU), equal field for field; the port's trim (/healthz); the
+admission corpus read back; and the endpoints under admission load.
 """
 
 import collections
@@ -26,7 +26,6 @@ from gatekeeper_tpu_torch.client.local_driver import LocalDriver
 from gatekeeper_tpu_torch.cluster.fake import FakeCluster
 from gatekeeper_tpu_torch.engine import torch_driver
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-from gatekeeper_tpu_torch.errors import ClientError
 from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
 from gatekeeper_tpu_torch.webhook.batcher import MicroBatcher
 from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
@@ -664,14 +663,30 @@ class TestPortEndpoints:
 
 class TestAdmissionCorpus:
     @pytest.mark.parametrize("value", ["1", "yes"])
-    def test_corpus_variable_is_refused(self, value, monkeypatch):
-        """GATEKEEPER_FLIGHT_ADMISSION asks for the admission corpus,
-        which is not ported: building a handler raises instead of
-        recording nothing (the reference swallows a recorder failure)."""
+    def test_corpus_reads_back(self, value, handler, monkeypatch, tmp_path):
+        """GATEKEEPER_FLIGHT_ADMISSION (any value but empty or 0) makes
+        the handler persist each admission, redacted, into the durable
+        capture log; it reads back with the handler's answer and
+        verdicts, and the capture log's gauges reach the metrics."""
+        from gatekeeper_tpu_torch.obs.flightrecorder import (
+            REDACTED, load_admission_corpus)
         monkeypatch.setenv("GATEKEEPER_FLIGHT_ADMISSION", value)
-        client = Backend(LocalDriver()).new_client([K8sValidationTarget()])
-        with pytest.raises(ClientError, match="not yet ported"):
-            ValidationHandler(client)
+        monkeypatch.setenv("GATEKEEPER_FLIGHT_DIR", str(tmp_path))
+        bad = ns_obj("bad")
+        bad["spec"] = {"token": "t0ps3cret"}
+        out = handler.handle(review_request(bad))
+        handler.handle(review_request(ns_obj("good", {"gatekeeper": "on"})))
+        events = load_admission_corpus(str(tmp_path))
+        assert [e["request"]["name"] for e in events] == ["bad", "good"]
+        assert [e["allowed"] for e in events] == [False, True]
+        assert out["allowed"] is False
+        assert [v["name"] for v in events[0]["verdicts"]] == \
+            ["ns-must-have-gk"]
+        assert events[0]["request"]["object"]["spec"]["token"] == REDACTED
+        assert bad["spec"]["token"] == "t0ps3cret"     # input untouched
+        snap = handler.metrics.snapshot()
+        assert "admission_capture_segments" in snap
+        assert snap["admission_capture_drops"] == 0
 
     @pytest.mark.parametrize("value", ["", "0"])
     def test_corpus_off_builds(self, value, monkeypatch):
