@@ -3,7 +3,8 @@ against its plain PyTorch version.
 
     python3 chip_smoke.py [--resources N] [--k2-only | --k1-only |
                            --k6k7-only | --k3-only | --admission-only |
-                           --manager-only | --reactor-only | --worker-only]
+                           --manager-only | --reactor-only | --worker-only |
+                           --extdata-only | --probe-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -31,6 +32,8 @@ admission micro-batch.  ``--manager-only`` builds K2, K3 and K4 and runs
 only phase 11, the manager process.  ``--reactor-only`` builds K2, K3,
 K4 and K6 and runs only phase 12, the event reactor.  ``--worker-only``
 builds K2, K3 and K4 and runs only phase 13, the engine worker split.
+``--extdata-only`` and ``--probe-only`` build K2 and K3 and run only
+phase 14, external data, or phase 15, the probe.
 
 Every TorchDriver starts a background warm-up of its kinds' churn-delta
 variants (K5) after its first capped legacy sweep, and a batch ingest of
@@ -249,7 +252,33 @@ Phases (each prints one line of its numbers):
      through a ValidationHandler over the pool at 1 and 2 replicas
      (reviews/s), answers equal to the oracle's; K1, K2, K3 timed at
      (a)'s cold inputs
- 14. the kernels JSON line, the card line, and the final JSON line.
+ 14. extdata — external data (``extdata_phase``), bench.py's
+     external-data row at its full size: 2,000 make_mixed(Random(11))
+     resources under the 48 library templates, pods' images drawn from
+     256 keys (1 in 10 ``invalid``); a baseline without the external
+     template (forced full sweeps, best of 3); with K8sExtSig and a
+     FakeProvider (20 ms, Ignore, retries 0, TTL 600 s) a cold sweep
+     after re-registering the provider (one batched round) and 3 warm
+     sweeps (no round, no Triton compile), the warm overhead against the
+     baseline printed, the ``external`` stanza with the reference's keys,
+     K8sExtSig's violations exactly the invalid-image pods (computed from
+     the provider's data, capped and uncapped); a provider served by
+     http.server on 127.0.0.1: a cold sweep through the HTTP transport
+     equal to the warm one, then the server stopped: Ignore completes
+     with the breaker open, Fail counts one external_data_kind_failures
+     and every other kind's results stand; 64 pod reviews through a
+     ValidationHandler over a MicroBatcher with the prefetch hook: one
+     batch, one provider round, answers equal to the per-review scalar
+     answers; then K8sExtSig alone over 20,000 pods drawing from 4,096
+     images: a cold and a warm sweep (the prefetch's seconds and keys),
+     the same exact check; K1 and K2 timed at that warm sweep's
+     recorded inputs, K3 at the library sweep's, each launch held
+     against its plain version
+ 15. probe — ``client.probe.main([])`` on the card: every scenario
+     passes on ``local`` and ``torch`` (rc 0); ``main(["--cost"])`` with
+     GATEKEEPER_COST_PROBE_N=2000: rc 0, K1, K2 and K3 launched and held
+     against their plain versions, the measured device_s printed
+ 16. the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages and reactor sweeps with GATEKEEPER_PAGES=off:
 they measure the legacy sweep and assert its launch counts, and the
 port, like the reference, defaults to the paged route.
@@ -4622,6 +4651,560 @@ def worker_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
     torch_driver.SMALL_WORKLOAD_EVALS = saved_small
 
 
+EXT_SIG_REGO = """package k8sextsig
+violation[{"msg": msg}] {
+  image := input.review.object.spec.image
+  verdict := object.get(external_data({"provider": "bench-sig", "keys": [image]}), ["responses", image], "missing")
+  verdict == "invalid"
+  msg := sprintf("image %v rejected: %v", [image, verdict])
+}
+"""
+EXT_ROWS = 2_000            # bench.py's external-data row (:1006-1110)
+EXT_KEYS = 256
+EXT_LATENCY_S = 0.02        # the fake provider's round trip
+EXT_TTL_S = 600.0
+EXT_WARM_SWEEPS = 3
+EXT_LARGE_PODS = 20_000     # K8sExtSig alone, a large cluster's pods
+EXT_LARGE_KEYS = 4_096      # the registry's images a large cluster pulls
+EXT_REVIEWS = 64            # one admission batch
+EXT_REVIEW_KEYS = 32
+EXT_STATS_KEYS = ["breaker_state", "breaker_transitions", "cache_entries",
+                  "cache_evictions", "cache_hit_ratio", "fetch_batches",
+                  "fetch_errors", "fetch_keys", "fetch_seconds",
+                  "short_circuits"]   # the reference runtime's stats()
+EXT_BULK_KEYS = ["keys", "prefetch_s", "providers"]
+
+
+def ext_verdicts(images: list) -> dict:
+    """The provider's data: 1 image in 10 marked ``invalid``."""
+    return {img: ("invalid" if i % 10 == 0 else "valid")
+            for i, img in enumerate(images)}
+
+
+def ext_expected(objs: list, data: dict) -> dict:
+    """(namespace, name) -> message of every pod whose image the
+    provider's data marks invalid: K8sExtSig's violations, computed from
+    the data alone."""
+    out = {}
+    for o in objs:
+        if o.get("kind") != "Pod":
+            continue
+        img = (o.get("spec") or {}).get("image")
+        if data.get(img) == "invalid":
+            md = o["metadata"]
+            out[(md.get("namespace"), md["name"])] = \
+                f"image {img} rejected: invalid"
+    return out
+
+
+def ext_hits(results) -> dict:
+    """(namespace, name) -> message of K8sExtSig's results."""
+    out = {}
+    for r in results:
+        if r.constraint["kind"] == "K8sExtSig":
+            rv = r.review or {}
+            out[(rv.get("namespace"), rv.get("name"))] = r.msg
+    return out
+
+
+def ext_check(results, want: dict, what: str, cap: int | None) -> int:
+    """K8sExtSig's violations are exactly the invalid-image pods (capped:
+    ``cap`` of them, each one of them); the count found."""
+    got = ext_hits(results)
+    if cap is None:
+        if got != want:
+            fail(f"{what}: {len(got)} K8sExtSig violations, "
+                 f"{len(want)} pods with an invalid image "
+                 f"({len(set(got) ^ set(want))} differ)")
+    elif len(got) != min(cap, len(want)) or any(
+            want.get(k) != m for k, m in got.items()):
+        fail(f"{what}: {len(got)} capped K8sExtSig violations, not "
+             f"{min(cap, len(want))} of the {len(want)} invalid-image pods")
+    return len(got)
+
+
+def ext_others(results) -> list:
+    return [x for x in norm(results) if x[0] != "K8sExtSig"]
+
+
+class ProviderServer:
+    """An external-data provider on ``127.0.0.1`` (the batched JSON POST
+    of the reference provider protocol), served by ``http.server`` on a
+    thread of this process; ``posts`` counts its batched rounds."""
+
+    def __init__(self, data: dict):
+        import http.server
+        self.data, self.posts = data, 0
+        server = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                keys = json.loads(self.rfile.read(n))["request"]["keys"]
+                items = [{"key": k, "value": server.data[k]}
+                         if k in server.data else
+                         {"key": k, "error": "unknown key"} for k in keys]
+                body = json.dumps({
+                    "apiVersion": "externaldata.gatekeeper.sh/v1beta1",
+                    "kind": "ProviderResponse",
+                    "response": {"items": items}}).encode()
+                server.posts += 1
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *_a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       name="provider-server", daemon=True)
+        self.thread.start()
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def gated_batcher(base, n: int):
+    """A ``MicroBatcher`` subclass whose worker forms its batch only once
+    ``n`` requests are queued (the class's own window engages only for a
+    singleton queue, so concurrent submits would split): one admission
+    batch of ``n`` reviews, deterministically.  The wait releases the
+    batcher's lock, so submits keep landing."""
+    class Gated(base):
+        def _take_batch(self, now):
+            while len(self._queue) < n and not self._stop:
+                self._wake.wait(0.05)
+            return super()._take_batch(time.monotonic())
+    return Gated
+
+
+def extdata_phase(rec: dict, fns: dict) -> None:
+    """External data on the card: bench.py's external-data row at its
+    full size, a large registry, the real wire and an admission batch.
+    Every sweep is a forced full sweep (cap CAP) with the small-workload
+    threshold at 0, as the bench runs it.
+
+    (a) EXT_ROWS ``make_mixed(Random(11))`` resources under the 48
+    library templates, pods' images drawn from EXT_KEYS keys (1 in 10
+    ``invalid``): the baseline without the external template (best of
+    3), then with ``K8sExtSig`` and a ``FakeProvider`` (EXT_LATENCY_S,
+    Ignore, retries 0, TTL EXT_TTL_S): a cold sweep after re-registering
+    the provider (exactly one batched round), EXT_WARM_SWEEPS warm ones
+    (no round, no Triton compile, results equal the cold sweep's, every
+    other kind's equal the baseline's), the ``external`` stanza with the
+    reference's keys; K8sExtSig's violations exactly the invalid-image
+    pods, capped here and uncapped on a driver of K8sExtSig alone.
+    (b) K8sExtSig alone over EXT_LARGE_PODS pods drawing from
+    EXT_LARGE_KEYS images: one cold (one round of every key) and one
+    warm sweep, the same exact check.  (c) The real wire: a provider on
+    ``127.0.0.1`` (``ProviderServer``); a cold sweep through the
+    runtime's HTTP transport equal to the warm sweep; the server
+    stopped: Ignore completes and opens the breaker, Fail counts one
+    ``external_data_kind_failures`` and every other kind's results equal
+    the warm sweep's.  (d) EXT_REVIEWS pod reviews through a
+    ``ValidationHandler`` over a ``MicroBatcher`` with the client's
+    prefetch hook: one provider round a formed batch, each key fetched
+    once, answers equal to the per-review scalar answers.  K1 and K2
+    are recorded on (b)'s warm sweep, K3 on (a)'s last warm sweep, each
+    launch held against its plain version."""
+    from gatekeeper_tpu_torch.api.externaldata import Provider
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.externaldata.fake import (FakeProvider,
+                                                        clear_fakes,
+                                                        register_fake)
+    from gatekeeper_tpu_torch.externaldata.runtime import (
+        ExternalDataRuntime, set_runtime)
+    from gatekeeper_tpu_torch.kernels import ir_eval
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.library.templates import (constraint_doc,
+                                                        template_doc)
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.webhook.batcher import MicroBatcher
+    from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
+    t_phase = time.perf_counter()
+    rng = random.Random(11)
+    resources = make_mixed(rng, EXT_ROWS)
+    images = [f"registry.example/app{i}:v1" for i in range(EXT_KEYS)]
+    n_pods = 0
+    for r in resources:
+        if r.get("kind") == "Pod":
+            r["spec"]["image"] = rng.choice(images)
+            n_pods += 1
+    data = ext_verdicts(images)
+    want = ext_expected(resources, data)
+    full = QueryOpts(limit_per_constraint=CAP, full=True)
+    uncapped = QueryOpts(limit_per_constraint=None, full=True)
+    pod_match = {"kinds": [{"apiGroups": [""], "kinds": ["Pod"]}]}
+
+    def client(library: bool, ext: bool, objs: list):
+        drv = TorchDriver()
+        c = Backend(drv).new_client([K8sValidationTarget()])
+        if library:
+            for tdoc, cdoc in all_docs():
+                c.add_template(tdoc)
+                c.add_constraint(cdoc)
+        if ext:
+            c.add_template(template_doc("K8sExtSig", EXT_SIG_REGO))
+            c.add_constraint(constraint_doc("K8sExtSig", "bench-sig-check",
+                                            match=pod_match))
+        c.add_data_batch(objs)
+        return drv, c
+
+    def sweep(drv, opts=full):
+        t0 = time.perf_counter()
+        res, _ = drv.query_audit(TARGET, opts)
+        return time.perf_counter() - t0, res
+
+    def settle(drv):
+        drv.wait_delta_warm()
+        join_warms()
+
+    saved = torch_driver.SMALL_WORKLOAD_EVALS
+    torch_driver.SMALL_WORKLOAD_EVALS = 0
+    prev_rt = set_runtime(None)
+    server = None
+    try:
+        # -- (a) the bench row: baseline, cold, warm
+        base, _bc = client(True, False, resources)
+        sweep(base)                                  # compile warm
+        settle(base)
+        base_runs = [sweep(base) for _ in range(3)]
+        base_s = min(s for s, _ in base_runs)
+        base_others = ext_others(base_runs[-1][1])
+        del base, _bc, base_runs
+
+        rt = ExternalDataRuntime()
+        set_runtime(rt)
+        fake = register_fake("bench-sig", FakeProvider(
+            data, latency_s=EXT_LATENCY_S))
+        provider = Provider(name="bench-sig", url="fake://bench-sig",
+                            failure_policy="Ignore", retries=0,
+                            cache_ttl_s=EXT_TTL_S)
+        rt.register(provider)
+        drv, c = client(True, True, resources)
+        sweep(drv)                                   # compile warm (+fetch)
+        settle(drv)
+        rt.register(provider)            # re-register: drops cache -> cold
+        calls0 = fake.calls
+        cold_s, cold_res = sweep(drv)
+        cold_rounds = fake.calls - calls0
+        ext = drv.last_sweep_phases.get("external") or {}
+        if cold_rounds != 1:
+            fail(f"extdata: the cold sweep fetched in {cold_rounds} rounds")
+        if sorted(ext) != ["bulk_prefetch", "providers"] or \
+                sorted(ext["providers"]["bench-sig"]) != EXT_STATS_KEYS or \
+                sorted(ext["bulk_prefetch"]) != EXT_BULK_KEYS or \
+                ext["bulk_prefetch"]["keys"] != len(
+                    {(r.get("spec") or {}).get("image") for r in resources}
+                    - {None}):
+            fail(f"extdata: the external stanza {ext}")
+        cold_stanza = ext
+        n_capped = ext_check(cold_res, want, "extdata cold", CAP)
+        if ext_others(cold_res) != base_others:
+            fail("extdata: the other kinds' results differ from the "
+                 "baseline's")
+        settle(drv)
+        warm_s, rec3 = [], {}
+        v0 = triton_variants(ir_eval)
+        for i in range(EXT_WARM_SWEEPS):
+            last = i == EXT_WARM_SWEEPS - 1
+            with RecordK123() if last else contextlib.nullcontext() as r:
+                reset_counts(fns)
+                s, res = sweep(drv)
+                if r is not None:
+                    counts3 = r.counts()
+            warm_s.append(s)
+            if norm(res) != norm(cold_res):
+                fail(f"extdata: warm sweep {i}'s results differ from the "
+                     "cold sweep's")
+            if r is not None:
+                rec3 = {"calls": r.calls, "counts": counts3,
+                        "errs": check_k123(ex, r.calls, "extdata warm")}
+        v1 = triton_variants(ir_eval)
+        warm_res = res
+        if None in (v0, v1) or v1 != v0:
+            fail(f"extdata: the warm sweeps compiled Triton variants ({v0} "
+                 f"before, {v1} after)")
+        if fake.calls != calls0 + 1:
+            fail(f"extdata: the warm sweeps fetched ({fake.calls - calls0 - 1}"
+                 " rounds)")
+        if min(rec3["counts"].values()) <= 0:
+            fail(f"extdata: the warm sweep launched {rec3['counts']}")
+        warm_best = min(warm_s)
+        overhead = warm_best / base_s - 1.0
+        # uncapped: exactly the invalid-image pods (K8sExtSig alone)
+        alone, _ac = client(False, True, resources)
+        _s, alone_res = sweep(alone, uncapped)
+        n_exact = ext_check(alone_res, want, "extdata uncapped", None)
+        del alone, _ac, alone_res
+        print(f"phase extdata: {EXT_ROWS} resources ({n_pods} pods, "
+              f"{EXT_KEYS} keys, {len(want)} with an invalid image), "
+              f"provider latency {EXT_LATENCY_S * 1e3:.0f} ms; forced full "
+              f"sweeps: baseline {base_s:.4f} s, cold {cold_s:.4f} s "
+              f"({cold_rounds} batched round), warm best {warm_best:.4f} s "
+              f"of {[round(x, 4) for x in warm_s]} (overhead "
+              f"{overhead:+.2%} against the baseline; the reference's "
+              f"claim is under 10%), no Triton compile ({v1} variants); "
+              f"K8sExtSig {n_capped} capped and {n_exact} uncapped "
+              f"violations, exactly the invalid-image pods; warm launches "
+              f"{rec3['counts']}; cold external stanza "
+              f"{json.dumps(cold_stanza)}", flush=True)
+
+        # -- (c) the real wire, then the outage
+        server = ProviderServer(data)
+        wire = Provider(name="bench-sig", url=server.url,
+                        failure_policy="Ignore", retries=0, timeout_s=5.0,
+                        cache_ttl_s=EXT_TTL_S)
+        rt.register(wire)
+        http_s, http_res = sweep(drv)
+        if norm(http_res) != norm(warm_res) or server.posts != 1:
+            fail(f"extdata: the HTTP provider's sweep ({server.posts} "
+                 f"posts) differs from the warm sweep")
+        server.stop()
+        posts, server = server.posts, None
+        rt.register(Provider(name="bench-sig", url=wire.url,
+                             failure_policy="Ignore", retries=0,
+                             timeout_s=1.0, breaker_threshold=1))
+        out_s, out_res = sweep(drv)
+        breaker = rt.stats()["bench-sig"]["breaker_state"]
+        if ext_hits(out_res) or ext_others(out_res) != ext_others(warm_res) \
+                or breaker != "open":
+            fail(f"extdata: outage under Ignore: {len(ext_hits(out_res))} "
+                 f"K8sExtSig results, breaker {breaker}")
+        failures = drv.metrics.counter("external_data_kind_failures")
+        f0 = failures.value
+        rt.register(Provider(name="bench-sig", url=wire.url,
+                             failure_policy="Fail", retries=0,
+                             timeout_s=1.0, breaker_threshold=1))
+        fail_s, fail_res = sweep(drv)
+        if failures.value - f0 != 1 or ext_hits(fail_res) or \
+                ext_others(fail_res) != ext_others(warm_res):
+            fail(f"extdata: outage under Fail: "
+                 f"{failures.value - f0} kind failures, "
+                 f"{len(ext_hits(fail_res))} K8sExtSig results")
+        print(f"phase extdata wire: {wire.url} ({posts} batched POST) "
+              f"{http_s:.4f} s, results equal the warm sweep's; server "
+              f"stopped: Ignore {out_s:.4f} s, breaker {breaker}; Fail "
+              f"{fail_s:.4f} s, external_data_kind_failures +1, every "
+              f"other kind's results equal", flush=True)
+
+        # -- (d) one admission batch through the handler and the batcher
+        rev_images = [f"registry.example/adm{i}:v1"
+                      for i in range(EXT_REVIEW_KEYS)]
+        rev_data = {img: ("invalid" if i % 4 == 0 else "valid")
+                    for i, img in enumerate(rev_images)}
+        fake_adm = register_fake("bench-sig-adm", FakeProvider(
+            rev_data, latency_s=EXT_LATENCY_S))
+        rt.register(Provider(name="bench-sig", url="fake://bench-sig-adm",
+                             failure_policy="Ignore", retries=0,
+                             cache_ttl_s=EXT_TTL_S))
+        pods = [r for r in resources if r.get("kind") == "Pod"]
+        reviews = []
+        for i in range(EXT_REVIEWS):
+            obj = copy.deepcopy(pods[i % len(pods)])
+            obj["metadata"]["name"] = f"adm-{i:03d}"
+            obj["spec"]["image"] = rev_images[i % EXT_REVIEW_KEYS]
+            reviews.append({
+                "uid": f"u{i}", "kind": {"group": "", "version": "v1",
+                                         "kind": "Pod"},
+                "operation": "CREATE", "name": obj["metadata"]["name"],
+                "namespace": obj["metadata"].get("namespace"),
+                "userInfo": {"username": "alice", "groups": []},
+                "object": obj})
+        batcher = gated_batcher(MicroBatcher, EXT_REVIEWS)(
+            c.review_batch, max_batch=EXT_REVIEWS,
+            prefetch=c.prefetch_external)
+        handler = ValidationHandler(c, batcher=batcher, batch_mode="always")
+        answers: list = [None] * EXT_REVIEWS
+
+        def post(i):
+            answers[i] = handler.handle(reviews[i])
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(EXT_REVIEWS)]
+        batcher.start()
+        t0 = time.perf_counter()
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            adm_s = time.perf_counter() - t0
+        finally:
+            batcher.stop()
+        batches = batcher.metrics.counter("admission_batches").value
+        fetched = sorted(sum(fake_adm.batches, []))
+        if batches != 1 or fake_adm.calls != 1 or \
+                fetched != sorted(rev_images):
+            fail(f"extdata admission: {fake_adm.calls} provider rounds for "
+                 f"{batches} batches, keys {len(fetched)}")
+        scalar = ValidationHandler(c)
+        want_ans = [scalar.handle(rv) for rv in reviews]
+
+        def ans(resp):
+            st = resp.get("status") or {}
+            return resp["allowed"], st.get("code"), st.get("message")
+        if [ans(a) for a in answers] != [ans(a) for a in want_ans]:
+            fail("extdata admission: the batch's answers differ from the "
+                 "per-review scalar answers")
+        denied = sum(1 for a in answers
+                     if "rejected: invalid" in (ans(a)[2] or ""))
+        if denied != sum(1 for rv in reviews
+                         if rev_data[rv["object"]["spec"]["image"]]
+                         == "invalid"):
+            fail(f"extdata admission: {denied} reviews denied by K8sExtSig")
+        print(f"phase extdata admission: {EXT_REVIEWS} pod reviews in "
+              f"{batches} batch(es), {fake_adm.calls} provider round(s) of "
+              f"{len(fetched)} keys, {adm_s:.4f} s; answers equal the "
+              f"per-review scalar answers ({denied} denied by K8sExtSig)",
+              flush=True)
+        del drv, c, handler, batcher, scalar
+
+        # -- (b) a large registry: K8sExtSig alone
+        rngl = random.Random(12)
+        images_l = [f"registry.example/large{i}:v1"
+                    for i in range(EXT_LARGE_KEYS)]
+        data_l = ext_verdicts(images_l)
+        objs_l = [{"apiVersion": "v1", "kind": "Pod",
+                   "metadata": {"name": f"pod-{i:05d}",
+                                "namespace": f"ns-{i % 100:02d}"},
+                   "spec": {"image": rngl.choice(images_l)}}
+                  for i in range(EXT_LARGE_PODS)]
+        want_l = ext_expected(objs_l, data_l)
+        fake_l = register_fake("bench-sig-large", FakeProvider(
+            data_l, latency_s=EXT_LATENCY_S))
+        large = Provider(name="bench-sig", url="fake://bench-sig-large",
+                         failure_policy="Ignore", retries=0,
+                         cache_ttl_s=EXT_TTL_S)
+        rt.register(large)
+        dl, _cl = client(False, True, objs_l)
+        v0 = triton_variants(ir_eval)
+        cold_l, res_l = sweep(dl)
+        v1 = triton_variants(ir_eval)
+        bulk = dl.last_sweep_phases["external"]["bulk_prefetch"]
+        n_keys = len({o["spec"]["image"] for o in objs_l})
+        if fake_l.calls != 1 or bulk["keys"] != n_keys:
+            fail(f"extdata large: {fake_l.calls} rounds, bulk {bulk}")
+        ext_check(res_l, want_l, "extdata large cold", CAP)
+        settle(dl)              # the delta warm compiles K5's variant
+        v1 = triton_variants(ir_eval)
+        with RecordK123() as r:
+            reset_counts(fns)
+            warm_l, res_wl = sweep(dl)
+            counts_l = r.counts()
+        v2 = triton_variants(ir_eval)
+        errs_l = check_k123(ex, r.calls, "extdata large warm")
+        if v2 != v1 or fake_l.calls != 1 or norm(res_wl) != norm(res_l) \
+                or min(counts_l["K1"], counts_l["K2"]) <= 0:
+            fail(f"extdata large: the warm sweep compiled {v2 - v1} "
+                 f"variants, fetched {fake_l.calls - 1} rounds, launched "
+                 f"{counts_l}")
+        _s, all_l = sweep(dl, uncapped)
+        n_exact_l = ext_check(all_l, want_l, "extdata large uncapped", None)
+        print(f"phase extdata large: K8sExtSig over {EXT_LARGE_PODS} pods, "
+              f"{n_keys} of {EXT_LARGE_KEYS} images; cold {cold_l:.4f} s "
+              f"({v1 - v0} Triton variants with the delta warm's, 1 round; "
+              f"bulk prefetch "
+              f"{bulk['keys']} keys in {bulk['prefetch_s']:.4f} s), warm "
+              f"{warm_l:.4f} s (no round, no compile), launches "
+              f"{counts_l}; {n_exact_l} uncapped violations, exactly the "
+              f"invalid-image pods", flush=True)
+        calls1 = {"K1": r.calls["K1"], "K2": r.calls["K2"],
+                  "K3": rec3["calls"]["K3"]}
+        k123_entries(rec, "ext", calls1,
+                     {"K1": counts_l["K1"], "K2": counts_l["K2"],
+                      "K3": rec3["counts"]["K3"]},
+                     {"K1": errs_l["K1"], "K2": errs_l["K2"],
+                      "K3": rec3["errs"]["K3"]})
+        print(f"phase extdata kernels: K1 {k1_text(rec['K1ext'])} and K2 "
+              f"{k2_text(rec['K2ext'])} at the large sweep's mask "
+              f"{list(calls1['K1'][0][1].shape)} (K2 bound "
+              f"{rec['K2ext']['bound_ms']:.6f}), K3 at the library "
+              f"sweep's table {list(calls1['K3'][0][1].shape)} "
+              f"({rec['K3ext']['ms']:.4f} ms, device "
+              f"{rec['K3ext']['device_ms']:.4f}, plain "
+              f"{rec['K3ext']['plain_ms']:.4f}, bound "
+              f"{rec['K3ext']['bound_ms']:.6f}); each recorded launch "
+              f"equal to its plain version", flush=True)
+        del dl, _cl, r, rec3, calls1
+    finally:
+        if server is not None:
+            server.stop()
+        torch_driver.SMALL_WORKLOAD_EVALS = saved
+        set_runtime(prev_rt)
+        clear_fakes()
+    print(f"phase extdata took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+
+
+PROBE_COST_N = "2000"
+
+
+def probe_phase(fns: dict) -> None:
+    """The probe on the card (``gatekeeper_tpu_torch.client.probe``):
+    ``main([])`` builds a LocalDriver and a TorchDriver on the card and
+    every scenario must pass on both (rc 0, the verdict naming the
+    card); ``main(["--cost"])`` with GATEKEEPER_COST_PROBE_N=2000 builds
+    the library over 2,000 rows and measures a forced full sweep: rc 0
+    (no unit budget set), K1, K2 and K3 launched, each recorded launch
+    equal to its plain version, its measured ``device_s`` printed."""
+    import io
+    import re
+    from gatekeeper_tpu_torch.client import probe
+    from gatekeeper_tpu_torch.engine import executor as ex
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = probe.main([])
+    out = buf.getvalue().splitlines()
+    ok = {label: sum(1 for line in out
+                     if line.startswith(f"  ok   [{label}]"))
+          for label in ("local", "torch")}
+    verdict = out[-1] if out else ""
+    if rc != 0 or ok != {"local": 12, "torch": 12} or \
+            verdict != f"PROBE PASS (torch engine served by: cuda:0)":
+        fail(f"probe: rc {rc}, scenarios passed {ok}, verdict {verdict!r}")
+    t1 = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in ("GATEKEEPER_COST_PROBE_N",
+                                            "GATEKEEPER_COST_BUDGET_UNITS")}
+    os.environ["GATEKEEPER_COST_PROBE_N"] = PROBE_COST_N
+    os.environ.pop("GATEKEEPER_COST_BUDGET_UNITS", None)
+    buf = io.StringIO()
+    try:
+        with RecordK123() as r, contextlib.redirect_stdout(buf):
+            reset_counts(fns)
+            rc_cost = probe.main(["--cost"])
+            counts = r.counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    join_warms()
+    errs = check_k123(ex, r.calls, "probe --cost")
+    text = buf.getvalue()
+    m = re.search(r"measured device_s=([0-9.]+)", text)
+    if rc_cost != 0 or m is None or min(counts.values()) <= 0:
+        fail(f"probe --cost: rc {rc_cost} (predicted 0), launches {counts}, "
+             f"tail {text.splitlines()[-1:]}")
+    print(f"phase probe: main([]) rc 0 in {t1 - t0:.1f}s, {ok} scenarios "
+          f"passed, {verdict!r}; --cost (N={PROBE_COST_N}) rc {rc_cost} "
+          f"in {time.perf_counter() - t1:.1f}s, measured device_s "
+          f"{m.group(1)}, launches {counts} (max error {errs}); "
+          f"{text.splitlines()[-1]}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
@@ -4654,6 +5237,13 @@ def main() -> int:
                       help="build K2, K3 and K4 and run only the worker "
                       "phase (the manager over an engine worker, a pool of "
                       "worker processes)")
+    only.add_argument("--extdata-only", action="store_true",
+                      help="build K2 and K3 and run only the external-data "
+                      "phase (the bench row, a large registry, the HTTP "
+                      "provider and its outage, an admission batch)")
+    only.add_argument("--probe-only", action="store_true",
+                      help="build K2 and K3 and run only the probe phase "
+                      "(the scenarios on local and torch, --cost)")
     ap.add_argument("--reactor-pods", type=int, default=REACTOR_PODS,
                     help="pods of the reactor phase (REACTOR_PODS by "
                     "default): its cold ledger build and rung-2 resync "
@@ -4696,7 +5286,9 @@ def main() -> int:
                        if args.k6k7_only else ("topk", "dfa", "scatter")
                        if args.manager_only or args.worker_only else
                        ("topk", "dfa", "scatter", "devdelta")
-                       if args.reactor_only else build.KERNELS)
+                       if args.reactor_only else ("topk", "dfa")
+                       if args.extdata_only or args.probe_only
+                       else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
           f"{ {k: round(v, 3) for k, v in secs.items()} }, triton "
@@ -4710,7 +5302,8 @@ def main() -> int:
         else AdmissionOracle(("manager",)) \
         if args.manager_only or args.worker_only \
         else None if (args.k1_only or args.k2_only or args.k3_only
-                      or args.k6k7_only or args.reactor_only) \
+                      or args.k6k7_only or args.reactor_only
+                      or args.extdata_only or args.probe_only) \
         else AdmissionOracle()
     try:
         return run_phases(args, card, dev, rec, answers)
@@ -4779,6 +5372,14 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         return 0
     if args.worker_only:
         worker_phase(rec, fns, oracle=answers)
+        print(card, flush=True)
+        return 0
+    if args.extdata_only:
+        extdata_phase(rec, fns)
+        print(card, flush=True)
+        return 0
+    if args.probe_only:
+        probe_phase(fns)
         print(card, flush=True)
         return 0
 
@@ -5361,10 +5962,19 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     # and a pool of worker processes on the card
     worker_phase(rec, fns, oracle=answers)
     mark("worker")
+
+    # ---- 14. extdata: external data on the card (the bench's row, a
+    # large registry, the HTTP provider, an admission batch)
+    extdata_phase(rec, fns)
+    mark("extdata")
+
+    # ---- 15. probe: the self-test scenarios and --cost on the card
+    probe_phase(fns)
+    mark("probe")
     print(f"phase timing: seconds a phase after the build {took}, "
           f"{sum(took.values()):.1f}s in all", flush=True)
 
-    # ---- 14. kernels line, card line, final line
+    # ---- 16. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -5455,13 +6065,22 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         "K3wk": ("dfa_worker_audit", "cuda",
                  "gatekeeper_tpu_torch/csrc/dfa.cu",
                  "gatekeeper_tpu/engine/veval.py:227"),
+        "K1ext": ("ir_eval_external_data", "triton",
+                  "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                  "gatekeeper_tpu/engine/veval.py:294"),
+        "K2ext": ("topk_external_data", "cuda",
+                  "gatekeeper_tpu_torch/csrc/topk.cu",
+                  "gatekeeper_tpu/engine/veval.py:660"),
+        "K3ext": ("dfa_external_data", "cuda",
+                  "gatekeeper_tpu_torch/csrc/dfa.cu",
+                  "gatekeeper_tpu/engine/veval.py:227"),
     }
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K1bl", "K2b",
                 "K3b", "K6", "K7", "K8g", "K8s", "K1r", "K3r", "K1mgr",
                 "K2mgr", "K3mgr", "K4mgr", "K5mgr", "K1rmgr", "K3rmgr",
                 "K4rx", "K3rx", "K1rx", "K6rx", "K1fs", "K2fs", "K3fs",
-                "K1wk", "K2wk", "K3wk"):
+                "K1wk", "K2wk", "K3wk", "K1ext", "K2ext", "K3ext"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -30,7 +30,6 @@ Trimmed for the port, each refused when asked for:
   reference's ``main`` turns on by default) — ROADMAP A8;
 - a ``GATEKEEPER_FAULT`` whose seam the port lacks
   (resilience/faults.py).
-Not built: the external-data runtime and the Provider kind (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -44,6 +43,7 @@ import threading
 
 from gatekeeper_tpu_torch.utils.log import logger
 from gatekeeper_tpu_torch.api.config import GVK, empty_config_object
+from gatekeeper_tpu_torch.api.externaldata import PROVIDER_GVK
 from gatekeeper_tpu_torch.audit.manager import (CRD_NAME, AuditManager,
                                           DEFAULT_AUDIT_INTERVAL,
                                           DEFAULT_VIOLATIONS_LIMIT)
@@ -75,8 +75,7 @@ def bootstrap_cluster(cluster) -> None:
     if hasattr(cluster, "register_kind"):
         cluster.register_kind(TEMPLATE_GVK, "constrainttemplates")
         cluster.register_kind(CONFIG_GVK, "configs")
-        # (the reference also serves and installs the external-data
-        # Provider kind: ROADMAP A5, no provider controller in the port)
+        cluster.register_kind(PROVIDER_GVK, "providers")
         # core kinds every conformant apiserver serves (sync configs
         # routinely watch these; the fake's discovery must agree)
         for kind, plural in (("Namespace", "namespaces"), ("Pod", "pods"),
@@ -94,6 +93,9 @@ def bootstrap_cluster(cluster) -> None:
               "ConstraintTemplate", "constrainttemplates")
     apply_crd(cluster, "configs.config.gatekeeper.sh", "config.gatekeeper.sh",
               "v1alpha1", "Config", "configs")
+    apply_crd(cluster, "providers.externaldata.gatekeeper.sh",
+              "externaldata.gatekeeper.sh", "v1beta1", "Provider",
+              "providers", namespaced=False)
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
@@ -139,9 +141,15 @@ class Manager:
             driver = TorchDriver(tracing=False,
                                  device=getattr(args, "device", None))
         self.client = Backend(driver).new_client([K8sValidationTarget()])
-        # (the reference installs its process-global external-data
-        # runtime here: ROADMAP A5)
-        self.plane: ControlPlane = add_to_manager(self.cluster, self.client)
+        # external-data runtime: installed process-globally (the
+        # `external_data` builtin resolves it there) and instrumented
+        # through the manager's metrics registry
+        from gatekeeper_tpu_torch.externaldata.runtime import (
+            ExternalDataRuntime, set_runtime)
+        self.external_data = ExternalDataRuntime(metrics=self.metrics)
+        set_runtime(self.external_data)
+        self.plane: ControlPlane = add_to_manager(
+            self.cluster, self.client, external_data=self.external_data)
         from gatekeeper_tpu_torch.webhook.overload import OverloadController
         from gatekeeper_tpu_torch.webhook.server import REQUEST_TIMEOUT_S
         self.batcher = MicroBatcher(

@@ -14,9 +14,8 @@ longer compiles still tears down — the reference returns after the
 CreateCRD error and would leak the finalizer forever; here deletion
 proceeds with the CRD identity derived from the template kind alone.
 
-Trimmed for the port: the Stage-1 vet's live provider set is empty
-(no provider controller, ROADMAP A5), and ``GATEKEEPER_TRANSVAL=strict``
-raises (no Stage 4, ROADMAP A8).  Footprint and shardplan statuses read
+Trimmed for the port: ``GATEKEEPER_TRANSVAL=strict`` raises (no Stage
+4, ROADMAP A8).  Footprint and shardplan statuses read
 the port's own ``analysis/footprint.py`` and ``analysis/shardplan.py``.
 """
 
@@ -269,20 +268,18 @@ class ReconcileConstraintTemplate(Reconciler):
 
     def _vet_instance(self, instance: dict, status: dict) -> None:
         """Run the Stage-1 vetter over every target's Rego with the
-        live external-data provider set (empty in the port: no provider
-        controller yet).  Error findings raise VetError (rejecting the
-        template before it reaches the engine); warning findings land
-        in ``status.byPod[].warnings``."""
+        live external-data provider set.  Error findings raise VetError
+        (rejecting the template before it reaches the engine); warning
+        findings land in ``status.byPod[].warnings``.  When no
+        ExternalDataRuntime exists the provider-existence check is
+        skipped — the subsystem is disabled, not misconfigured."""
         from gatekeeper_tpu_torch.analysis import has_errors, vet_module
         from gatekeeper_tpu_torch.errors import VetError
+        from gatekeeper_tpu_torch.externaldata.runtime import get_runtime
         from gatekeeper_tpu_torch.rego.parser import parse_module
 
-        # the live provider set: the reference reads it from the
-        # process-global ExternalDataRuntime that add_to_manager always
-        # installs.  Without the provider controller (ROADMAP A5) no
-        # Provider can be registered, so the live set is empty — the
-        # reference's set with no Provider installed
-        providers: set[str] = set()
+        rt = get_runtime()
+        providers = set(rt.provider_names()) if rt is not None else None
         kind = _template_kind(instance)
         diags = []
         for tt in ((instance.get("spec") or {}).get("targets") or ()):

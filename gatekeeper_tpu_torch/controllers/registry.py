@@ -8,24 +8,27 @@ plane: watch manager, the constraint-kind registrar (owned by the
 template controller), the sync registrar (owned by the config
 controller), and the two statically-watched reconcilers.
 
-Trimmed for the port: the external-data runtime and the provider
-controller (ROADMAP A5) and the backend supervisor's template re-queue
-on recovery (ROADMAP A8).  ``add_to_manager`` takes no external-data
-runtime, and ``ControlPlane`` carries neither field.
+Trimmed for the port: the backend supervisor's template re-queue on
+recovery (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from gatekeeper_tpu_torch.api.externaldata import PROVIDER_GVK
 from gatekeeper_tpu_torch.client.client import Client
 from gatekeeper_tpu_torch.cluster.fake import FakeCluster
 from gatekeeper_tpu_torch.controllers.config import CONFIG_GVK, ReconcileConfig
 from gatekeeper_tpu_torch.controllers.constraint import ReconcileConstraint
 from gatekeeper_tpu_torch.controllers.constrainttemplate import (
     TEMPLATE_GVK, ReconcileConstraintTemplate)
+from gatekeeper_tpu_torch.controllers.provider import ReconcileProvider
 from gatekeeper_tpu_torch.controllers.runtime import ControllerManager
 from gatekeeper_tpu_torch.controllers.sync import ReconcileSync
+from gatekeeper_tpu_torch.externaldata.runtime import (ExternalDataRuntime,
+                                                       get_runtime,
+                                                       set_runtime)
 from gatekeeper_tpu_torch.watch.manager import Registrar, WatchManager
 
 
@@ -39,6 +42,8 @@ class ControlPlane:
     sync_registrar: Registrar
     template_controller: ReconcileConstraintTemplate
     config_controller: ReconcileConfig
+    provider_controller: "ReconcileProvider | None" = None
+    external_data: "ExternalDataRuntime | None" = None
 
     def run_until_idle(self, max_steps: int = 100_000,
                        settle: float = 0.0) -> int:
@@ -70,12 +75,20 @@ class ControlPlane:
 
 
 def add_to_manager(cluster: FakeCluster, client: Client,
-                   mgr: ControllerManager | None = None) -> ControlPlane:
+                   mgr: ControllerManager | None = None,
+                   external_data: ExternalDataRuntime | None = None) \
+        -> ControlPlane:
     mgr = mgr if mgr is not None else ControllerManager(cluster)
     wm = WatchManager(cluster, mgr)
-    # (the reference installs the process-global external-data runtime
-    # here and, when discovery serves the Provider kind, a provider
-    # controller: ROADMAP A5, not part of the port yet)
+    # external-data: the runtime the `external_data` builtin consults is
+    # process-global (the builtin registry can't thread per-eval state);
+    # reuse an installed one so tests composing several control planes
+    # share provider state the way one process shares one registry
+    if external_data is None:
+        external_data = get_runtime()
+    if external_data is None:
+        external_data = ExternalDataRuntime()
+        set_runtime(external_data)
     constraint_registrar = wm.new_registrar(
         "constraint-controller",
         lambda gvk: ReconcileConstraint(cluster, client, gvk))
@@ -87,6 +100,15 @@ def add_to_manager(cluster: FakeCluster, client: Client,
     mgr.watch(TEMPLATE_GVK, template_controller)
     config_controller = ReconcileConfig(cluster, client, sync_registrar)
     mgr.watch(CONFIG_GVK, config_controller)
+    # gated on discovery (like the reference gates its external-data
+    # controller on the Provider CRD): a cluster that does not serve
+    # the kind gets no provider watch — bootstrap_cluster applies the
+    # CRD, so the managed path always does
+    provider_controller = None
+    served = getattr(cluster, "kind_served", None)
+    if served is None or served(PROVIDER_GVK):
+        provider_controller = ReconcileProvider(cluster, external_data)
+        mgr.watch(PROVIDER_GVK, provider_controller)
     # (the reference also registers a recovery listener with the backend
     # supervisor that re-enqueues every ConstraintTemplate: ROADMAP A8;
     # the port has no supervisor, so nothing recovers and nothing
@@ -96,4 +118,6 @@ def add_to_manager(cluster: FakeCluster, client: Client,
                         constraint_registrar=constraint_registrar,
                         sync_registrar=sync_registrar,
                         template_controller=template_controller,
-                        config_controller=config_controller)
+                        config_controller=config_controller,
+                        provider_controller=provider_controller,
+                        external_data=external_data)

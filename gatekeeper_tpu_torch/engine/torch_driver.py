@@ -67,6 +67,7 @@ Shadow and replay what-if and sharding are not part of this port yet.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import os
 import threading
@@ -1722,6 +1723,134 @@ class TorchDriver(LocalDriver):
         return int(self._state(target).table.generation)
 
     # ------------------------------------------------------------------
+    # external data: the key-collection half of the two-phase design
+
+    def _ext_specs(self, st) -> list[tuple[str, tuple[str, ...]]]:
+        """(provider, review-column path) pairs across the target's
+        lowered kinds — the sweep-level key-collection scan of the
+        two-phase external-data design."""
+        specs: list[tuple[str, tuple[str, ...]]] = []
+        for kind in sorted(st.templates):
+            lowered = st.templates[kind].vectorized
+            if lowered is None or not self._kind_constraints(st, kind):
+                continue
+            for tr in lowered.spec.tables:
+                if not tr.ext_providers or not tr.src.startswith("r:val:"):
+                    # e-col-keyed lookups are rare; the build-time
+                    # prefetch hook still batches them per table build
+                    continue
+                path = tuple(tr.src[len("r:val:"):].split("."))
+                for provider in tr.ext_providers:
+                    specs.append((provider, path))
+        return specs
+
+    def _prefetch_external(self, st, specs) -> dict:
+        """Bulk-warm every (provider, distinct key) pair the sweep's
+        external-data tables will gather — one batched round per
+        provider (single-flight in the provider cache dedupes against
+        the build-time hook racing it).  Returns the audit report's
+        ``bulk_prefetch`` numbers."""
+        from gatekeeper_tpu_torch.externaldata.runtime import get_runtime
+        from gatekeeper_tpu_torch.ir.encode import decode_value
+        from gatekeeper_tpu_torch.store.columns import ColSpec
+        rt = get_runtime()
+        t0 = time.perf_counter()
+        interner = st.table.interner
+        by_provider: dict[str, dict] = {}
+        for provider, path in specs:
+            want = by_provider.setdefault(provider, {})
+            ids = np.unique(st.table.column(ColSpec(path, "val")).ids)
+            for uid in ids[ids >= 0].tolist():
+                v = decode_value(interner.string(uid))
+                if isinstance(v, str):
+                    want[v] = True
+        n_keys = 0
+        for provider, want in by_provider.items():
+            n_keys += len(want)
+            if want and rt is not None:
+                rt.prefetch(provider, list(want))
+        return {"providers": len(by_provider), "keys": n_keys,
+                "prefetch_s": round(time.perf_counter() - t0, 6)}
+
+    def _start_external_warm(self, st, tracer, sweep_ctx):
+        """Start the sweep's bulk external-data warm on an
+        ``external-prefetch`` thread of its own (the reference submits
+        it to its sweep pool), so the provider round overlaps the kinds'
+        host prep: a Future of its stats, which the sweep reads before
+        its report (raising the warm's exception, never swallowing it).
+        None when no runtime is installed or no lowered kind reads a
+        provider."""
+        from gatekeeper_tpu_torch.externaldata.runtime import get_runtime
+        if get_runtime() is None:
+            return None
+        specs = self._ext_specs(st)
+        if not specs:
+            return None
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                return self._prefetch_external(st, specs)
+            finally:
+                tracer.add_complete("external.prefetch", cat="external",
+                                    t0=t0, t1=time.perf_counter(),
+                                    parent=sweep_ctx)
+        pool = concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="external-prefetch")
+        try:
+            return pool.submit(run)
+        finally:
+            pool.shutdown(wait=False)
+
+    @staticmethod
+    def _external_sweep_stats(bulk: dict | None) -> dict | None:
+        """Sweep-report payload: the bulk warm's numbers plus every
+        provider's breaker state / cache hit ratio / fetch timings.
+        None when no runtime or no provider is configured."""
+        from gatekeeper_tpu_torch.externaldata.runtime import get_runtime
+        rt = get_runtime()
+        if rt is None or not rt.provider_names():
+            return None
+        out: dict = {"providers": rt.stats()}
+        if bulk is not None:
+            out["bulk_prefetch"] = bulk
+        return out
+
+    @locked_read
+    def prefetch_external_for_reviews(self, target: str,
+                                      reviews: list[dict]) -> None:
+        """Batched external-data warm for an admission micro-batch: one
+        fetch round per provider covering every key any review in the
+        batch will look up.  Wired ahead of MicroBatcher evaluation so
+        fetch latency is paid once per batch — including batches small
+        enough to fall back to per-review scalar queries, which would
+        otherwise fetch key-by-key."""
+        from gatekeeper_tpu_torch.externaldata.runtime import get_runtime
+        rt = get_runtime()
+        if rt is None:
+            return
+        st = self._state(target)
+        if not isinstance(st, TorchTargetState):
+            return
+        specs = self._ext_specs(st)
+        if not specs:
+            return
+        from gatekeeper_tpu_torch.store.columns import iter_path
+        by_provider: dict[str, dict] = {}
+        for provider, path in specs:
+            want = by_provider.setdefault(provider, {})
+            for rv in reviews:
+                obj = rv.get("object") if isinstance(rv, dict) else None
+                if not isinstance(obj, dict):
+                    continue
+                for v in iter_path(obj, path):
+                    if isinstance(v, str):
+                        want[v] = True
+        for provider, want in by_provider.items():
+            if want:
+                rt.prefetch(provider, list(want))
+
+    # ------------------------------------------------------------------
     # the audit sweep
 
     @locked_read
@@ -1753,15 +1882,22 @@ class TorchDriver(LocalDriver):
         tracer = get_tracer()
         with tracer.span("audit.sweep", cat="audit", target=target,
                          full=full, rows=len(ordered_rows)) as sweep_sp:
-            out = self._sweep(st, target, ordered_rows, row_order, tracing,
-                              limit, full, tracer, tracer.current(),
-                              t_start)
+            sweep_ctx = tracer.current()
+            ext_warm = self._start_external_warm(st, tracer, sweep_ctx)
+            try:
+                out = self._sweep(st, target, ordered_rows, row_order,
+                                  tracing, limit, full, tracer, sweep_ctx,
+                                  t_start, ext_warm)
+            finally:
+                if ext_warm is not None:
+                    # a sweep that failed leaves with its own error
+                    concurrent.futures.wait([ext_warm])
             if sweep_sp is not None:
                 sweep_sp.args["results"] = len(out[0])
         return out
 
     def _sweep(self, st, target, ordered_rows, row_order, tracing, limit,
-               full, tracer, sweep_ctx, t_start) \
+               full, tracer, sweep_ctx, t_start, ext_warm=None) \
             -> tuple[list[Result], str | None]:
         """The body of :meth:`query_audit` under its ``audit.sweep``
         span.
@@ -1774,7 +1910,13 @@ class TorchDriver(LocalDriver):
         dispatch order; the tagged sort restores the scalar driver's
         order.  A full sweep reports its stage seconds in
         ``last_sweep_phases``, with the per-template attribution of its
-        device time (obs/attribution.py)."""
+        device time (obs/attribution.py).  ``ext_warm``, the sweep's bulk
+        external-data warm, runs beside phase 1 and is joined before the
+        report, so its ``bulk_prefetch`` numbers are always in the
+        ``external`` stanza (the reference reads them only if its future
+        is done).  A kind whose provider fails under failurePolicy Fail
+        is contained: its results are unknown this sweep
+        (``external_data_kind_failures``), every other kind's stand."""
         handler = self.targets[target]
         trace: list | None = [] if tracing else None
         m = self.metrics
@@ -1877,8 +2019,16 @@ class TorchDriver(LocalDriver):
                                   None, None, mask, None))
                     prep_done(kind, tk)
                     continue
-                bindings = self._kind_bindings(st, kind, compiled,
-                                               constraints)
+                try:
+                    bindings = self._kind_bindings(st, kind, compiled,
+                                                   constraints)
+                except ExternalDataError:
+                    # failurePolicy Fail during this kind's table build:
+                    # contained per kind — its violations are unknown
+                    # this sweep, every other template is unaffected
+                    m.counter("external_data_kind_failures").inc()
+                    prep_done(kind, tk)
+                    continue
                 if bindings.f32_unsafe:
                     # some bound numeric value does not survive a float32
                     # round-trip: device ordering compares could
@@ -1912,28 +2062,16 @@ class TorchDriver(LocalDriver):
         for mode, kind, compiled, constraints, prog, bindings, mask, \
                 handle in specs:
             tf = time.perf_counter()
-            if mode == "pages":
-                # the devpages path fills the reader-side caches
-                # (_kind_bindings) that _prep_lock serializes
-                with self._prep_lock:
-                    self._paged_kind(st, target, handler, compiled,
-                                     constraints, ordered_rows, row_order,
-                                     kind, limit, tagged, rcache, pg_stats,
-                                     pg_dirty_pages, dv_stats)
-            elif mode == "topk":
-                self._format_topk(st, target, handler, compiled,
-                                  constraints, prog, bindings, row_order,
-                                  kind, limit, trace, tagged, handle,
-                                  rcache)
-            elif mode == "mask":
-                self._format_pairs(st, target, handler, compiled,
-                                   constraints, handle.get(), row_order,
-                                   kind, limit, trace, tagged, rcache)
-            else:
-                self._scalar_kind(st, target, handler, compiled,
-                                  constraints, mask, ordered_rows,
-                                  row_order, kind, limit, trace, tagged,
-                                  rcache)
+            try:
+                self._format_kind(st, target, handler, mode, kind, compiled,
+                                  constraints, prog, bindings, mask, handle,
+                                  ordered_rows, row_order, limit, trace,
+                                  tagged, rcache, pg_stats, pg_dirty_pages,
+                                  dv_stats)
+            except ExternalDataError:
+                # the scalar oracle's re-check hit a Fail-policy provider
+                # failure: the same per-kind containment as phase 1
+                m.counter("external_data_kind_failures").inc()
             tf2 = time.perf_counter()
             tracer.add_complete("kind.format", cat="format", t0=tf, t1=tf2,
                                 parent=sweep_ctx, kind=kind, mode=mode)
@@ -2013,6 +2151,10 @@ class TorchDriver(LocalDriver):
         }
         phases["devpages"] = {"enabled": dv_on} \
             if dv_stats is None else {"enabled": True, **dv_stats}
+        ext = self._external_sweep_stats(
+            ext_warm.result() if ext_warm is not None else None)
+        if ext is not None:
+            phases["external"] = ext
         self.last_sweep_phases = phases
         if dv_stats is not None:
             m.counter("store_h2d_bytes_total").inc(int(dv_stats["h2d_bytes"]))
@@ -2039,6 +2181,33 @@ class TorchDriver(LocalDriver):
                      scalar_only=self.scalar_only)
         return [r for _, r in tagged], \
             ("\n".join(trace) if trace is not None else None)
+
+    def _format_kind(self, st, target, handler, mode, kind, compiled,
+                     constraints, prog, bindings, mask, handle, ordered_rows,
+                     row_order, limit, trace, tagged, rcache, pg_stats,
+                     pg_dirty_pages, dv_stats) -> None:
+        """Phase 2 of :meth:`_sweep` for one kind: resolve its handle and
+        format its results into ``tagged``."""
+        if mode == "pages":
+            # the devpages path fills the reader-side caches
+            # (_kind_bindings) that _prep_lock serializes
+            with self._prep_lock:
+                self._paged_kind(st, target, handler, compiled, constraints,
+                                 ordered_rows, row_order, kind, limit,
+                                 tagged, rcache, pg_stats, pg_dirty_pages,
+                                 dv_stats)
+        elif mode == "topk":
+            self._format_topk(st, target, handler, compiled, constraints,
+                              prog, bindings, row_order, kind, limit, trace,
+                              tagged, handle, rcache)
+        elif mode == "mask":
+            self._format_pairs(st, target, handler, compiled, constraints,
+                               handle.get(), row_order, kind, limit, trace,
+                               tagged, rcache)
+        else:
+            self._scalar_kind(st, target, handler, compiled, constraints,
+                              mask, ordered_rows, row_order, kind, limit,
+                              trace, tagged, rcache)
 
     # ------------------------------------------------------------------
     # admission: the review micro-batch on the device

@@ -699,9 +699,19 @@ def _ext_prefetch(tr, uids, interner) -> None:
     builtin."""
     if not tr.ext_providers:
         return
-    from gatekeeper_tpu_torch.errors import ClientError
-    raise ClientError("external_data: external data is not yet ported "
-                      "to gatekeeper_tpu_torch")
+    from gatekeeper_tpu_torch.externaldata.runtime import get_runtime
+    rt = get_runtime()
+    if rt is None:
+        return
+    keys = []
+    for uid in uids:
+        key = interner.string(uid)
+        arg = decode_value(key) if tr.src_val else key
+        if isinstance(arg, str):
+            keys.append(arg)
+    if keys:
+        for provider in tr.ext_providers:
+            rt.prefetch(provider, keys)
 
 
 def build_inv_join(req: InvJoinReq, table: ResourceTable,

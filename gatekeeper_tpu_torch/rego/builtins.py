@@ -1088,9 +1088,13 @@ def _external_data(req):
     for k in key_list:
         if not isinstance(k, str):
             raise BuiltinError("external_data: keys must be strings")
-    from gatekeeper_tpu_torch.errors import ClientError
-    raise ClientError("external_data: external data is not yet ported "
-                      "to gatekeeper_tpu_torch")
+    from gatekeeper_tpu_torch.externaldata.runtime import get_runtime
+    rt = get_runtime()
+    if rt is None:
+        raise BuiltinError(
+            "external_data: no provider runtime configured (register "
+            "Provider objects with the manager, or set_runtime in tests)")
+    return freeze(rt.builtin_call(provider, key_list))
 
 
 def _arith_check(x):

@@ -9,6 +9,11 @@ consults this module at the exact seams a real failure would hit:
                          overload ladder engages (a simulated consumer
                          stall: slow device, GC pause, noisy
                          neighbor).
+- ``slow_provider``    — external-data provider fetches stall for
+                         ``GATEKEEPER_FAULT_STALL_S`` while armed,
+                         simulating a saturated/far-away provider
+                         (drives deadline expiry + brownout, not
+                         breaker-open errors).
 
 Watch-class faults (consumed at the reactor's ingest edge,
 ``enforce/reactor.py`` — each models one way a watch stream breaks):
@@ -45,8 +50,8 @@ fault fired.
 
 Trimmed for the port: the seams of ``probe_hang`` and ``device_lost``
 (the backend supervisor, ROADMAP A8), ``snapshot_corrupt`` (the
-snapshot tier, A8), ``slow_provider`` (external data, A5) and
-``fleet_straggler`` (the rollout fleet, A7) are not in the port yet.
+snapshot tier, A8) and ``fleet_straggler`` (the rollout fleet, A7) are
+not in the port yet.
 Arming one of them raises ``ClientError`` naming its item wherever the
 armed set is read (``check_armed``, ``active``, ``take``): a fault that
 no seam would fire is never silently ignored.  A fired fault is put on
@@ -68,7 +73,6 @@ UNPORTED = {
     "probe_hang": "ROADMAP A8, the backend supervisor",
     "device_lost": "ROADMAP A8, the backend supervisor",
     "snapshot_corrupt": "ROADMAP A8, the snapshot tier",
-    "slow_provider": "ROADMAP A5, external data",
     "fleet_straggler": "ROADMAP A7, the rollout fleet",
 }
 

@@ -26,6 +26,7 @@ import yaml
 from gatekeeper_tpu_torch.api.config import GVK
 from gatekeeper_tpu_torch.audit.manager import gvk_of_constraint
 from gatekeeper_tpu_torch.cmd.manager import Manager, parse_args, run_demo
+from gatekeeper_tpu_torch.engine import torch_driver
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
 from gatekeeper_tpu_torch.errors import ClientError
 
@@ -373,8 +374,12 @@ def test_flight_admission_records_the_corpus(monkeypatch, tmp_path):
     """``GATEKEEPER_FLIGHT_ADMISSION=1`` builds the manager, and its
     webhook handler persists each admission into the corpus, which
     reads back with the handler's answer."""
+    from gatekeeper_tpu_torch.obs import flightrecorder
     from gatekeeper_tpu_torch.obs.flightrecorder import \
         load_admission_corpus
+    # a recorder of this test's own: the process-wide one must not keep
+    # a capture log open for later tests' handlers
+    monkeypatch.setattr(flightrecorder, "_recorder", None)
     monkeypatch.setenv("GATEKEEPER_FLIGHT_ADMISSION", "1")
     monkeypatch.setenv("GATEKEEPER_FLIGHT_DIR", str(tmp_path))
     mgr = Manager(parse_args(["--port", "-1"] + CPU))
@@ -398,11 +403,13 @@ def test_main_sets_no_snapshot_dir(monkeypatch, capsys):
     assert json.loads(capsys.readouterr().out) == {"ok": True}
 
 
-def test_no_reactor_and_no_provider_kind_under_pages(monkeypatch):
+def test_reactor_under_pages_and_the_provider_kind_served(monkeypatch):
     """With GATEKEEPER_PAGES on (the default) the manager builds an event
     reactor and attaches it to the audit manager, as the reference does;
-    with pages off it builds none.  Its sweeps take the paged route.  No
-    Provider kind is served or installed (ROADMAP A5)."""
+    with pages off it builds none.  Its sweeps take the paged route.  The
+    Provider kind is served and its CRD applied, and the manager's
+    external-data runtime is the process-global one, as the reference's
+    cmd/manager.py installs it."""
     from gatekeeper_tpu_torch.enforce.reactor import Reactor
     monkeypatch.setenv("GATEKEEPER_PAGES", "off")
     assert Manager(parse_args(["--port", "-1"] + CPU)).reactor is None
@@ -411,8 +418,102 @@ def test_no_reactor_and_no_provider_kind_under_pages(monkeypatch):
     assert isinstance(mgr.reactor, Reactor)
     assert mgr.audit._reactor is mgr.reactor
     assert mgr.reactor._apply_objects is False
-    assert not mgr.cluster.kind_served(
+    from gatekeeper_tpu_torch.externaldata.runtime import get_runtime
+    assert mgr.cluster.kind_served(
         GVK("externaldata.gatekeeper.sh", "v1beta1", "Provider"))
+    assert mgr.cluster.try_get(
+        GVK("apiextensions.k8s.io", "v1", "CustomResourceDefinition"),
+        "providers.externaldata.gatekeeper.sh") is not None
+    assert get_runtime() is mgr.external_data is mgr.plane.external_data
+    assert mgr.plane.provider_controller is not None
     out = run_demo(mgr, n_namespaces=40)
     assert out["sweep"]["pages"]["enabled"] is True
     assert out["sweep"]["pages"]["kinds_paged"] == 1
+
+
+EXT_SIG = """package k8sextsig
+violation[{"msg": msg}] {
+  image := input.review.object.spec.image
+  verdict := object.get(external_data({"provider": "sig-prov", "keys": [image]}), ["responses", image], "missing")
+  verdict == "invalid"
+  msg := sprintf("image %v rejected: %v", [image, verdict])
+}
+"""
+
+
+def test_manager_serves_external_data_through_a_provider(monkeypatch):
+    """A Provider object created in the manager's cluster is registered
+    into its runtime by the provider controller; a template calling
+    ``external_data`` then audits on the device path (statuses name the
+    pods whose image the provider marks invalid, fetched in one batched
+    round) and admits (403 for an invalid image, allowed for a valid
+    one)."""
+    monkeypatch.setattr(torch_driver, "SMALL_WORKLOAD_EVALS", 0)
+    from gatekeeper_tpu_torch.externaldata.fake import (FakeProvider,
+                                                        clear_fakes,
+                                                        register_fake)
+    from gatekeeper_tpu_torch.externaldata.runtime import (get_runtime,
+                                                           set_runtime)
+    prev = get_runtime()
+    fake = register_fake("sig", FakeProvider(
+        {f"img-{i}": ("invalid" if i % 4 == 0 else "valid")
+         for i in range(8)}))
+    try:
+        mgr = Manager(parse_args(["--port", "-1"] + CPU))
+        cluster = mgr.cluster
+        cluster.create({"apiVersion": "externaldata.gatekeeper.sh/v1beta1",
+                        "kind": "Provider", "metadata": {"name": "sig-prov"},
+                        "spec": {"url": "fake://sig",
+                                 "failurePolicy": "Ignore",
+                                 "caching": {"ttlSeconds": 600}}})
+        cfg = {"apiVersion": "config.gatekeeper.sh/v1alpha1",
+               "kind": "Config", "metadata": {
+                   "name": "config", "namespace": "gatekeeper-system"},
+               "spec": {"sync": {"syncOnly": [
+                   {"group": "", "version": "v1", "kind": "Pod"}]}}}
+        cluster.create(cfg)
+        cluster.create({
+            "apiVersion": "templates.gatekeeper.sh/v1alpha1",
+            "kind": "ConstraintTemplate",
+            "metadata": {"name": "k8sextsig"},
+            "spec": {"crd": {"spec": {"names": {"kind": "K8sExtSig"}}},
+                     "targets": [{"target": "admission.k8s.gatekeeper.sh",
+                                  "rego": EXT_SIG}]}})
+        mgr.plane.run_until_idle()
+        assert mgr.external_data.provider_names() == ["sig-prov"]
+        cluster.create({"apiVersion": "constraints.gatekeeper.sh/v1alpha1",
+                        "kind": "K8sExtSig",
+                        "metadata": {"name": "sig-check"},
+                        "spec": {"match": {"kinds": [
+                            {"apiGroups": [""], "kinds": ["Pod"]}]}}})
+        for i in range(12):
+            cluster.create({"apiVersion": "v1", "kind": "Pod",
+                            "metadata": {"name": f"p{i:02d}",
+                                         "namespace": "default"},
+                            "spec": {"image": f"img-{i % 8}"}})
+        mgr.plane.run_until_idle()
+        calls = fake.calls
+        mgr.audit.audit_once()
+        assert fake.calls - calls == 1
+        con = cluster.get(GVK("constraints.gatekeeper.sh", "v1alpha1",
+                              "K8sExtSig"), "sig-check")
+        names = sorted(v["name"] for v in con["status"]["violations"])
+        assert names == ["p00", "p04", "p08"]
+        answers = []
+        for image in ("img-4", "img-5"):
+            resp = mgr.handler.handle({
+                "uid": "u", "kind": {"group": "", "version": "v1",
+                                     "kind": "Pod"},
+                "operation": "CREATE", "name": "new", "namespace": "default",
+                "userInfo": {"username": "alice", "groups": []},
+                "object": {"apiVersion": "v1", "kind": "Pod",
+                           "metadata": {"name": "new",
+                                        "namespace": "default"},
+                           "spec": {"image": image}}})
+            answers.append((resp["allowed"],
+                            (resp.get("status") or {}).get("code")))
+        assert answers == [(False, 403), (True, 200)]
+        mgr.stop()
+    finally:
+        set_runtime(prev)
+        clear_fakes()

@@ -591,9 +591,11 @@ def test_cluster_objects_equal_the_reference(monkeypatch):
     from gatekeeper_tpu.engine import jax_driver
     from gatekeeper_tpu.externaldata import runtime
     monkeypatch.setattr(jax_driver, "SMALL_WORKLOAD_EVALS", 0)
-    # a fresh reference runtime (no Provider registered), as a process
-    # that has just started has
+    # fresh runtimes (no Provider registered), as a process that has
+    # just started has
+    from gatekeeper_tpu_torch.externaldata import runtime as truntime
     monkeypatch.setattr(runtime, "_runtime", None)
+    monkeypatch.setattr(truntime, "_runtime", None)
     monkeypatch.setattr(torch_driver, "SMALL_WORKLOAD_EVALS", 0)
     ref_plane, port_plane = _both_planes()
     for op, arg in _writes():
@@ -643,14 +645,71 @@ def test_transval_strict_is_refused(monkeypatch):
                for _, _, e in plane.mgr.errors)
 
 
-def test_control_plane_has_no_external_data_or_provider():
-    """The external-data runtime and the provider controller are
-    ROADMAP A5: add_to_manager takes no runtime and watches no
-    Provider kind, even where discovery serves it."""
-    cluster = FakeCluster()
-    cluster.register_kind(GVK("externaldata.gatekeeper.sh", "v1beta1",
-                              "Provider"), "providers")
-    plane = add_to_manager(cluster, make_client())
-    assert not hasattr(plane, "external_data")
-    assert not hasattr(plane, "provider_controller")
-    assert set(cluster._watchers) == {TEMPLATE_GVK, CONFIG_GVK}
+def test_control_plane_installs_the_runtime_and_reconciles_providers():
+    """As the reference does, add_to_manager installs the process-global
+    external-data runtime (or reuses an installed one) and, where
+    discovery serves the Provider kind, a provider controller: a
+    Provider object is registered into the runtime, its template then
+    vets clean against the live provider set, and the reference's plane
+    over the same writes reaches the same statuses."""
+    from gatekeeper_tpu.api.config import GVK as RGVK
+    from gatekeeper_tpu.client.client import Backend as RBackend
+    from gatekeeper_tpu.cluster.fake import FakeCluster as RFakeCluster
+    from gatekeeper_tpu.controllers.constrainttemplate import \
+        TEMPLATE_GVK as RTEMPLATE
+    from gatekeeper_tpu.controllers.registry import add_to_manager as radd
+    from gatekeeper_tpu.engine.jax_driver import JaxDriver
+    from gatekeeper_tpu.externaldata import runtime as rruntime
+    from gatekeeper_tpu.target.k8s import K8sValidationTarget as RTarget
+    from gatekeeper_tpu_torch.api.externaldata import PROVIDER_GVK
+    from gatekeeper_tpu_torch.externaldata import runtime as truntime
+    rprev, tprev = rruntime.get_runtime(), truntime.get_runtime()
+    rruntime.set_runtime(None)
+    truntime.set_runtime(None)
+    try:
+        port = FakeCluster()
+        ref = RFakeCluster()
+        planes = []
+        for cluster, gvk_cls, tmpl, add, client in (
+                (port, GVK, TEMPLATE_GVK, add_to_manager, make_client()),
+                (ref, RGVK, RTEMPLATE, radd, RBackend(JaxDriver())
+                 .new_client([RTarget()]))):
+            cluster.register_kind(tmpl, "constrainttemplates")
+            cluster.register_kind(gvk_cls("externaldata.gatekeeper.sh",
+                                          "v1beta1", "Provider"),
+                                  "providers")
+            planes.append(add(cluster, client))
+        tplane, rplane = planes
+        assert tplane.external_data is truntime.get_runtime()
+        assert tplane.provider_controller is not None
+        assert set(port._watchers) == {TEMPLATE_GVK, CONFIG_GVK,
+                                       PROVIDER_GVK}
+        # a second plane in the process shares the installed runtime
+        assert add_to_manager(FakeCluster(), make_client()).external_data \
+            is tplane.external_data
+        provider = {"apiVersion": "externaldata.gatekeeper.sh/v1beta1",
+                    "kind": "Provider", "metadata": {"name": "image-signer"},
+                    "spec": {"url": "fake://signer",
+                             "failurePolicy": "Ignore"}}
+        for plane in planes:
+            plane.cluster.create(copy.deepcopy(provider))
+            plane.run_until_idle()
+            plane.cluster.create(template_obj(kind="K8sExternalCheck",
+                                              rego=EXT_REGO))
+            plane.run_until_idle()
+        assert tplane.external_data.provider_names() == ["image-signer"]
+        tobjs, robjs = _objects(port), _objects(ref)
+        assert _masked(tobjs) == _masked(robjs)
+        tmpl = tobjs[("templates.gatekeeper.sh", "v1alpha1",
+                      "ConstraintTemplate", "", "k8sexternalcheck")]
+        assert not get_ha_status(tmpl).get("errors")
+        prov = tobjs[("externaldata.gatekeeper.sh", "v1beta1", "Provider",
+                      "", "image-signer")]
+        assert prov["status"]["byPod"] == [{"state": "Active"}]
+        # a cluster that does not serve the kind gets no provider watch
+        bare = FakeCluster()
+        assert add_to_manager(bare, make_client()).provider_controller \
+            is None
+    finally:
+        rruntime.set_runtime(rprev)
+        truntime.set_runtime(tprev)

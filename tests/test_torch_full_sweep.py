@@ -28,6 +28,7 @@ from gatekeeper_tpu.engine import jax_driver
 from gatekeeper_tpu.engine.jax_driver import JaxDriver
 from gatekeeper_tpu.library import (LIBRARY, all_docs, constraint_doc,
                                     template_doc)
+from gatekeeper_tpu.library.templates import constraint_doc as lib_cdoc
 from gatekeeper_tpu.library.workload import make_mixed
 from gatekeeper_tpu.obs.attribution import \
     attribute_sweep as ref_attribute_sweep
@@ -45,9 +46,10 @@ from gatekeeper_tpu_torch.target.k8s import TARGET_NAME
 from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget as TTarget
 
 # the reference's phase stanzas of layers the port has not got yet:
-# dedup and footprint (ROADMAP A6), shard (A10), external (A5), whatif
-# (A7)
-UNPORTED_STANZAS = {"dedup", "footprint", "shard", "external", "whatif"}
+# dedup and footprint (ROADMAP A6), shard (A10), whatif (A7).  The
+# ``external`` stanza is compared: it appears on both sides exactly when
+# a provider is registered
+UNPORTED_STANZAS = {"dedup", "footprint", "shard", "whatif"}
 FULL_KEYS = {"full", "serial", "host_prep_s", "h2d_s", "device_s",
              "format_s", "h2d_bytes", "pipeline_wall_s", "overlap_fraction",
              "attribution", "pages", "devpages"}
@@ -56,8 +58,15 @@ FULL_KEYS = {"full", "serial", "host_prep_s", "h2d_s", "device_s",
 @pytest.fixture(autouse=True)
 def _device_path_at_test_sizes(monkeypatch):
     """Drive the device path at test sizes (the port's own copy of the
-    small-workload threshold; conftest zeroes the reference's)."""
+    small-workload threshold; conftest zeroes the reference's), with no
+    external-data runtime installed in either package, as a process that
+    has just started has (the ``external`` stanza appears only with a
+    provider registered)."""
+    from gatekeeper_tpu.externaldata import runtime as j_runtime
+    from gatekeeper_tpu_torch.externaldata import runtime as t_runtime
     monkeypatch.setattr(torch_driver, "SMALL_WORKLOAD_EVALS", 0)
+    monkeypatch.setattr(j_runtime, "_runtime", None)
+    monkeypatch.setattr(t_runtime, "_runtime", None)
 
 
 def _keys(results):
@@ -400,3 +409,69 @@ def test_full_sweep_leaves_admission_prediction_unchanged():
         assert td.predict_review_batch_seconds(TARGET_NAME, 64) == before
     finally:
         costmodel.reset_calibration()
+
+
+EXT_SIG = """package k8sextsig
+violation[{"msg": msg}] {
+  image := input.review.object.spec.image
+  verdict := object.get(external_data({"provider": "sig-prov", "keys": [image]}), ["responses", image], "missing")
+  verdict == "invalid"
+  msg := sprintf("image %v rejected: %v", [image, verdict])
+}
+"""
+
+
+@pytest.mark.parametrize("full", [True, False])
+def test_external_stanza_is_compared_with_a_provider(full, monkeypatch):
+    """With a provider registered in each package's runtime (a fake over
+    the same data) a forced full sweep and a memoized one carry the
+    ``external`` stanza on both sides, with the same keys, provider
+    keys and bulk-warm keys; the phase keys equal the reference's less
+    the unported stanzas; results equal the scalar oracle's."""
+    import gatekeeper_tpu.api.externaldata as j_api
+    import gatekeeper_tpu.externaldata as j_ext
+    import gatekeeper_tpu_torch.api.externaldata as t_api
+    import gatekeeper_tpu_torch.externaldata as t_ext
+    monkeypatch.setenv("GATEKEEPER_PAGES", "off")
+    data = {f"img-{i}": ("invalid" if i % 3 == 0 else "valid")
+            for i in range(8)}
+    try:
+        for api, ext in ((t_api, t_ext), (j_api, j_ext)):
+            rt = ext.ExternalDataRuntime()
+            ext.set_runtime(rt)
+            ext.register_fake("sig", ext.FakeProvider(dict(data)))
+            rt.register(api.Provider(name="sig-prov", url="fake://sig",
+                                     failure_policy="Ignore"))
+        (td, jd, _ld), (ct, cj, cl) = _three()
+        rng = random.Random(4)
+        pods = [{"apiVersion": "v1", "kind": "Pod",
+                 "metadata": {"name": f"p{i}", "namespace": "default"},
+                 "spec": {"image": f"img-{rng.randrange(10)}"}}
+                for i in range(40)]
+        for c in (ct, cj, cl):
+            _small_device(c, 3)
+            c.add_template(template_doc("K8sExtSig", EXT_SIG))
+            c.add_constraint(lib_cdoc("K8sExtSig", "sig-check", match={
+                "kinds": [{"apiGroups": [""], "kinds": ["Pod"]}]}))
+            c.add_data_batch(pods)
+        got = _keys(ct.audit(full=full).results())
+        assert got == _keys(cj.audit(full=full).results()) \
+            == _keys(cl.audit().results())
+        assert sum(1 for r in got if "rejected" in r[0]) > 0
+        phases, ref = td.last_sweep_phases, jd.last_sweep_phases
+        assert set(phases) == set(ref) - UNPORTED_STANZAS
+        assert "external" in phases
+        t_ext_st, j_ext_st = phases["external"], ref["external"]
+        assert sorted(t_ext_st) == sorted(j_ext_st) \
+            == ["bulk_prefetch", "providers"]
+        assert sorted(t_ext_st["providers"]["sig-prov"]) == \
+            sorted(j_ext_st["providers"]["sig-prov"])
+        assert sorted(t_ext_st["bulk_prefetch"]) == \
+            sorted(j_ext_st["bulk_prefetch"])
+        assert t_ext_st["bulk_prefetch"]["keys"] == \
+            j_ext_st["bulk_prefetch"]["keys"] == len(
+                {p["spec"]["image"] for p in pods})
+    finally:
+        for ext in (t_ext, j_ext):
+            ext.set_runtime(None)
+            ext.clear_fakes()

@@ -76,7 +76,16 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "gatekeeper_tpu_torch.webhook.overload",
                 "gatekeeper_tpu_torch.webhook.bootstrap",
                 "gatekeeper_tpu_torch.audit.manager",
-                "gatekeeper_tpu_torch.cmd.manager"):
+                "gatekeeper_tpu_torch.cmd.manager",
+                "gatekeeper_tpu_torch.api.externaldata",
+                "gatekeeper_tpu_torch.externaldata.breaker",
+                "gatekeeper_tpu_torch.externaldata.cache",
+                "gatekeeper_tpu_torch.externaldata.client",
+                "gatekeeper_tpu_torch.externaldata.fake",
+                "gatekeeper_tpu_torch.externaldata.runtime",
+                "gatekeeper_tpu_torch.controllers.provider",
+                "gatekeeper_tpu_torch.library.buckets",
+                "gatekeeper_tpu_torch.client.probe"):
         assert mod in rep["modules"]
 
 

@@ -346,7 +346,11 @@ def test_reactor_events_ride_the_http_watch(sides, tmp_path, monkeypatch):
                              for e in seen), "the appear event",
                  state=lambda: (dict(rx.counters), rx.state, rx.error,
                                 len(seen)))
-        assert rx.counters["rung1"] > rung1
+        # the update's own watch event reacts at rung 1; a pump's
+        # re-react of the store's new generation (the sync controller's
+        # write) may bring the appear event first
+        wait_for(lambda: rx.counters["rung1"] > rung1, "the rung-1 react",
+                 state=lambda: dict(rx.counters))
         assert rx.state == "live" and rx.error is None
         assert mgr.audit.last_sweep["timestamp"]    # only the cold sweep
         got = sorted((kind, cname, ident[1], r.msg)

@@ -614,7 +614,7 @@ def test_faults_parse_and_fire_like_the_reference(spec, monkeypatch):
 
 @pytest.mark.parametrize("name, item", [
     ("probe_hang", "A8"), ("device_lost", "A8"), ("snapshot_corrupt", "A8"),
-    ("slow_provider", "A5"), ("fleet_straggler", "A7")])
+    ("fleet_straggler", "A7")])
 def test_an_unported_seam_raises(name, item, monkeypatch):
     monkeypatch.setenv("GATEKEEPER_FAULT", f"watch_gap,{name}")
     for fn in (tfaults.check_armed, lambda: tfaults.active("watch_gap"),
@@ -624,6 +624,33 @@ def test_an_unported_seam_raises(name, item, monkeypatch):
     drv, c = _client(_pkg("port"))
     with pytest.raises(ClientError, match=name):
         treactor.Reactor(c)
+
+
+@pytest.mark.parametrize("stall", ["0.2", "0.35"])
+def test_slow_provider_seam_stalls_fetches(stall, monkeypatch):
+    """``slow_provider`` is ported with external data: armed, it is no
+    longer refused (a reactor builds), and each provider fetch round
+    stalls for GATEKEEPER_FAULT_STALL_S before its transport call, on
+    the port as on the reference, with no breaker trip."""
+    import gatekeeper_tpu.api.externaldata as j_api
+    import gatekeeper_tpu.externaldata as j_ext
+    import gatekeeper_tpu_torch.api.externaldata as t_api
+    import gatekeeper_tpu_torch.externaldata as t_ext
+    monkeypatch.setenv("GATEKEEPER_FAULT", "watch_gap,slow_provider")
+    monkeypatch.setenv("GATEKEEPER_FAULT_STALL_S", stall)
+    tfaults.check_armed()
+    assert tfaults.active("slow_provider") == jfaults.active("slow_provider")
+    _drv, c = _client(_pkg("port"))
+    treactor.Reactor(c)
+    for api, ext in ((t_api, t_ext), (j_api, j_ext)):
+        slept = []
+        pc = ext.ProviderClient(sleep=slept.append)
+        out = pc.fetch(api.Provider(name="p", url="fake://x", retries=0),
+                       lambda provider, keys: {k: "v" for k in keys}, ["a"])
+        assert out == {"a": "v"}
+        assert slept == [float(stall)]
+        assert pc.breaker(api.Provider(name="p", url="fake://x")).state \
+            == "closed"
 
 
 # ---------------------------------------------------------------------------

@@ -668,8 +668,12 @@ class TestAdmissionCorpus:
         the handler persist each admission, redacted, into the durable
         capture log; it reads back with the handler's answer and
         verdicts, and the capture log's gauges reach the metrics."""
+        from gatekeeper_tpu_torch.obs import flightrecorder
         from gatekeeper_tpu_torch.obs.flightrecorder import (
             REDACTED, load_admission_corpus)
+        # a recorder of this test's own: the process-wide one must not
+        # keep a capture log open for later tests' handlers
+        monkeypatch.setattr(flightrecorder, "_recorder", None)
         monkeypatch.setenv("GATEKEEPER_FLIGHT_ADMISSION", value)
         monkeypatch.setenv("GATEKEEPER_FLIGHT_DIR", str(tmp_path))
         bad = ns_obj("bad")
