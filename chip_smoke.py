@@ -4,7 +4,7 @@ against its plain PyTorch version.
     python3 chip_smoke.py [--resources N] [--k2-only | --k1-only |
                            --k6k7-only | --k3-only | --admission-only |
                            --manager-only | --reactor-only | --worker-only |
-                           --extdata-only | --probe-only]
+                           --extdata-only | --probe-only | --reuse-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -33,7 +33,8 @@ only phase 11, the manager process.  ``--reactor-only`` builds K2, K3,
 K4 and K6 and runs only phase 12, the event reactor.  ``--worker-only``
 builds K2, K3 and K4 and runs only phase 13, the engine worker split.
 ``--extdata-only`` and ``--probe-only`` build K2 and K3 and run only
-phase 14, external data, or phase 15, the probe.
+phase 14, external data, or phase 15, the probe.  ``--reuse-only``
+builds K2, K3 and K4 and runs only phase 16, reuse and what-if.
 
 Every TorchDriver starts a background warm-up of its kinds' churn-delta
 variants (K5) after its first capped legacy sweep, and a batch ingest of
@@ -73,7 +74,8 @@ Phases (each prints one line of its numbers):
        the same store; then two forced full sweeps (``full_sweeps``):
        results equal the memoized sweep's, no Triton variant compiled,
        K1, K2 and K3 launched, device_s > 0, h2d_bytes the kinds'
-       Bindings.nbytes(), overlap_fraction under 0.05, the last sweep's
+       Bindings.nbytes() and the shared dedup columns the sweep bound
+       into them, overlap_fraction under 0.05, the last sweep's
        recorded launches equal to their plain versions; the phase dicts
        printed
   4. main path — TorchDriver() with the north-star set (3 templates x 67
@@ -278,7 +280,26 @@ Phases (each prints one line of its numbers):
      passes on ``local`` and ``torch`` (rc 0); ``main(["--cost"])`` with
      GATEKEEPER_COST_PROBE_N=2000: rc 0, K1, K2 and K3 launched and held
      against their plain versions, the measured device_s printed
- 16. the kernels JSON line, the card line, and the final JSON line.
+ 16. reuse — reuse and what-if (``reuse_phase``), each part a bench row
+     at its own size: (a) the cross-template dedup of forced full
+     sweeps over the library and REUSE_ROWS (2,000) rows, on and off,
+     compiling nothing (the delta warm compiles each rewritten
+     program's K1 variant), then a churned full sweep that splices the
+     shared columns; (b) footprint-driven selective reuse on and off
+     over a full, a steady, an annotation-only and a mixed churned
+     sweep (a replayed kind launches no K1 and no K2); (c) a shadow
+     sweep of ``constraints[1:]`` beside the library over WHATIF_ROWS
+     (10,000) rows against the single-set sweep and the standalone
+     candidate, a snapshot replay and a recorded stream of 64 reviews
+     replayed scalar and batched; (d) a PromotionController to deny
+     over (c)'s store and graduate_fleet over 4 clusters against the
+     loop oracle; (e) explain_pair on a violating, a passing and an
+     unmatched pair against K1's bit; (f) ``probe.main`` with
+     ``--policyset``, ``--whatif`` and ``--rollout``, rc 0.  K1 on the
+     rewritten programs, K1 and K2 on the shadow sweep and K1b, K2b and
+     K3b under graduate_fleet are held against their plain versions and
+     timed at their recorded inputs
+ 17. the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages and reactor sweeps with GATEKEEPER_PAGES=off:
 they measure the legacy sweep and assert its launch counts, and the
 port, like the reference, defaults to the paged route.
@@ -4250,6 +4271,23 @@ FULL_SWEEP_OVERLAP_MAX = 0.05   # a full sweep's overlap_fraction, at most
 FULL_SWEEPS = 2                 # forced full sweeps a store
 
 
+def swept_bytes(drv) -> int:
+    """The bytes a forced full sweep just uploaded: the sum of the kinds'
+    ``Bindings.nbytes()``, and the shared dedup columns the sweep bound
+    into each member kind it dispatched (they leave the bindings when
+    the sweep ends)."""
+    st = drv._state(TARGET)
+    n = sum(b.nbytes() for _k, b in st.bindings_cache.values())
+    memo = drv._dedup_plan_memo.get(TARGET)
+    if memo is not None and drv.last_sweep_phases["dedup"].get("enabled"):
+        plan = memo[1]
+        n += sum(st.dedup_shared_cache[d][2].nbytes
+                 for k in plan.rewritten if k in st.bindings_cache
+                 and not st.bindings_cache[k][1].f32_unsafe
+                 for d in plan.kind_digests[k])
+    return n
+
+
 def full_sweeps(drv, fns, want: list, what: str, need: tuple,
                 record: dict | None = None) -> dict:
     """FULL_SWEEPS forced full sweeps (``QueryOpts(full=True)``, cap CAP)
@@ -4258,8 +4296,8 @@ def full_sweeps(drv, fns, want: list, what: str, need: tuple,
     results, which the caller holds equal to
     ``TorchDriver(device="cpu")``'s), compile no Triton variant, launch
     each kernel of ``need``, report ``serial``, ``device_s`` > 0,
-    ``h2d_bytes`` equal to the sum of the kinds' ``Bindings.nbytes()``
-    and an ``overlap_fraction`` under FULL_SWEEP_OVERLAP_MAX (the kinds
+    ``h2d_bytes`` equal to ``swept_bytes`` and an ``overlap_fraction``
+    under FULL_SWEEP_OVERLAP_MAX (the kinds
     run one at a time).  With ``record`` the last sweep's K1, K2 and K3
     calls are kept there (``calls``, ``counts``) and checked against
     their plain versions.  Returns the sweeps' wall seconds, launches and
@@ -4284,8 +4322,7 @@ def full_sweeps(drv, fns, want: list, what: str, need: tuple,
                 if k in ("K1", "K2", "K3")}
         v1 = triton_variants(ir_eval)
         ph = drv.last_sweep_phases
-        nbytes = sum(b.nbytes() for _k, b in
-                     drv._state(TARGET).bindings_cache.values())
+        nbytes = swept_bytes(drv)
         if norm(res) != want:
             fail(f"{what}: full sweep {i}'s results differ from the "
                  f"memoized sweep's")
@@ -5205,6 +5242,578 @@ def probe_phase(fns: dict) -> None:
           f"{text.splitlines()[-1]}", flush=True)
 
 
+REUSE_ROWS = 2_000         # bench.py's analysis and churn_selective rows
+REUSE_CHURN = REUSE_ROWS // 100
+WHATIF_ROWS = 10_000       # bench.py's what-if row is 20,000 (PERF.md §4)
+WHATIF_REVIEWS = 64        # the recorded admission stream
+GRADUATE_ROWS = 1_000      # rows of each of graduate_fleet's 4 clusters
+REUSE_TIMED = 8            # distinct programs timed a kernel family
+
+
+class RecordBatched:
+    """While entered, K1b, K2b and K3b stand in under their modules' names
+    by recording wrappers, as RecordK123 does for K1, K2 and K3."""
+
+    def __init__(self):
+        from gatekeeper_tpu_torch.kernels import dfa, ir_eval, topk
+        self._slots = ((ir_eval, "eval_mask_batched", "K1b"),
+                       (topk, "topk_packed_batched", "K2b"),
+                       (dfa, "dfa_table_batched", "K3b"))
+        self.calls: dict[str, list] = {k: [] for *_, k in self._slots}
+        self._orig: list = []
+
+    def __enter__(self) -> "RecordBatched":
+        for mod, name, key in self._slots:
+            fn = getattr(mod, name)
+            self._orig.append((mod, name, fn))
+            setattr(mod, name, recording(fn, self.calls[key]))
+        return self
+
+    def counts(self) -> dict:
+        return {key: getattr(mod, name).launches
+                for mod, name, key in self._slots}
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+        self._orig.clear()
+
+
+def batched_entries(rec: dict, suffix: str, calls: dict,
+                    counts: dict) -> None:
+    """``K1b<suffix>``, ``K2b<suffix>`` and ``K3b<suffix>`` of the kernels
+    line from recorded batched calls (RecordBatched): every call held
+    against its plain version, then up to REUSE_TIMED distinct programs
+    (K1b), calls (K2b) and the first table (K3b) timed per call and
+    device-only, with the bound."""
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.kernels import dfa, ir_eval, topk
+    join_warms()
+    torch.cuda.synchronize()
+    errs = {"K1b": 0.0, "K2b": 0, "K3b": 0.0}
+    for (program, d), out in calls["K1b"]:
+        want = ex._eval_mask_batched(program, d)
+        if not torch.equal(out, want):
+            fail(f"{suffix}: batched K1 mismatch")
+    for (viol, rank, k), out in calls["K2b"]:
+        want = topk.topk_packed_batched_plain(viol, rank, k)
+        errs["K2b"] = max([errs["K2b"]] + [packed_err(out[i], want[i], k)
+                                           for i in range(out.shape[0])])
+    if errs["K2b"]:
+        fail(f"{suffix}: batched K2 mismatch")
+    for ins, out in calls["K3b"]:
+        if not torch.equal(out, dfa.dfa_table_batched_plain(*ins)):
+            fail(f"{suffix}: batched K3 mismatch")
+    progs = {}
+    for (program, d), _out in calls["K1b"]:
+        progs.setdefault(id(program), (program, d))
+    t = collections.Counter()
+    by = "bytes"
+    timed = list(progs.values())[:REUSE_TIMED]
+    for program, d in timed:
+        b, by = k1_bound_of(ex, ir_eval, program, d, 1)
+        t["bound_ms"] += b / len(timed)
+        for key, v in k1_times(
+                lambda: ir_eval.eval_mask_batched(program, d),
+                lambda: ex._eval_mask_batched(program, d)).items():
+            t[key] += v / len(timed)
+    rec["K1b" + suffix] = {"launches": counts["K1b"], "max_abs_err": 0.0,
+                           **t, "bound_by": by, "library_ms": None}
+    k2 = collections.Counter()
+    k2_calls = calls["K2b"][:REUSE_TIMED]
+    for (viol, rank, k), _out in k2_calls:
+        n2 = k2_numbers(topk, viol, rank, k)
+        by = n2.pop("bound_by")
+        k2.update({key: v / len(k2_calls) for key, v in n2.items()})
+    rec["K2b" + suffix] = {"launches": counts["K2b"], "max_abs_err": 0,
+                           **k2, "bound_by": by}
+    rec["K3b" + suffix] = {"launches": counts["K3b"], "max_abs_err": 0.0,
+                           **k3_numbers(dfa, calls["K3b"][0][0],
+                                        batched=True)}
+
+
+def record_stream(client, objs) -> list:
+    """Admission reviews of ``objs`` through the webhook handler into a
+    capture log in a throwaway directory (the flight recorder's
+    admission corpus, as ``probe --whatif`` records it); the loaded
+    events."""
+    import tempfile
+    from gatekeeper_tpu_torch.obs import flightrecorder as fr
+    from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
+    keys = ("GATEKEEPER_FLIGHT_DIR", "GATEKEEPER_FLIGHT_ADMISSION")
+    saved = {k: os.environ.get(k) for k in keys}
+    saved_rec = fr._recorder
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["GATEKEEPER_FLIGHT_DIR"] = tmp
+        os.environ["GATEKEEPER_FLIGHT_ADMISSION"] = "1"
+        fr._recorder = None
+        try:
+            vh = ValidationHandler(client)
+            for obj in objs:
+                vh.handle({
+                    "uid": "u", "operation": "CREATE",
+                    "kind": {"group": "", "version": "v1",
+                             "kind": obj.get("kind", "")},
+                    "name": (obj.get("metadata") or {}).get("name", ""),
+                    "userInfo": {"username": "smoke", "groups": []},
+                    "object": obj})
+            events = fr.load_admission_corpus(tmp)
+        finally:
+            tmp_rec, fr._recorder = fr._recorder, saved_rec
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            if tmp_rec is not None and tmp_rec._capture is not None:
+                tmp_rec._capture.close()
+    if len(events) != len(objs):
+        fail(f"record_stream: {len(events)} events for {len(objs)} reviews")
+    return events
+
+
+def reuse_phase(rec: dict, fns: dict) -> None:
+    """Reuse and what-if on the card (ROADMAP A6, A7), each part a bench
+    row at its own size, every result held against
+    ``TorchDriver(device="cpu")`` or the oracle mode:
+
+    (a) dedup (bench.py's analysis row): the library over REUSE_ROWS
+        ``make_mixed(Random(11))`` rows; a capped sweep (its delta warm
+        compiles each rewritten program's K1 variant), FULL_SWEEPS forced
+        full sweeps with GATEKEEPER_DEDUP on and FULL_SWEEPS off, each
+        equal to the CPU driver's, compiling nothing, the last on-sweep's
+        K1, K2 and K3 calls held against their plain versions; then a 1%
+        churn and one more full sweep that splices the shared columns.
+    (b) selective reuse (churn_selective): the same store with footprint
+        reuse on and off, a full, a steady, an annotation-only and a
+        mixed churned sweep; a replayed kind launches no K1 and no K2.
+    (c) what-if: the library over WHATIF_ROWS ``make_mixed(Random(7))``
+        rows, a shadow sweep of ``constraints[1:]`` beside the live set
+        against the single-set sweep and the standalone candidate, a
+        snapshot replay, a recorded admission stream replayed scalar
+        and batched.
+    (d) rollout: PromotionController to deny over (c)'s store with (c)'s
+        stream; graduate_fleet over 4 clusters against the loop oracle.
+    (e) explain_pair: a violating, a passing and an unmatched pair of
+        (b)'s store, each verdict equal to K1's bit.
+    (f) probe --policyset, --whatif and --rollout on the card, rc 0.
+    """
+    from gatekeeper_tpu_torch.client import probe
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import dfa, ir_eval
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.rollout import PromotionController, \
+        graduate_fleet
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.whatif import (ShadowSession, fleet_loop_oracle,
+                                             make_cluster, normalize_results,
+                                             replay_admissions,
+                                             replay_admissions_batched,
+                                             replay_snapshot,
+                                             standalone_candidate_verdicts,
+                                             verdict_digest)
+    def counts_of(*keys) -> dict:
+        return {k: v for k, v in launch_counts(fns).items() if k in keys}
+
+    torch_driver.SMALL_WORKLOAD_EVALS = 0
+    for var in ("GATEKEEPER_DEDUP", "GATEKEEPER_FOOTPRINT",
+                "GATEKEEPER_WHATIF_SHARE"):
+        os.environ.pop(var, None)
+    templates = [t for t, _c in all_docs()]
+    constraints = [c for _t, c in all_docs()]
+    capped = QueryOpts(limit_per_constraint=CAP)
+    full = QueryOpts(limit_per_constraint=CAP, full=True)
+
+    def library(rows: int, seed: int, device=None):
+        d = TorchDriver(device=device)
+        c = Backend(d).new_client([K8sValidationTarget()])
+        for t in templates:
+            c.add_template(t)
+        for con in constraints:
+            c.add_constraint(con)
+        objs = make_mixed(random.Random(seed), rows)
+        c.add_data_batch(copy.deepcopy(objs))
+        return d, c, objs
+
+    def timed(drv, opts):
+        t0 = time.perf_counter()
+        res, _ = drv.query_audit(TARGET, opts)
+        return norm(res), time.perf_counter() - t0
+
+    # ---- (a) dedup
+    t_a = time.perf_counter()
+    drv, c_a, objs = library(REUSE_ROWS, 11)
+    cpu, cpu_a, _ = library(REUSE_ROWS, 11, "cpu")
+    memo, _ = timed(drv, capped)
+    warm = warm_text(drv)
+    if drv.delta_warm is None or drv.delta_warm.rewritten <= 0:
+        fail(f"dedup: the delta warm compiled no rewritten program "
+             f"({drv.delta_warm})")
+    want = norm(cpu.query_audit(TARGET, full)[0])
+    if memo != want:
+        fail("dedup: the memoized sweep differs from TorchDriver(cpu)")
+    fs_dd: dict = {}
+    on = full_sweeps(drv, fns, want, "dedup on", ("K1", "K2", "K3"),
+                     record=fs_dd)
+    dd = drv.last_sweep_phases["dedup"]
+    n_fallbacks = drv.metrics.snapshot().get("dedup_fallbacks", 0)
+    if not dd.get("enabled") or dd["subprograms_shared"] < 1 \
+            or dd["evaluations_saved"] <= 0 or n_fallbacks:
+        fail(f"dedup: stanza {dd}, dedup_fallbacks {n_fallbacks}")
+    os.environ["GATEKEEPER_DEDUP"] = "off"
+    try:
+        off = full_sweeps(drv, fns, want, "dedup off", ("K1", "K2", "K3"))
+        if drv.last_sweep_phases["dedup"] != {"enabled": False}:
+            fail(f"dedup off: stanza {drv.last_sweep_phases['dedup']}")
+    finally:
+        os.environ.pop("GATEKEEPER_DEDUP", None)
+    rng = random.Random(4)
+    for i in rng.sample(range(REUSE_ROWS), REUSE_CHURN):
+        o = copy.deepcopy(objs[i])
+        spec = o.setdefault("spec", {})
+        spec["serviceAccountName"] = f"churned-{i}"
+        spec["automountServiceAccountToken"] = rng.random() < 0.5
+        objs[i] = o
+        for c in (c_a, cpu_a):
+            c.add_data(copy.deepcopy(o))
+    delta0 = drv.metrics.snapshot().get("dedup_shared_delta_evals", 0)
+    reset_counts(fns)
+    churned, churn_s = timed(drv, full)
+    churn_counts = counts_of("K1", "K2", "K3")
+    delta1 = drv.metrics.snapshot().get("dedup_shared_delta_evals", 0)
+    if churned != norm(cpu.query_audit(TARGET, full)[0]):
+        fail("dedup: the churned full sweep differs from TorchDriver(cpu)")
+    if delta1 <= delta0:
+        fail(f"dedup: the churned full sweep spliced no shared column "
+             f"({delta0} -> {delta1})")
+    rw = [((p, d_), out) for (p, d_), out in fs_dd["calls"]["K1"]
+          if any(nm.startswith("__shared") for nm in d_)]
+    n_rw = len({id(p) for (p, _d), _o in rw})
+    k123_entries(rec, "dd", {"K1": rw, "K2": [], "K3": []},
+                 {"K1": len(rw)}, {"K1": fs_dd["errs"]["K1"]})
+    print(f"phase reuse dedup: {len(templates)} templates x {REUSE_ROWS} "
+          f"rows ({warm}, of it {drv.delta_warm.rewritten} rewritten "
+          f"programs' K1 variants); forced full sweeps equal "
+          f"TorchDriver(cpu)'s, no Triton variant compiled: on "
+          f"{[s['wall_s'] for s in on['sweeps']]} s, off "
+          f"{[s['wall_s'] for s in off['sweeps']]} s; stanza {dd}, "
+          f"dedup_fallbacks {n_fallbacks}; launches on the last on-sweep "
+          f"{fs_dd['counts']}, off {off['sweeps'][-1]['launches']}; "
+          f"{n_rw} rewritten programs, K1 on them "
+          f"{k1_text(rec['K1dd'])}; after {REUSE_CHURN} churned rows a "
+          f"full sweep {churn_s:.4f} s, launches {churn_counts}, "
+          f"dedup_shared_delta_evals {delta0} -> {delta1}, host_eval_s "
+          f"{drv.last_sweep_phases['dedup']['host_eval_s']}; "
+          f"{time.perf_counter() - t_a:.1f}s", flush=True)
+    del drv, cpu, c_a, cpu_a, fs_dd, rw
+
+    # ---- (b) selective reuse, and (e) explain_pair on its store
+    t_b = time.perf_counter()
+    sides = {}
+    for fp in ("on", "off"):
+        os.environ["GATEKEEPER_FOOTPRINT"] = fp
+        try:
+            sides[fp] = library(REUSE_ROWS, 11)
+        finally:
+            os.environ.pop("GATEKEEPER_FOOTPRINT", None)
+    cpu, cpu_b, _ = library(REUSE_ROWS, 11, "cpu")
+    rows_b = {fp: side[2] for fp, side in sides.items()}
+    steps = []
+    churn_rng = random.Random(77)
+    for step in ("full", "steady", "annotate", "mixed"):
+        if step in ("annotate", "mixed"):
+            picks = churn_rng.sample(range(REUSE_ROWS), REUSE_CHURN)
+            for j, i in enumerate(picks):
+                o = copy.deepcopy(rows_b["on"][i])
+                if step == "annotate" or j % 2 == 0:
+                    o.setdefault("metadata", {}).setdefault(
+                        "annotations", {})["smoke"] = f"{step}-{j}"
+                elif (o.get("spec") or {}).get("containers"):
+                    o["spec"]["containers"][0]["image"] = \
+                        f"evil.io/smoke:{j}"
+                else:
+                    o.setdefault("metadata", {}).setdefault(
+                        "annotations", {})["smoke"] = f"{step}-{j}"
+                for fp in ("on", "off"):
+                    rows_b[fp][i] = o
+                    sides[fp][1].add_data(copy.deepcopy(o))
+                cpu_b.add_data(copy.deepcopy(o))
+        got = {}
+        compiled = {}
+        launched = {}
+        # the first capped sweep's delta warm compiles on its own
+        # thread: no timed sweep runs beside it
+        join_warms()
+        for fp in ("on", "off"):
+            os.environ["GATEKEEPER_FOOTPRINT"] = fp
+            try:
+                reset_counts(fns)
+                v0 = triton_variants(ir_eval)
+                got[fp] = timed(sides[fp][0], full if step == "full"
+                                else capped)
+                v1 = triton_variants(ir_eval)
+                compiled[fp] = None if None in (v0, v1) else v1 - v0
+                launched[fp] = counts_of("K1", "K2", "K5")
+            finally:
+                os.environ.pop("GATEKEEPER_FOOTPRINT", None)
+            if fp == "on":
+                stanza = dict(sides["on"][0].last_sweep_phases["footprint"])
+        on_counts = launched["on"]
+        want_b = norm(cpu.query_audit(
+            TARGET, full if step == "full" else capped)[0])
+        if got["on"][0] != got["off"][0] or got["on"][0] != want_b:
+            fail(f"reuse: the {step} sweep differs between footprint on, "
+                 f"off and TorchDriver(cpu)")
+        st = sides["on"][0]._state(TARGET)
+        replayed = stanza["kinds_skipped"]
+        device_kinds = len(st.bindings_cache)
+        if step == "annotate":
+            # every row-local kind whose read-set misses the annotation
+            # the round wrote
+            from gatekeeper_tpu_torch.analysis.footprint import (
+                MATCH_PATHS, paths_intersect)
+            wrote = ("metadata", "annotations", "smoke")
+            expect = sum(1 for k in st.sweep_cache if not any(
+                paths_intersect(wrote, r) for r in
+                set(st.footprints[k].object_paths()) | set(MATCH_PATHS)))
+            if replayed != expect or replayed == 0:
+                fail(f"reuse: the annotation-only round replayed "
+                     f"{replayed} kinds, {expect} row-local kinds do not "
+                     f"read the annotation")
+        if step in ("annotate", "mixed") and (
+                on_counts["K2"] > device_kinds - replayed
+                or on_counts["K1"] + on_counts["K5"]
+                > device_kinds - replayed):
+            fail(f"reuse: {step} round launched {on_counts} with "
+                 f"{replayed} of {device_kinds} device kinds replayed")
+        steps.append((step, round(got["on"][1], 4), round(got["off"][1], 4),
+                      stanza, on_counts, launched["off"], compiled["on"],
+                      compiled["off"]))
+    print(f"phase reuse selective: {len(templates)} templates x "
+          f"{REUSE_ROWS} rows, GATEKEEPER_PAGES=off, footprint on vs off "
+          f"equal each other and TorchDriver(cpu) every step; (step, on s, "
+          f"off s, stanza, launches on, off, Triton variants compiled on, "
+          f"off; on runs first): {steps}; "
+          f"{time.perf_counter() - t_b:.1f}s", flush=True)
+    # (e) explain_pair on the selective store: of K8sAllowedRepos (a
+    # template over pods), a violating pod, a passing pod and a row of
+    # another kind (no library constraint carries match criteria: the
+    # template's own kind test leaves it unmatched), each verdict against
+    # K1's bit for the pair
+    drv_b = sides["on"][0]
+    st = drv_b._state(TARGET)
+    t_e = time.perf_counter()
+    kind = "K8sAllowedRepos"
+    b = st.bindings_cache[kind][1]
+    prog = st.templates[kind].vectorized.program
+    mask = ir_eval.eval_mask(prog, ex._with_dfa_tables(
+        prog, drv_b.executor._arrays(b, None), dfa.dfa_table))[0] \
+        .cpu().numpy()
+    key_of = {row: key for key, row in st.table.rows_items()}
+    pods = [r for r in sorted(key_of) if st.table.meta_at(r).kind == "Pod"]
+    picks = {"violating": next(r for r in pods if mask[r]),
+             "passing": next(r for r in pods if not mask[r]),
+             "unmatched": next(r for r in sorted(key_of)
+                               if st.table.meta_at(r).kind != "Pod")}
+    cname = drv_b._kind_constraints(st, kind)[0]["metadata"]["name"]
+    explained = []
+    for what, row in picks.items():
+        out = drv_b.explain_pair(TARGET, kind, cname, key_of[row])
+        fires = "FIRES" in out
+        n_oracle = int(out.split("oracle: ")[1].split(" ")[0])
+        if fires != bool(mask[row]) or fires != (n_oracle > 0) \
+                or fires != (what == "violating"):
+            fail(f"explain_pair {kind}/{cname} {what} row {row}: FIRES "
+                 f"{fires}, K1 bit {mask[row]}, oracle {n_oracle}")
+        explained.append((what, key_of[row], fires, n_oracle))
+    print(f"phase reuse explain: {kind}/{cname} (what, key, FIRES, oracle "
+          f"violations) {explained}, each verdict equal to K1's bit for the "
+          f"pair and to the oracle line, {time.perf_counter() - t_e:.2f}s",
+          flush=True)
+    del sides, cpu, cpu_b, drv_b, st
+
+    # ---- (c) what-if
+    t_c = time.perf_counter()
+    drv, client, objs = library(WHATIF_ROWS, 7)
+    build_s = time.perf_counter() - t_c
+    state = drv._state(TARGET).table.snapshot_state()
+    client.audit(limit_per_constraint=CAP, full=True)        # compiles
+    join_warms()
+    single_s = math.inf
+    for _ in range(2):
+        t0 = time.perf_counter()
+        resp = client.audit(limit_per_constraint=CAP, full=True)
+        single_s = min(single_s, time.perf_counter() - t0)
+    baseline = normalize_results(resp.results())
+    cand = [dict(c) for c in constraints[1:]]
+    sess = ShadowSession(client, tag="candidate")
+    sess.stage(templates, cand)
+    try:
+        sess.sweep(limit_per_constraint=CAP)            # compiles
+        join_warms()
+        with RecordK123() as r:
+            reset_counts(fns)
+            t0 = time.perf_counter()
+            rep = sess.sweep(limit_per_constraint=CAP)
+            combined_s = time.perf_counter() - t0
+            sh_counts = r.counts()
+        wi = dict(drv.last_sweep_phases.get("whatif") or {})
+        st = drv._state(TARGET)
+        from gatekeeper_tpu_torch.analysis.policyset import \
+            split_shadow_kind
+        # every staged twin with constraints has the live kind's (the
+        # candidate drops the first kind's only constraint); under the
+        # Stage-8 weave, as in the reference, a twin shares only when its
+        # live kind is dispatched before it
+        twins = [k for k in st.bindings_cache
+                 if split_shadow_kind(k)[1] == "candidate"]
+        n_same = len(twins)
+        order = drv.memsurface_sweep_order(st, sorted(st.templates))
+        n_after = sum(1 for k in twins if order.index(
+            split_shadow_kind(k)[0]) < order.index(k))
+        # sorted order (Stage 8 off) puts every live kind before its twin
+        os.environ["GATEKEEPER_HBM_BUDGET"] = "off"
+        try:
+            rep_sorted = sess.sweep(limit_per_constraint=CAP)
+            wi_sorted = dict(drv.last_sweep_phases.get("whatif") or {})
+        finally:
+            os.environ.pop("GATEKEEPER_HBM_BUDGET", None)
+    finally:
+        sess.unstage()
+    sh_errs = check_k123(ex, r.calls, "shadow sweep")
+    k123_entries(rec, "sh", {"K1": r.calls["K1"], "K2": r.calls["K2"],
+                             "K3": []}, sh_counts, sh_errs)
+    oracle = standalone_candidate_verdicts(templates, cand, state, CAP)
+    if rep.shadow != oracle or rep.live != baseline \
+            or (rep_sorted.shadow, rep_sorted.live) != (oracle, baseline):
+        fail(f"what-if: shadow {rep.shadow_digest} (sorted order "
+             f"{rep_sorted.shadow_digest}) vs standalone "
+             f"{verdict_digest(oracle)}, live {rep.live_digest} (sorted "
+             f"{rep_sorted.live_digest}) vs single "
+             f"{verdict_digest(baseline)}")
+    if n_same == 0 or wi.get("twin_shared_kinds") != n_after \
+            or wi_sorted.get("twin_shared_kinds", 0) < n_same:
+        fail(f"what-if: whatif stanza {wi} ({n_after} twins after their "
+             f"live kind in the Stage-8 order), sorted order {wi_sorted}, "
+             f"{n_same} twins whose constraint set equals the live one")
+    rrep = replay_snapshot(templates, constraints, state, CAP)
+    if rrep.digest != verdict_digest(baseline):
+        fail(f"what-if: replay digest {rrep.digest}, live "
+             f"{verdict_digest(baseline)}")
+    events = record_stream(client, make_mixed(random.Random(11),
+                                              WHATIF_REVIEWS))
+    srep = replay_admissions(events, client)
+    dev0 = drv.metrics.snapshot().get("review_batches_device", 0)
+    brep = replay_admissions_batched(events, client)
+    dev_batches = drv.metrics.snapshot().get("review_batches_device",
+                                             0) - dev0
+    # the stream's (review, constraint) pairs against the admission
+    # threshold: below it the driver keeps the batch on the scalar
+    # engine, at or above it the batch is one device pass
+    pairs = WHATIF_REVIEWS * len(constraints)
+    on_card = pairs >= torch_driver.REVIEW_BATCH_MIN_EVALS
+    if not (srep.exact and brep.exact) or srep.digest != brep.digest \
+            or brep.replayed != WHATIF_REVIEWS or brep.isolated_chunks \
+            or (dev_batches > 0) != on_card:
+        fail(f"what-if: stream replay scalar {srep.digest} exact "
+             f"{srep.exact}, batched {brep.digest} exact {brep.exact}, "
+             f"{brep.replayed} replayed, {brep.isolated_chunks} isolated "
+             f"chunks, {dev_batches} device batches for {pairs} pairs")
+    batch_route = (f"{dev_batches} device pass(es)" if on_card else
+                   f"on the scalar engine: {pairs} pairs, under "
+                   f"REVIEW_BATCH_MIN_EVALS "
+                   f"{torch_driver.REVIEW_BATCH_MIN_EVALS}")
+    ratio = combined_s / single_s
+    gate = 1.5 * single_s + 0.25
+    print(f"phase reuse whatif: {len(templates)} templates x {WHATIF_ROWS} "
+          f"rows (built in {build_s:.1f}s); single-set full sweep "
+          f"{single_s:.4f}s, live + shadow {combined_s:.4f}s, ratio "
+          f"{ratio:.3f} (the reference's bench gate 1.5x + 0.25 s = "
+          f"{gate:.4f}s: {'within' if combined_s <= gate else 'over'}, "
+          f"recorded only); shadow == standalone candidate "
+          f"({rep.shadow_digest}), live == single ({rep.live_digest}); "
+          f"whatif {wi} ({n_same} unchanged twins, {n_after} after "
+          f"their live kind in the Stage-8 order; sorted order "
+          f"{wi_sorted}); dedup "
+          f"{rep.dedup}; launches {sh_counts}; K1 {k1_text(rec['K1sh'])}, "
+          f"K2 {k2_text(rec['K2sh'])}; replay digest {rrep.digest} in "
+          f"{rrep.wall_s:.2f}s; stream of {WHATIF_REVIEWS}: scalar "
+          f"{srep.wall_s:.2f}s, batched {brep.wall_s:.2f}s ({batch_route}), "
+          f"digest {srep.digest}; {time.perf_counter() - t_c:.1f}s",
+          flush=True)
+
+    # ---- (d) rollout over (c)'s store, and graduate_fleet
+    t_d = time.perf_counter()
+    ctrl = PromotionController(client, templates, cand, name="smoke",
+                               events=events, verify_parity=True)
+    final = ctrl.run(target_rung="deny")
+    gate_ev = ctrl.evidence.get("replay_gate", {})
+    if final != "deny" or gate_ev.get("parity") is not True \
+            or ctrl.evidence.get("shadow", {}).get("oracle_parity") \
+            is not True:
+        fail(f"rollout: state {final}, history {ctrl.history[-2:]}, "
+             f"evidence {ctrl.evidence}")
+    promote_s = time.perf_counter() - t_d
+    del drv, client, state, objs, sess
+    fleet = [make_cluster(f"c{i}", templates, constraints,
+                          objs=make_mixed(random.Random(200 + i),
+                                          GRADUATE_ROWS))
+             for i in range(4)]
+    _v, loop_digests, _w = fleet_loop_oracle(fleet, CAP)
+    # once untimed (each stacked kind's batched variants compile), then
+    # timed and recorded
+    t0 = time.perf_counter()
+    graduate_fleet(fleet, templates, cand, limit_per_constraint=CAP)
+    grad_cold_s = time.perf_counter() - t0
+    join_warms()
+    with RecordBatched() as rb:
+        reset_counts(fns)
+        t0 = time.perf_counter()
+        grep = graduate_fleet(fleet, templates, cand,
+                              limit_per_constraint=CAP)
+        grad_s = time.perf_counter() - t0
+        b_counts = rb.counts()
+    base_digests = [e.baseline_digest for e in grep.per_cluster]
+    if grep.graduated != 4 or base_digests != loop_digests \
+            or grep.loop_blocks or min(b_counts.values()) <= 0:
+        fail(f"graduate_fleet: {grep.headline()}, digests {base_digests} "
+             f"vs loop oracle {loop_digests}, launches {b_counts}")
+    batched_entries(rec, "g", rb.calls, b_counts)
+    print(f"phase reuse rollout: PromotionController to deny over the "
+          f"what-if store in {promote_s:.1f}s: "
+          f"{[h['to'] for h in ctrl.history]}, replay gate {gate_ev}; "
+          f"graduate_fleet {grep.headline()} in {grad_s:.3f}s (the first "
+          f"run, compiling, {grad_cold_s:.3f}s), baseline "
+          f"digests equal fleet_loop_oracle's, launches {b_counts}; K1b "
+          f"{k1_text(rec['K1bg'])}, K2b {k2_text(rec['K2bg'])}, K3b "
+          f"{rec['K3bg']['ms']:.4f} ms, device "
+          f"{rec['K3bg']['device_ms']:.4f}", flush=True)
+    del fleet, rb
+
+    # ---- (f) the probe's what-if subcommands on the card
+    import io
+    t_f = time.perf_counter()
+    lines = {}
+    for flag in ("--policyset", "--whatif", "--rollout"):
+        buf = io.StringIO()
+        reset_counts(fns)
+        with contextlib.redirect_stdout(buf):
+            rc = probe.main([flag])
+        out = buf.getvalue().splitlines()
+        launched = counts_of("K1", "K1b")
+        if rc != 0 or any(line.lstrip().startswith("FAIL") for line in out) \
+                or (flag != "--policyset" and launched["K1"] <= 0):
+            fail(f"probe {flag}: rc {rc}, launches {launched}, tail "
+                 f"{out[-3:]}")
+        lines[flag] = (rc, out[-1] if out else "", launched)
+    print(f"phase reuse probe: {lines} in {time.perf_counter() - t_f:.1f}s",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
@@ -5244,6 +5853,11 @@ def main() -> int:
     only.add_argument("--probe-only", action="store_true",
                       help="build K2 and K3 and run only the probe phase "
                       "(the scenarios on local and torch, --cost)")
+    only.add_argument("--reuse-only", action="store_true",
+                      help="build K2, K3 and K4 and run only the reuse "
+                      "phase (dedup, selective reuse, what-if, rollout, "
+                      "explain_pair, the probe's --policyset, --whatif and "
+                      "--rollout)")
     ap.add_argument("--reactor-pods", type=int, default=REACTOR_PODS,
                     help="pods of the reactor phase (REACTOR_PODS by "
                     "default): its cold ledger build and rung-2 resync "
@@ -5288,7 +5902,8 @@ def main() -> int:
                        ("topk", "dfa", "scatter", "devdelta")
                        if args.reactor_only else ("topk", "dfa")
                        if args.extdata_only or args.probe_only
-                       else build.KERNELS)
+                       else ("topk", "dfa", "scatter")
+                       if args.reuse_only else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
           f"{ {k: round(v, 3) for k, v in secs.items()} }, triton "
@@ -5303,7 +5918,8 @@ def main() -> int:
         if args.manager_only or args.worker_only \
         else None if (args.k1_only or args.k2_only or args.k3_only
                       or args.k6k7_only or args.reactor_only
-                      or args.extdata_only or args.probe_only) \
+                      or args.extdata_only or args.probe_only
+                      or args.reuse_only) \
         else AdmissionOracle()
     try:
         return run_phases(args, card, dev, rec, answers)
@@ -5380,6 +5996,10 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         return 0
     if args.probe_only:
         probe_phase(fns)
+        print(card, flush=True)
+        return 0
+    if args.reuse_only:
+        reuse_phase(rec, fns)
         print(card, flush=True)
         return 0
 
@@ -5570,7 +6190,8 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     print(f"phase full sweep library: {len(st.templates)} templates x "
           f"{LIBRARY_ROWS} rows, cap {CAP}, results equal the memoized "
           f"sweep's and TorchDriver(cpu)'s, no Triton variant compiled, "
-          f"h2d_bytes = the kinds' Bindings.nbytes(): {json.dumps(lib_full)}",
+          f"h2d_bytes = the kinds' Bindings.nbytes() and shared dedup "
+          f"columns: {json.dumps(lib_full)}",
           flush=True)
     del lib_drv, lib, st
 
@@ -5856,7 +6477,8 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     print(f"phase full sweep north star: {args.resources} pods x 201 "
           f"constraints, cap {CAP}, after the churn: results equal the "
           f"memoized sweep's and TorchDriver(cpu)'s, no Triton variant "
-          f"compiled, h2d_bytes = the kinds' Bindings.nbytes(): "
+          f"compiled, h2d_bytes = the kinds' Bindings.nbytes() and shared "
+          f"dedup columns: "
           f"{json.dumps(ns_full)}", flush=True)
     del drv, client, cpu, cpu_client, x
 
@@ -5971,10 +6593,15 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     # ---- 15. probe: the self-test scenarios and --cost on the card
     probe_phase(fns)
     mark("probe")
+
+    # ---- 16. reuse and what-if: dedup, selective reuse, shadow sweeps,
+    # replay, rollout, explain_pair and the probe's what-if subcommands
+    reuse_phase(rec, fns)
+    mark("reuse")
     print(f"phase timing: seconds a phase after the build {took}, "
           f"{sum(took.values()):.1f}s in all", flush=True)
 
-    # ---- 16. kernels line, card line, final line
+    # ---- 17. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -6074,13 +6701,32 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         "K3ext": ("dfa_external_data", "cuda",
                   "gatekeeper_tpu_torch/csrc/dfa.cu",
                   "gatekeeper_tpu/engine/veval.py:227"),
+        "K1dd": ("ir_eval_dedup_rewritten", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/engine/veval.py:294"),
+        "K1sh": ("ir_eval_shadow_sweep", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/engine/veval.py:294"),
+        "K2sh": ("topk_shadow_sweep", "cuda",
+                 "gatekeeper_tpu_torch/csrc/topk.cu",
+                 "gatekeeper_tpu/engine/veval.py:660"),
+        "K1bg": ("ir_eval_batched_graduate_fleet", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/whatif/fleet.py:60"),
+        "K2bg": ("topk_batched_graduate_fleet", "cuda",
+                 "gatekeeper_tpu_torch/csrc/topk.cu",
+                 "gatekeeper_tpu/whatif/fleet.py:47"),
+        "K3bg": ("dfa_batched_graduate_fleet", "cuda",
+                 "gatekeeper_tpu_torch/csrc/dfa.cu",
+                 "gatekeeper_tpu/whatif/fleet.py:47"),
     }
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K1bl", "K2b",
                 "K3b", "K6", "K7", "K8g", "K8s", "K1r", "K3r", "K1mgr",
                 "K2mgr", "K3mgr", "K4mgr", "K5mgr", "K1rmgr", "K3rmgr",
                 "K4rx", "K3rx", "K1rx", "K6rx", "K1fs", "K2fs", "K3fs",
-                "K1wk", "K2wk", "K3wk", "K1ext", "K2ext", "K3ext"):
+                "K1wk", "K2wk", "K3wk", "K1ext", "K2ext", "K3ext", "K1dd",
+                "K1sh", "K2sh", "K1bg", "K2bg", "K3bg"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

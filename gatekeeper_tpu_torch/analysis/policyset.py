@@ -12,8 +12,15 @@ the *set* of installed policies:
   constraints (string literals lower this way — ir/lower._as_id) fold
   to the resolved constant.  Subtrees appearing under more than one
   template therefore collide — e.g. the ``input.review.object.kind ==
-  "Pod"`` gate most library templates open with — and the template
-  reconciler reports them (``set_duplicate_predicate``).
+  "Pod"`` gate most library templates open with.  A :class:`DedupPlan`
+  rewrites every member program to read the predicate from one injected
+  boolean input, which a forced full audit sweep computes ONCE on the
+  host (:func:`eval_shared_host`, a numpy twin of the port's plain
+  evaluator, engine/executor.py ``_Evaluator``) instead of once per
+  member kind on the device.  Soundness: an injected ``r_bool``/``e_bool``
+  input *fires* exactly its stored value (``_fires`` on a bool is
+  ``defined & value`` with defined = ones), and the stored value is the
+  original subtree's fires lattice evaluated over the same bound arrays.
 
 - **Match shadowing / unreachability** — the match-criteria semantics
   of engine/match.py lifted to a static subsumption order:
@@ -31,26 +38,22 @@ All findings are :class:`.diagnostics.Diagnostic` records in the
 ``cost_*`` / ``set_*`` families so the reconcilers forward them into
 ``status.byPod[]`` unchanged.  Upstream Gatekeeper has no equivalent
 pass — see BASELINE.md.
-
-Only the install-time half is part of the port: the reconcilers'
-findings above.  The dedup plan that rewrites member programs to read a
-shared predicate once per sweep (``build_dedup_plan``,
-``eval_shared_host``), the what-if shadow-kind helpers and the whole-set
-report wait for ROADMAP A6 and A7; until then the port's sweep
-evaluates a shared predicate once per member kind.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
+
+import numpy as np
 
 from gatekeeper_tpu_torch.analysis import costmodel
 from gatekeeper_tpu_torch.analysis.diagnostics import (
     ERROR, WARNING, Diagnostic,
 )
 from gatekeeper_tpu_torch.errors import Location
-from gatekeeper_tpu_torch.ir.program import Node, Program
+from gatekeeper_tpu_torch.ir.program import Node, Program, RuleSpec
 
 # ---------------------------------------------------------------------------
 # canonical conjunct hashing
@@ -264,6 +267,361 @@ def template_digests(lowered, constraints: list[dict] | None = None) -> set:
 
 
 # ---------------------------------------------------------------------------
+# the dedup plan
+
+
+@dataclasses.dataclass
+class SharedMember:
+    kind: str
+    node_idx: int           # representative root in the ORIGINAL program
+    sites: int              # distinct conjunct roots with this digest
+
+
+@dataclasses.dataclass
+class SharedGroup:
+    digest: str
+    ekind: str              # "r" | "e"
+    axis: str | None        # element axis key for ekind == "e"
+    binding: str            # injected input binding name
+    members: dict[str, SharedMember]
+
+    @property
+    def total_sites(self) -> int:
+        return sum(m.sites for m in self.members.values())
+
+
+@dataclasses.dataclass
+class DedupPlan:
+    groups: dict[str, SharedGroup]          # digest -> group
+    rewritten: dict[str, Program]           # kind -> rewritten program
+    originals: dict[str, Program]           # kind -> original program
+    kind_digests: dict[str, list[str]]      # kind -> digests it reads
+
+
+def shared_binding(digest: str, ekind: str) -> str:
+    return (f"__shared_e__:{digest}" if ekind == "e"
+            else f"__shared__:{digest}")
+
+
+# ---------------------------------------------------------------------------
+# shadow policy-set version tags (whatif/shadow.py)
+#
+# A shadow install stages a candidate set BESIDE the live one in the
+# same client, under constraint kinds mangled with a version tag.  The
+# canonical conjunct digests above are computed from program structure
+# and folded params only — never from the kind name — so identical
+# conjuncts in the live and candidate versions of a template land in
+# the same SharedGroup automatically: cross-version sharing is the
+# cross-template mechanism, verbatim.
+
+SHADOW_SEP = "__WHATIF__"
+"""Kind-name separator for shadow policy-set versions.  Double
+underscore + caps keeps it out of the CamelCase namespace real
+template kinds use."""
+
+
+def shadow_kind(kind: str, tag: str) -> str:
+    """Mangle a template/constraint kind into its shadow-version name."""
+    if SHADOW_SEP in kind:
+        raise ValueError(f"already a shadow kind: {kind}")
+    if not tag or not tag.replace("-", "").replace("_", "").isalnum():
+        raise ValueError(f"bad shadow tag: {tag!r}")
+    return f"{kind}{SHADOW_SEP}{tag}"
+
+
+def split_shadow_kind(kind: str) -> tuple[str, str | None]:
+    """(logical kind, version tag or None for the live set)."""
+    base, sep, tag = kind.partition(SHADOW_SEP)
+    return (base, tag) if sep else (base, None)
+
+
+def is_shadow_kind(kind: str) -> bool:
+    return SHADOW_SEP in kind
+
+
+def cross_version_groups(plan: DedupPlan) -> dict:
+    """Accounting for the shadow report: of the plan's shared groups,
+    how many span policy-set versions (live + at least one shadow tag,
+    or two tags), vs. sharing within one version only."""
+    cross = 0
+    within = 0
+    sites_cross = 0
+    for g in plan.groups.values():
+        versions = {split_shadow_kind(k)[1] for k in g.members}
+        if len(versions) > 1:
+            cross += 1
+            sites_cross += g.total_sites
+        else:
+            within += 1
+    return {"groups_cross_version": cross, "groups_within_version": within,
+            "sites_cross_version": sites_cross}
+
+
+def build_dedup_plan(kinds: dict) -> DedupPlan:
+    """kinds: kind -> (LoweredProgram, constraints).  Groups every
+    shareable conjunct digest with >= 2 sites across the set and
+    rewrites each member program to read the injected shared input.
+    A pure function of the installed set: the driver memoizes it by the
+    set's digest."""
+    per_kind: dict[str, dict[int, tuple]] = {}
+    count: dict[str, int] = {}
+    meta: dict[str, tuple] = {}
+    for kind in sorted(kinds):
+        lowered, constraints = kinds[kind]
+        if lowered is None or not constraints:
+            continue
+        conj = canonical_conjuncts(lowered, constraints)
+        per_kind[kind] = conj
+        for digest, ekind, axis in conj.values():
+            count[digest] = count.get(digest, 0) + 1
+            meta[digest] = (ekind, axis)
+    shared = {d for d, n in count.items() if n >= 2}
+    groups: dict[str, SharedGroup] = {}
+    rewritten: dict[str, Program] = {}
+    originals: dict[str, Program] = {}
+    kind_digests: dict[str, list[str]] = {}
+    for d in sorted(shared):
+        ekind, axis = meta[d]
+        groups[d] = SharedGroup(d, ekind, axis, shared_binding(d, ekind),
+                                {})
+    for kind, conj in per_kind.items():
+        repl: dict[int, str] = {}           # node idx -> digest
+        for idx, (digest, ekind, _axis) in conj.items():
+            if digest in shared and meta[digest][0] == ekind:
+                repl[idx] = digest
+        if not repl:
+            continue
+        program = kinds[kind][0].program
+        nodes = list(program.nodes)
+        injected: dict[str, int] = {}
+        new_idx: dict[int, int] = {}
+        used: list[str] = []
+        for idx in sorted(repl):
+            digest = repl[idx]
+            g = groups[digest]
+            if digest not in injected:
+                injected[digest] = len(nodes)
+                nodes.append(Node("input", (),
+                                  (g.binding, f"{g.ekind}_bool")))
+                used.append(digest)
+            new_idx[idx] = injected[digest]
+            if kind not in g.members:
+                g.members[kind] = SharedMember(kind, idx, 0)
+            g.members[kind].sites += 1
+        rules = tuple(RuleSpec(
+            conjuncts=tuple(new_idx.get(ci, ci) for ci in r.conjuncts),
+            elem_axis=r.elem_axis) for r in program.rules)
+        rewritten[kind] = Program(tuple(nodes), rules)
+        originals[kind] = program
+        kind_digests[kind] = used
+    # a group can end up with a single applied site (ekind-mismatched
+    # twins dropped above): its member program already reads the
+    # injected input, so the group stays — it just saves nothing, and
+    # reporting/savings math discounts it via total_sites
+    return DedupPlan(groups=groups, rewritten=rewritten,
+                     originals=originals, kind_digests=kind_digests)
+
+
+# ---------------------------------------------------------------------------
+# host twin evaluator: numpy mirror of the port's plain evaluator
+# (engine/executor.py ``_Evaluator``) over the shareable op subset.
+# Where numpy and torch promote differently, the twin follows torch: a
+# mix of an integer and a float32 operand computes in float32 (numpy
+# would widen to float64), and an integer division yields float32.
+
+
+def _np_fires(dv):
+    d, v = dv
+    if v.dtype == np.bool_:
+        return d & v
+    return d
+
+
+def _torch_promote(a: np.ndarray, b: np.ndarray):
+    """(a, b) cast to the dtype torch's type promotion gives the pair,
+    as far as the IR's dtypes go (bool, int32, float32)."""
+    fa, fb = a.dtype.kind == "f", b.dtype.kind == "f"
+    if fa and not fb:
+        return a, b.astype(a.dtype)
+    if fb and not fa:
+        return a.astype(b.dtype), b
+    return a, b
+
+
+class _HostEval:
+    def __init__(self, program: Program, arrays: dict):
+        self.p = program
+        self.arrays = arrays
+        self.cache: dict[int, tuple] = {}
+
+    def _arr(self, name: str) -> np.ndarray:
+        a = np.asarray(self.arrays[name])
+        if a.dtype in (np.int8, np.int16):      # executor._widen
+            a = a.astype(np.int32)
+        return a
+
+    def _to3(self, a: np.ndarray, axes: str) -> np.ndarray:
+        if axes == "c":
+            # shared subtrees are constraint-uniform by construction
+            # (canonicalization folded every c input): one constraint
+            # row stands in for all of them
+            return a[:1].reshape(1, 1, 1)
+        if axes == "r":
+            return a.reshape(1, a.shape[0], 1)
+        return a.reshape(1, a.shape[0], a.shape[1])
+
+    def node(self, i: int):
+        hit = self.cache.get(i)
+        if hit is None:
+            hit = self._eval(self.p.nodes[i])
+            self.cache[i] = hit
+        return hit
+
+    def _eval(self, n: Node):
+        op = n.op
+        ones = lambda v: np.ones(v.shape, dtype=bool)  # noqa: E731
+        if op == "const":
+            value, dtype = n.meta
+            v = np.asarray(value, dtype=dtype).reshape(1, 1, 1)
+            return np.ones((1, 1, 1), dtype=bool), v
+        if op == "input":
+            name, kind = n.meta
+            axes = kind[0]
+            if kind.endswith("_num"):
+                return (self._to3(self._arr(name + ".p"), axes),
+                        self._to3(self._arr(name + ".v"), axes))
+            if kind.endswith("_id"):
+                v = self._to3(self._arr(name), axes)
+                return v >= 0, v
+            v = self._to3(self._arr(name), axes)
+            return ones(v), v
+        if op == "table":
+            (tname,) = n.meta
+            d_i, idx = self.node(n.args[0])
+            ok = self._arr(tname + ".ok")
+            ci = np.clip(idx, 0, ok.shape[0] - 1)
+            return d_i & ok[ci], self._arr(tname + ".v")[ci]
+        if op == "dfa_match":
+            from gatekeeper_tpu_torch.ir.prep import _STR_PREFIX
+            (dname,) = n.meta
+            d_i, idx = self.node(n.args[0])
+            # the numpy twin of kernels/dfa.dfa_table_plain: scan the
+            # packed interner bytes through the transition table,
+            # trailing TERM step, host-fallback xv for device-ineligible
+            # ids
+            trans = self._arr(dname + ".trans").astype(np.int64)
+            payload = self._arr("__strbytes__")[:, len(_STR_PREFIX):]
+            payload = payload.astype(np.int64)
+            state = np.zeros((payload.shape[0],), dtype=np.int64)
+            for j in range(payload.shape[1]):
+                state = trans[state, payload[:, j]]
+            hit = self._arr(dname + ".accept")[trans[state, 0]]
+            devtab = np.where(self._arr("__strdfaok__"), hit,
+                              self._arr(dname + ".xv"))
+            v = devtab[np.clip(idx, 0, devtab.shape[0] - 1)]
+            return d_i & v, v
+        if op == "cmp":
+            (cop,) = n.meta
+            da, va = self.node(n.args[0])
+            db, vb = self.node(n.args[1])
+            va, vb = _torch_promote(va, vb)
+            d = da & db
+            v = {"==": np.equal, "!=": np.not_equal, "<": np.less,
+                 "<=": np.less_equal, ">": np.greater,
+                 ">=": np.greater_equal}[cop](va, vb)
+            return d, v
+        if op in ("and", "or"):
+            a = _np_fires(self.node(n.args[0]))
+            b = _np_fires(self.node(n.args[1]))
+            v = (a & b) if op == "and" else (a | b)
+            return ones(v), v
+        if op == "not":
+            a = _np_fires(self.node(n.args[0]))
+            return ones(a), ~a
+        if op in ("any_e", "all_e", "count_e"):
+            (axis,) = n.meta
+            pres = self._arr(f"__elem__:{axis}")[None]
+            a = _np_fires(self.node(n.args[0]))
+            if op == "any_e":
+                v = np.any(a & pres, axis=2, keepdims=True)
+                return ones(v), v
+            if op == "all_e":
+                v = np.all(a | ~pres, axis=2, keepdims=True)
+                return ones(v), v
+            v = np.sum((a & pres).astype(np.float32), axis=2,
+                       keepdims=True, dtype=np.float32)
+            return np.ones(v.shape, dtype=bool), v
+        if op == "arith":
+            (aop,) = n.meta
+            da, va = self.node(n.args[0])
+            db, vb = self.node(n.args[1])
+            va, vb = _torch_promote(va, vb)
+            d = da & db
+            if aop == "+":
+                v = va + vb
+            elif aop == "-":
+                v = va - vb
+            elif aop == "*":
+                v = va * vb
+            else:
+                d = d & (vb != 0)
+                if va.dtype.kind != "f":
+                    va = va.astype(np.float32)
+                    vb = vb.astype(np.float32)
+                v = va / np.where(vb == 0, np.ones_like(vb), vb)
+            return d, v
+        raise ValueError(f"unshareable IR op reached the host twin: {op!r}")
+
+
+class _RowSlicedArrays:
+    """Lazy dict-view gathering each bound array's row axis down to a
+    row subset (by ir/prep.binding_axes).  A churned full sweep's
+    re-eval of a shared conjunct reads through this, so it touches
+    O(dirty) rows instead of r_pad.  Arrays without a row axis (tables,
+    cvals) pass through untouched — shared subtrees are
+    constraint-uniform, so their non-row inputs are row-count
+    independent."""
+
+    def __init__(self, arrays: dict, rows: np.ndarray):
+        self._arrays = arrays
+        self._rows = rows
+
+    def __getitem__(self, name: str):
+        from gatekeeper_tpu_torch.ir.prep import binding_axes
+        a = self._arrays[name]
+        axes = binding_axes(name)
+        if "r" not in axes:
+            return a
+        return np.take(np.asarray(a), self._rows, axis=axes.index("r"))
+
+    def get(self, name: str, default=None):
+        if name not in self._arrays:
+            return default
+        return self[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._arrays
+
+
+def eval_shared_host(program: Program, node_idx: int, arrays: dict,
+                     ekind: str, rows: np.ndarray | None = None
+                     ) -> np.ndarray:
+    """Fires lattice of one shared conjunct, computed once on the host
+    over the bound arrays of any member kind.  Returns bool [r_pad]
+    (ekind 'r') or [r_pad, e_pad] (ekind 'e') — the injected value the
+    rewritten programs read.  With ``rows``, evaluates only that row
+    subset (the caller splices the result into a cached column)."""
+    if rows is not None:
+        arrays = _RowSlicedArrays(arrays, rows)
+    ev = _HostEval(program, arrays)
+    f = _np_fires(ev.node(node_idx))
+    f = np.broadcast_to(f, (1,) + f.shape[1:]) if f.ndim == 3 else f
+    if ekind == "e":
+        return np.ascontiguousarray(f[0]).astype(bool)
+    return np.ascontiguousarray(f[0, :, 0]).astype(bool)
+
+
+# ---------------------------------------------------------------------------
 # match shadowing / unreachability (static mirror of engine/match._View.mask)
 
 ENFORCE_RANK = {"dryrun": 0, "warn": 1, "deny": 2}
@@ -452,3 +810,56 @@ def duplicate_predicate_warnings(kind: str, lowered,
                 f"audit sweep evaluates each once per sweep (dedup)",
                 Location(file=kind)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# whole-set report (probe --policyset)
+
+
+def analyze_policy_set(entries: list, n_rows: int = costmodel.REF_ROWS) -> dict:
+    """entries: (kind, LoweredProgram | None, constraints) triples.
+    Returns the full policy-set report: shared-subprogram groups, per-
+    kind static cost, and shadowing/unreachability findings."""
+    kinds = {k: (low, cons) for k, low, cons in entries if low is not None}
+    plan = build_dedup_plan(kinds)
+    groups = []
+    for d in sorted(plan.groups):
+        g = plan.groups[d]
+        if g.total_sites < 2:
+            continue
+        groups.append({
+            "digest": d, "ekind": g.ekind, "axis": g.axis,
+            "kinds": sorted(g.members),
+            "sites": g.total_sites,
+        })
+    costs = {}
+    for kind, low, cons in entries:
+        if low is None:
+            continue
+        cv = costmodel.estimate(low, n_rows, max(len(cons), 1))
+        costs[kind] = cv.as_dict()
+    findings: list[Diagnostic] = []
+    dfa_lowering: dict[str, dict] = {}
+    for kind, low, cons in entries:
+        installed = [((c.get("metadata") or {}).get("name", ""), c)
+                     for c in cons]
+        for cname, cdoc in installed:
+            others = [(n, d) for n, d in installed if n != cname]
+            findings.extend(
+                constraint_set_warnings(kind, cname, cdoc, others))
+        if low is not None:
+            n_dfa = len(getattr(low.spec, "dfas", ()))
+            off = list(getattr(low, "regex_offdfa", ()) or ())
+            if n_dfa or off:
+                dfa_lowering[kind] = {
+                    "in_program": n_dfa,
+                    "off_dfa": [{"pattern": p, "reason": r}
+                                for p, r in off],
+                }
+            findings.extend(dfa_subset_warnings(kind, low))
+    return {
+        "shared_subprograms": groups,
+        "template_costs": costs,
+        "dfa_lowering": dfa_lowering,
+        "findings": findings,
+    }

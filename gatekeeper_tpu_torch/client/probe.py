@@ -18,9 +18,13 @@ The port carries the probe's engine half: the scenarios on the
 ``local`` and ``torch`` drivers (``main``, on the card unless
 ``--device cpu``), ``--builtins``, ``--lint`` (with ``--strict`` and
 the scalar-fallback pins of library/lowering_buckets.json) and
-``--cost`` (a forced full sweep on a ``TorchDriver``).  The other
-subcommands need layers the port has not got yet and raise
-``ClientError`` naming their ROADMAP item (``UNPORTED``).
+``--cost`` (a forced full sweep on a ``TorchDriver``), ``--policyset``
+(the whole-set report with its dedup plan), ``--whatif`` (shadow,
+replay, fleet and stream parity) and ``--rollout [--library]`` (a
+candidate promoted to ``deny`` and a fleet graduation plan), the last
+two on a ``TorchDriver`` on the same device.  The other subcommands
+need layers the port has not got yet and raise ``ClientError`` naming
+their ROADMAP item (``UNPORTED``).
 """
 
 from __future__ import annotations
@@ -428,6 +432,352 @@ def _library_entries() -> list:
     return entries
 
 
+def run_policyset() -> int:
+    """``--policyset``: the Stage-3 whole-set report over the built-in
+    library — shared predicate subprograms (what the audit sweep
+    dedups), shadowing/unreachability findings, and the top static
+    costs."""
+    from gatekeeper_tpu_torch.analysis.policyset import analyze_policy_set
+    entries = _library_entries()
+    report = analyze_policy_set(entries)
+    groups = report["shared_subprograms"]
+    for g in groups:
+        print(f"  shared {g['digest']} [{g['ekind']}] "
+              f"sites={g['sites']}: {', '.join(g['kinds'])}")
+    for d in report["findings"]:
+        print("  " + d.format())
+    # Stage-6 regex-lowering verdicts: which constant patterns run as
+    # in-program DFAs vs host lookup tables (regex_off_dfa findings
+    # above carry the per-pattern reasons)
+    for kind, info in sorted(report.get("dfa_lowering", {}).items()):
+        print(f"  dfa {kind}: {info['in_program']} in-program, "
+              f"{len(info['off_dfa'])} host-table")
+    # Stage-5 row-locality verdicts: cross-row templates are ineligible
+    # for the Stage-6 partition plan and excluded from footprint-driven
+    # selective reuse (the line keeps the reference's wording)
+    from gatekeeper_tpu_torch.analysis import footprint
+    n_cross_row = 0
+    for kind, low, _c in entries:
+        if low is None:
+            continue
+        fp = footprint.analyze(kind, low)
+        if not fp.row_local:
+            n_cross_row += 1
+            reasons = "; ".join(fp.cross_row_reasons) or "cross-row"
+            print(f"  locality {kind}: cross-row (shard_map ineligible) "
+                  f"— {reasons}")
+    top = sorted(report["template_costs"].items(),
+                 key=lambda kv: -kv[1]["units"])[:5]
+    for kind, cv in top:
+        print(f"  cost {kind}: {cv['units']} units "
+              f"(gathers={cv['gathers']} matmul_flops={cv['matmul_flops']} "
+              f"padding_waste={cv['padding_waste']})")
+    n_vec = sum(1 for _k, low, _c in entries if low is not None)
+    print(f"policyset: {len(entries)} template(s) ({n_vec} lowered), "
+          f"{len(groups)} shared subprogram group(s), "
+          f"{len(report['findings'])} finding(s), "
+          f"{n_cross_row} cross-row")
+    n_err = sum(1 for d in report["findings"] if d.severity == "error")
+    n_warn = sum(1 for d in report["findings"] if d.severity != "error")
+    return _severity_rc(n_err, n_warn)
+
+
+def run_whatif(device=None) -> int:
+    """``--whatif``: self-validate the what-if engine's four parity
+    contracts over the built-in library —
+
+    - shadow: one combined live ∪ candidate sweep, candidate half
+      bit-identical to a standalone candidate install;
+    - replay: a store-snapshot re-audit reproduces the live verdicts;
+    - fleet: a 2-cluster stacked mega-sweep matches the per-cluster
+      loop oracle;
+    - stream: a webhook-recorded admission corpus replays exactly both
+      scalar and through the device micro-batcher (identical digests),
+      with byte-capped events surfaced in ``skipped_oversize``.
+
+    Every driver is a ``TorchDriver`` on ``device`` (the card unless
+    ``--device cpu``).  Exit contract (:func:`_severity_rc`): 2 on any
+    parity break, 0 clean.  (The reference's 1, parity held on a scalar
+    fallback, needs the backend supervisor, ROADMAP A8.)"""
+    import os as _os
+    import random
+    import tempfile
+
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.whatif import (ShadowSession, fleet_audit,
+                                       fleet_loop_oracle, make_cluster,
+                                       normalize_results, replay_admissions,
+                                       replay_admissions_batched,
+                                       replay_snapshot,
+                                       standalone_candidate_verdicts,
+                                       verdict_digest)
+
+    n = int(_os.environ.get("GATEKEEPER_WHATIF_PROBE_N", "300"))
+    pairs = all_docs()
+    templates = [t for t, _c in pairs]
+    constraints = [c for _t, c in pairs]
+    driver = TorchDriver(device=device)
+    handler = K8sValidationTarget()
+    client = Backend(driver).new_client([handler])
+    for d in templates:
+        client.add_template(d)
+    for d in constraints:
+        client.add_constraint(d)
+    client.add_data_batch(make_mixed(random.Random(7), n))
+    state = driver._state(handler.name).table.snapshot_state()
+    baseline = normalize_results(
+        client.audit(limit_per_constraint=20, full=True).results())
+    n_err = 0
+
+    candidate = constraints[1:]
+    with ShadowSession(client, tag="candidate") as sess:
+        sess.stage(templates, candidate)
+        rep = sess.sweep(limit_per_constraint=20)
+    oracle = standalone_candidate_verdicts(templates, candidate, state, 20,
+                                           device=device)
+    ok = rep.shadow == oracle and rep.live == baseline
+    n_err += 0 if ok else 1
+    print(f"  {'ok  ' if ok else 'FAIL'} shadow: live={len(rep.live)} "
+          f"candidate={len(rep.shadow)} added={len(rep.added)} "
+          f"cleared={len(rep.cleared)} digest={rep.shadow_digest} "
+          f"oracle={verdict_digest(oracle)} "
+          f"shared_groups={rep.dedup['groups_cross_version']}")
+
+    rrep = replay_snapshot(templates, constraints, state, 20,
+                           device=device)
+    ok = rrep.verdicts == baseline
+    n_err += 0 if ok else 1
+    print(f"  {'ok  ' if ok else 'FAIL'} replay: "
+          f"{rrep.n_resources} resource(s) -> {len(rrep.verdicts)} "
+          f"verdict(s) digest={rrep.digest} in {rrep.wall_s:.2f}s")
+
+    fleet = [make_cluster(f"c{i}", templates, constraints,
+                          objs=make_mixed(random.Random(100 + i), n // 3),
+                          driver_factory=lambda: TorchDriver(device=device))
+             for i in range(2)]
+    frep = fleet_audit(fleet, 20)
+    _v, digests, _w = fleet_loop_oracle(fleet, 20)
+    ok = frep.digests == digests
+    n_err += 0 if ok else 1
+    print(f"  {'ok  ' if ok else 'FAIL'} fleet: {frep.n_clusters} "
+          f"cluster(s), {len(frep.kinds_stacked)} stacked / "
+          f"{len(frep.kinds_replicated)} replicated kind(s), "
+          f"{frep.device_dispatches} dispatch(es), digests="
+          f"{','.join(frep.digests)}")
+
+    # admission-stream replay: record a small corpus through the
+    # webhook handler into a throwaway capture log, replay it scalar
+    # AND through the device micro-batcher, and demand exact
+    # reproduction with bit-identical stream digests; one synthetic
+    # byte-capped event must land in skipped_oversize, not be guessed
+    # at (rollout's promotion gate consumes exactly this report).
+    from gatekeeper_tpu_torch.obs import flightrecorder as fr
+    from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
+    with tempfile.TemporaryDirectory() as tmp:
+        saved_env = {k: _os.environ.get(k)
+                     for k in ("GATEKEEPER_FLIGHT_DIR",
+                               "GATEKEEPER_FLIGHT_ADMISSION")}
+        saved_rec = fr._recorder
+        _os.environ["GATEKEEPER_FLIGHT_DIR"] = tmp
+        _os.environ["GATEKEEPER_FLIGHT_ADMISSION"] = "1"
+        fr._recorder = None
+        try:
+            vh = ValidationHandler(client)
+            recorded = make_mixed(random.Random(11), min(n, 48))
+            for obj in recorded:
+                vh.handle({
+                    "uid": "u", "operation": "CREATE",
+                    "kind": {"group": "", "version": "v1",
+                             "kind": obj.get("kind", "")},
+                    "name": (obj.get("metadata") or {}).get("name", ""),
+                    "userInfo": {"username": "probe", "groups": []},
+                    "object": obj})
+            events = fr.load_admission_corpus(tmp)
+        finally:
+            tmp_rec = fr._recorder
+            fr._recorder = saved_rec
+            for k, v in saved_env.items():
+                if v is None:
+                    _os.environ.pop(k, None)
+                else:
+                    _os.environ[k] = v
+            try:
+                if tmp_rec is not None and tmp_rec._capture is not None:
+                    tmp_rec._capture.close()
+            except Exception:   # noqa: BLE001 — probe hygiene only
+                pass
+    events.append({"request": {"object": {"__truncated__": True,
+                                          "metadata": {"name": "big"}}},
+                   "allowed": True, "verdicts": []})
+    srep = replay_admissions(events, client)
+    brep = replay_admissions_batched(events, client)
+    ok = (srep.exact and brep.exact
+          and srep.replayed == brep.replayed == len(recorded)
+          and srep.digest == brep.digest
+          and srep.skipped_oversize == brep.skipped_oversize == 1)
+    n_err += 0 if ok else 1
+    print(f"  {'ok  ' if ok else 'FAIL'} stream: {brep.replayed} "
+          f"event(s) replayed, {brep.skipped_oversize} oversize "
+          f"skipped, {brep.skipped} error(s), scalar={srep.digest} "
+          f"batched={brep.digest}")
+
+    print(f"whatif: {n_err} parity failure(s) (torch engine on "
+          f"{driver.device})")
+    return _severity_rc(n_err, 0)
+
+
+def run_rollout(use_library: bool = False, device=None) -> int:
+    """``--rollout [--library]``: self-contained candidate promotion
+    against a seeded corpus.  Builds a live
+    client (a 4-template subset by default, the full builtin library
+    with ``--library``), records an admission corpus through the
+    webhook handler into a throwaway capture log, then drives a
+    constraint-only candidate through the full promotion ladder —
+    shadow sweep → batched corpus replay (scalar-oracle parity) →
+    dryrun → warn → deny — and prints the per-rung evidence, the
+    capture-log health counters, and a 4-cluster fleet graduation
+    plan.  All flight side effects land in a temp dir; every driver is
+    a ``TorchDriver`` on ``device`` (the card unless ``--device cpu``).
+    The reference also points ``GATEKEEPER_SNAPSHOT_DIR`` at the temp
+    dir for its rollout snapshot tier, which the port has not got yet
+    (ROADMAP A8).
+
+    Exit contract (:func:`_severity_rc`): 2 when the candidate fails
+    to graduate (or the fleet plan blocks/holds a cluster), 0 clean.
+    (The reference's 1, graduated on a scalar fallback, needs the
+    backend supervisor, ROADMAP A8.)"""
+    import os as _os
+    import random
+    import sys
+    import tempfile
+    import time as _time
+
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.obs import flightrecorder as fr
+    from gatekeeper_tpu_torch.rollout import PromotionController, graduate_fleet
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
+    from gatekeeper_tpu_torch.whatif import make_cluster
+
+    t0 = _time.perf_counter()
+    n = int(_os.environ.get("GATEKEEPER_ROLLOUT_PROBE_N", "200"))
+    pairs = all_docs() if use_library else all_docs()[:4]
+    templates = [t for t, _c in pairs]
+    constraints = [c for _t, c in pairs]
+    driver = TorchDriver(device=device)
+    handler = K8sValidationTarget()
+    client = Backend(driver).new_client([handler])
+    for d in templates:
+        client.add_template(d)
+    for d in constraints:
+        client.add_constraint(d)
+    client.add_data_batch(make_mixed(random.Random(7), n))
+    n_err = n_warn = 0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        saved_env = {k: _os.environ.get(k)
+                     for k in ("GATEKEEPER_FLIGHT_DIR",
+                               "GATEKEEPER_FLIGHT_ADMISSION")}
+        saved_rec = fr._recorder
+        _os.environ["GATEKEEPER_FLIGHT_DIR"] = tmp
+        _os.environ["GATEKEEPER_FLIGHT_ADMISSION"] = "1"
+        fr._recorder = None
+        try:
+            vh = ValidationHandler(client)
+            for obj in make_mixed(random.Random(23), min(n, 64)):
+                vh.handle({
+                    "uid": "u", "operation": "CREATE",
+                    "kind": {"group": "", "version": "v1",
+                             "kind": obj.get("kind", "")},
+                    "name": (obj.get("metadata") or {}).get("name", ""),
+                    "userInfo": {"username": "probe", "groups": []},
+                    "object": obj})
+            events = fr.load_admission_corpus(tmp)
+            st = fr.get_flight_recorder().capture_stats() or {}
+            ok = bool(events) and st.get("dropped", 0) == 0 \
+                and st.get("write_errors", 0) == 0
+            n_err += 0 if ok else 1
+            print(f"  {'ok  ' if ok else 'FAIL'} capture: "
+                  f"{len(events)} event(s) in "
+                  f"{st.get('segments', 0)} segment(s), "
+                  f"{st.get('dropped', 0)} drop(s), "
+                  f"{st.get('torn_truncated', 0)} torn tail(s), "
+                  f"{st.get('write_errors', 0)} write error(s)")
+
+            # the candidate drops one constraint — a shrink can never
+            # deny what the recorded set allowed, so the evidence
+            # gates must all pass
+            candidate = constraints[1:]
+            ctrl = PromotionController(
+                client, templates, candidate, name="probe",
+                events=events, verify_parity=True)
+            final = ctrl.run(target_rung="deny")
+            for h in ctrl.history:
+                ev = ctrl.evidence.get(h["to"], {})
+                keys = ("added", "cleared", "replayed",
+                        "skipped_oversize", "parity", "enforcement")
+                detail = ", ".join(f"{k}={ev[k]}" for k in keys
+                                   if k in ev)
+                print(f"    {h['frm']} -> {h['to']}: {h['reason']}"
+                      f"{'  [' + detail + ']' if detail else ''}")
+            g = ctrl.evidence.get("replay_gate", {})
+            ok = final == "deny" and g.get("parity") is True
+            n_err += 0 if ok else 1
+            print(f"  {'ok  ' if ok else 'FAIL'} promote: "
+                  f"state={final} rung={ctrl.installed} — "
+                  f"{g.get('replayed', 0)} event(s) replayed, "
+                  f"{g.get('unexpected_denials', '?')} unexpected "
+                  f"denial(s), {g.get('skipped_oversize', 0)} "
+                  f"oversize, scalar={g.get('scalar_digest', '')} "
+                  f"batched={g.get('batched_digest', '')}")
+            enforced = all(
+                ((client.constraints.get(c["kind"]) or {})
+                 .get(c["metadata"]["name"]) or {})
+                .get("spec", {}).get("enforcementAction") == "deny"
+                for c in candidate)
+            n_err += 0 if enforced else 1
+            if not enforced:
+                print("  FAIL promote: live constraints not at deny",
+                      file=sys.stderr)
+
+            # fleet graduation plan: the same candidate across a
+            # 4-cluster fleet, map-reduce blocks of 2
+            fleet = [make_cluster(
+                f"c{i}", templates, constraints,
+                objs=make_mixed(random.Random(200 + i), max(n // 4, 8)),
+                driver_factory=lambda: TorchDriver(device=device))
+                for i in range(4)]
+            frep = graduate_fleet(fleet, templates, candidate,
+                                  limit_per_constraint=20, block_size=2)
+            ok = frep.graduated == frep.n_clusters
+            n_err += 0 if ok else 1
+            print(f"  {'ok  ' if ok else 'FAIL'} plan: "
+                  f"{frep.headline()}")
+        finally:
+            tmp_rec = fr._recorder
+            fr._recorder = saved_rec
+            for k, v in saved_env.items():
+                if v is None:
+                    _os.environ.pop(k, None)
+                else:
+                    _os.environ[k] = v
+            try:
+                if tmp_rec is not None and tmp_rec._capture is not None:
+                    tmp_rec._capture.close()
+            except Exception:   # noqa: BLE001 — probe hygiene only
+                pass
+
+    wall = _time.perf_counter() - t0
+    print(f"rollout: {n_err} gate failure(s) (torch engine on "
+          f"{driver.device}) in {wall:.1f}s")
+    return _severity_rc(n_err, n_warn)
+
+
 def run_cost(device=None) -> int:
     """``--cost``: predicted-vs-measured static cost over the built-in
     library.  Builds a GATEKEEPER_COST_PROBE_N-row mixed workload (one
@@ -498,7 +848,6 @@ def run_cost(device=None) -> int:
 
 
 UNPORTED = {
-    "--policyset": "ROADMAP A6, the policy-set dedup plan",
     "--footprint": "ROADMAP A8, the footprint validator's worlds",
     "--certify": "ROADMAP A8, translation validation",
     "--health": "ROADMAP A8, the backend supervisor",
@@ -506,8 +855,6 @@ UNPORTED = {
     "--pages": "ROADMAP A8",
     "--compilesurface": "ROADMAP A8, the compile-surface certifier",
     "--memsurface": "ROADMAP A8",
-    "--whatif": "ROADMAP A7, what-if",
-    "--rollout": "ROADMAP A7, rollout",
     "--shardplan": "ROADMAP A10, the simulated mesh",
 }
 """The reference's subcommands the port has not got, each with the item
@@ -534,6 +881,10 @@ def _run_subcommand(argv: list[str], device=None) -> int | None:
     strict = "--strict" in argv
     pos = [a for a in argv if a not in ("--library", "--strict")]
     table = (
+        ("--whatif", lambda rest: run_whatif(device)),
+        ("--rollout", lambda rest: run_rollout(use_library=use_library,
+                                               device=device)),
+        ("--policyset", lambda rest: run_policyset()),
         ("--cost", lambda rest: run_cost(device)),
         ("--lint", lambda rest: run_lint(
             rest, use_library=use_library, strict=strict)),
@@ -566,8 +917,10 @@ def main(argv=None) -> int:
     without a card it cannot be built, and the verdict says so.
     ``--builtins`` lists the builtin registry instead of probing;
     ``--lint <template.yaml>... [--library] [--strict]`` runs the
-    static-analysis pass and ``--cost`` the cost model against a
-    measured sweep; analysis subcommands share one exit contract: 0
+    static-analysis pass, ``--cost`` the cost model against a measured
+    sweep, ``--policyset`` the whole-set report, ``--whatif`` and
+    ``--rollout`` the what-if and promotion self-checks; analysis
+    subcommands share one exit contract: 0
     clean, 1 warnings only, 2 any error-severity finding or unreadable
     input.
 

@@ -392,6 +392,67 @@ def _delta_mask(program: Program, d: dict[str, torch.Tensor],
     return viol_old.clone().index_copy_(1, idx, sub)
 
 
+def explain(program: Program, bindings: Bindings, ci: int, row: int,
+            match: np.ndarray | None = None) -> str:
+    """Mask dump for one (constraint, resource) pair: every IR node's
+    (defined, value) on the [1, 1(, E)] slice, plus each rule's conjunct
+    verdicts and the match-mask gate: the vectorized engine's analogue
+    of the scalar tracer.  The reference runs its device evaluator on
+    the sliced bindings; K1 is one fused kernel that exposes no node's
+    value, so this runs the plain evaluator, whose mask K1 equals."""
+    matched = True if match is None else bool(match[ci, row])
+    sliced: dict[str, torch.Tensor] = {}
+    for nm, arr in bindings.arrays.items():
+        a = np.asarray(arr)
+        for d, ax in enumerate(binding_axes(nm)):
+            if ax == "r":
+                a = np.take(a, [row], axis=d)
+            elif ax == "c":
+                a = np.take(a, [ci], axis=d)
+        sliced[nm] = torch.from_numpy(np.ascontiguousarray(a))
+    ev = _Evaluator(program, sliced)
+    lines = [f"explain constraint={ci} row={row}"]
+    for i, n in enumerate(program.nodes):
+        try:
+            d, v = ev.node(i)
+        except KeyError as e:
+            lines.append(f"  n{i:<3} {n.op:<22} <missing binding {e}>")
+            continue
+        dv = d.numpy().ravel()
+        vv = v.numpy().ravel()
+        show = vv if vv.size <= 8 else vv[:8]
+        lines.append(f"  n{i:<3} {n.op:<22} meta={n.meta!r} "
+                     f"defined={bool(dv.all())} value={show.tolist()}")
+    for ri, rule in enumerate(program.rules):
+        # elementwise AND of conjuncts, reduced exactly like
+        # _eval_program (existential over the presence-masked E axis)
+        total = None
+        verdicts = []
+        for cix in rule.conjuncts:
+            f = _fires(ev.node(cix))
+            verdicts.append(
+                f"n{cix}={f.numpy().ravel().astype(int).tolist()}")
+            total = f if total is None else total & f
+        if total is None:
+            fired = True
+        else:
+            total = total & sliced["__alive__"][None, :, None] \
+                & sliced["__cvalid__"][:, None, None]
+            if rule.elem_axis is not None:
+                pres = sliced[f"__elem__:{rule.elem_axis}"][None]
+                fired = bool((total & pres).any())
+            else:
+                fired = bool(total.any())
+        fired = fired and matched
+        lines.append(f"  rule{ri} axis={rule.elem_axis or '-'} "
+                     f"conjuncts[{' '.join(verdicts)}] -> "
+                     f"{'FIRES' if fired else 'no'}")
+    lines.insert(1, "  match gate: " + (
+        "matched" if matched else "NOT matched (constraint match criteria "
+        "exclude this resource)"))
+    return "\n".join(lines)
+
+
 def pad_rows(rows: np.ndarray) -> np.ndarray:
     """``rows`` padded to a power-of-two bucket of at least 8 by
     repeating its first row, so each kernel shape recurs across sweeps
@@ -755,16 +816,19 @@ class ProgramExecutor:
 
     def audit_warm_arrays(self, program: Program, bindings: Bindings,
                           k: int | None = None,
-                          with_match: bool = False) -> dict:
+                          with_match: bool = False,
+                          extra: dict | None = None) -> dict:
         """The arrays the first sweep's K1 launch over ``bindings`` will
         pass, in its order: the bindings' own device arrays (``_arrays``,
         which stages their uploads into the per-bindings cache the sweep
         then reuses), then a zero ``__match__`` bool [C_pad, R_pad] when
         ``with_match`` and a zero ``__rank__`` int32 [R_pad] when ``k``
-        is given, as the driver's ``_install_gates`` appends them, then
-        a zero ``<dfa>.devtab`` of K3's shape per regex table.  The plan
-        of ``ir_eval._launch`` keys on these names, dtypes and shapes,
-        and its compiled kernel on their 16-byte alignment."""
+        is given, as the driver's ``_install_gates`` appends them, then a
+        zero bool array of each shape in ``extra`` (name -> shape: the
+        shared columns a dedup rewrite reads), then a zero
+        ``<dfa>.devtab`` of K3's shape per regex table.  The plan of
+        ``ir_eval._launch`` keys on these names, dtypes and shapes, and
+        its compiled kernel on their 16-byte alignment."""
         arrays = self._arrays(bindings, None, None)
         dev = arrays["__alive__"].device
         if with_match and "__match__" not in arrays:
@@ -774,11 +838,15 @@ class ProgramExecutor:
         if k is not None and "__rank__" not in arrays:
             arrays["__rank__"] = torch.zeros((bindings.r_pad,),
                                              dtype=torch.int32, device=dev)
+        for nm, shape in (extra or {}).items():
+            if nm not in arrays:
+                arrays[nm] = torch.zeros(shape, dtype=torch.bool, device=dev)
         return _with_dfa_tables(program, arrays, _zero_devtab)
 
     def prewarm_audit_exec(self, program: Program, bindings: Bindings,
                            k: int | None = None,
-                           with_match: bool = False) -> bool:
+                           with_match: bool = False,
+                           extra: dict | None = None) -> bool:
         """Compile K1's full variant for ``bindings`` ahead of the first
         sweep (the reference's ``prewarm_audit_exec``): one uncounted
         launch into a scratch mask over :meth:`audit_warm_arrays`, from a
@@ -792,7 +860,7 @@ class ProgramExecutor:
         if self.device.type != "cuda":
             return False
         _ir_eval.warm_mask(program, self.audit_warm_arrays(
-            program, bindings, k, with_match))
+            program, bindings, k, with_match, extra))
         if k is not None:
             _topk.load()
         if dfa_names(program):
@@ -835,6 +903,22 @@ class ProgramExecutor:
                         [np.asarray(r) for r in base_dirty.values()]))
                     return ("delta", bviol, rows)
         return ("full",)
+
+    def alias_stored_mask(self, program: Program, base: Program,
+                          bindings: Bindings, drop) -> None:
+        """Store the violation mask a launch of ``program`` left on
+        ``bindings`` under ``base`` as well, with the arrays named in
+        ``drop`` taken out of its signature.  ``program`` is a rewrite of
+        ``base`` that reads those extra arrays and computes the same
+        mask (a dedup rewrite), so the next sweep of ``base`` over these
+        bindings reuses or delta-updates the mask instead of launching
+        the full kernel."""
+        masks = bindings.__dict__.get("_viol_masks", {})
+        hit = masks.get(self._viol_key(program))
+        if hit is not None:
+            sig, viol = hit
+            masks[self._viol_key(base)] = (
+                {nm: a for nm, a in sig.items() if nm not in drop}, viol)
 
     def _store_viol(self, program: Program, bindings: Bindings,
                     arrays: dict, viol) -> None:

@@ -27,15 +27,28 @@ join over the whole table on every delta sweep.  Under
 its LRU-hot pages on the device between sweeps (the residency planner,
 enforce/devpages.py, with K8).
 Every other kind, and every kind under ``GATEKEEPER_PAGES=off``, takes
-the legacy full-kind sweep — the path JaxDriver takes with
-``GATEKEEPER_PAGES=off GATEKEEPER_FOOTPRINT=off GATEKEEPER_DEDUP=off``,
-which the reference keeps as the bit-identical oracle of its later
-layers.  Templates outside the lowerable subset, kinds whose numbers are
-not float32-exact, and workloads below ``SMALL_WORKLOAD_EVALS`` run on
-the scalar oracle.  Under churn the host masks and bindings are
-delta-maintained, and the executor keeps the violation mask on the
-device: dirty rows are scattered into the device columns and
-re-evaluated into the stored mask (engine/executor.py "delta" plan).
+the legacy full-kind sweep, where two reuse layers sit, each with its
+reference's ``=off`` oracle:
+- footprint-driven selective reuse (``GATEKEEPER_FOOTPRINT``, on): a
+  non-full, untraced sweep replays a row-local kind's captured K1/K2
+  payload when no column path its template reads was dirtied since
+  (``_selective_reuse``); a later churn that does touch the kind
+  re-evaluates every row dirtied since its mask was computed;
+- the cross-template dedup of forced full sweeps (``GATEKEEPER_DEDUP``,
+  on): a conjunct several templates share is computed once on the host
+  (analysis/policyset.py's twin of the plain evaluator) and injected as
+  a bool column that each member's rewritten program reads
+  (``_apply_dedup``), spliced at the dirty rows across sweeps.
+With shadow kinds staged (whatif/shadow.py), a forced full sweep hands
+an unchanged twin its live kind's K1/K2 result
+(``GATEKEEPER_WHATIF_SHARE``).  ``GATEKEEPER_BINDING_DELTA=off`` rebuilds
+bindings whole (the oracle of the delta chain).  Templates outside the
+lowerable subset, kinds whose numbers are not float32-exact, and
+workloads below ``SMALL_WORKLOAD_EVALS`` run on the scalar oracle.
+Under churn the host masks and bindings are delta-maintained, and the
+executor keeps the violation mask on the device: dirty rows are
+scattered into the device columns and re-evaluated into the stored mask
+(engine/executor.py "delta" plan).
 Template install runs the Stage-2 IR verifier (analysis/ir_verifier.py:
 a malformed lowered program is pinned to the scalar oracle) and the
 Stage-5 footprint and Stage-6 partition-plan certifiers
@@ -47,13 +60,15 @@ a forced full sweep's kinds and the largest admission batch.
 
 A batch ingest of ``MIRROR_EAGER_MIN_ROWS`` rows or more builds each
 kind's bindings at once (the eager mirror) and compiles each kind's full
-K1 variant on background ``ingest-prewarm`` threads, so the first sweep
-finds its kernels built.  An admission micro-batch
-(``query_review_batch``) of ``REVIEW_BATCH_MIN_EVALS`` (review,
-constraint) pairs or more runs as one [C, B] device pass per kind (K3,
-K1) over a throwaway mini table, and only its candidates are verified on
-the host; ``predict_review_batch_seconds`` prices a batch with the
-static cost model.  ``react_kind`` and ``resync_kind`` fold the store's
+K1 variant, and its dedup rewrite's, on background ``ingest-prewarm``
+threads, so the first sweep finds its kernels built; the delta warm-up
+after the first capped sweep does the same for the rewrites.  An
+admission micro-batch (``query_review_batch``) of
+``REVIEW_BATCH_MIN_EVALS`` (review, constraint) pairs or more runs as
+one [C, B] device pass per kind (K3, K1) over a throwaway mini table,
+and only its candidates are verified on the host;
+``predict_review_batch_seconds`` prices a batch with the static cost
+model.  ``react_kind`` and ``resync_kind`` fold the store's
 dirty pages into the ledger between sweeps for the watch-driven reactor
 (enforce/reactor.py).  A forced full sweep (``QueryOpts.full``) drops
 every memo layer and dispatches its kinds one at a time, each finished
@@ -62,7 +77,8 @@ format seconds, bytes uploaded and overlap reported in
 ``last_sweep_phases``: the reference's ``GATEKEEPER_FULL_SWEEP_SERIAL``
 mode.  The reference's default, a pool of 8 dispatch threads, lost to
 it on the card's host at every store measured (ROADMAP Queue C).
-Shadow and replay what-if and sharding are not part of this port yet.
+``explain_pair`` dumps one (constraint, resource) pair through the plain
+evaluator.  Sharding is not part of this port yet.
 """
 
 from __future__ import annotations
@@ -184,6 +200,28 @@ DEFAULT_PREWARM_CAP = 20
 per-constraint violation cap (Gatekeeper's pkg/audit/manager.go:35)."""
 
 
+class _ResolvedHandle:
+    """Pre-resolved stand-in for a PendingTopK/PendingMask handle:
+    selective reuse replays a payload captured on a previous sweep
+    instead of launching, and the format path only ever calls
+    ``.get()``/``.block()``."""
+
+    def __init__(self, payload):
+        self._payload = payload
+
+    def get(self):
+        return self._payload
+
+    def block(self):
+        return self
+
+
+SWEEP_CACHE_MAX_BYTES = 64 * 1024 * 1024
+"""Per-kind payload cap for the selective-reuse sweep cache: top-k
+payloads are tiny; uncapped [C, R] masks at cluster scale are not worth
+holding for a maybe-reuse."""
+
+
 def _semantic_fields(frozen) -> tuple:
     """What of a frozen constraint document can move its verdicts: its
     ``spec`` (match criteria, parameters, enforcement action) and its
@@ -257,6 +295,17 @@ class TorchTargetState(TargetState):
         # awaiting adoption (always None without a snapshot tier)
         self.devpages: dict[str, object] = {}
         self.devpages_geom: dict | None = None
+        # kind -> last device sweep payload + guards, for footprint-
+        # driven selective reuse (_selective_reuse)
+        self.sweep_cache: dict[str, dict] = {}
+        # dedup shared-conjunct columns carried across full sweeps:
+        # digest -> (gen, remap, col); churn re-evaluates only the
+        # dirty-row slice (policyset.eval_shared_host rows=...)
+        self.dedup_shared_cache: dict = {}
+        # added to the table's write generation by store_generation: an
+        # adopted table's counters restart, so the offset moves past
+        # every generation the old table reported
+        self.generation_base = 0
 
     def bump(self, kind: str) -> None:
         self.con_version[kind] = self.con_version.get(kind, 0) + 1
@@ -264,13 +313,16 @@ class TorchTargetState(TargetState):
 
 @dataclasses.dataclass
 class DeltaWarm:
-    """The background warm-up of the churn-delta variants (K5) that a
-    driver starts after its first capped sweep: its thread, its seconds
-    once it ended, and the exception it ended with, which the driver's
-    next ``query_audit`` raises."""
+    """The background warm-up that a driver starts after its first
+    capped sweep: the churn-delta variants (K5) of the kinds it swept
+    (``kinds``) and the full K1 variants of the dedup rewrites of those
+    kinds (``rewritten``), which a forced full sweep runs; its thread,
+    its seconds once it ended, and the exception it ended with, which
+    the driver's next ``query_audit`` raises."""
 
     thread: threading.Thread | None = None
     kinds: int = 0
+    rewritten: int = 0
     seconds: float | None = None
     error: BaseException | None = None
 
@@ -278,13 +330,15 @@ class DeltaWarm:
 @dataclasses.dataclass
 class IngestWarm:
     """The background compile of each kind's full K1 variant that a large
-    batch ingest starts (``ingest-prewarm`` threads draining one queue):
-    its threads, its seconds once the last thread ended, and the first
-    exception a thread ended with, which the driver's next
-    ``query_audit`` raises."""
+    batch ingest starts (``ingest-prewarm`` threads draining one queue),
+    for the kinds' programs (``kinds``) and for their dedup rewrites
+    (``rewritten``): its threads, its seconds once the last thread
+    ended, and the first exception a thread ended with, which the
+    driver's next ``query_audit`` raises."""
 
     threads: list = dataclasses.field(default_factory=list)
     kinds: int = 0
+    rewritten: int = 0
     seconds: float | None = None
     error: BaseException | None = None
 
@@ -315,6 +369,9 @@ class TorchDriver(LocalDriver):
         # predict_review_batch_seconds' units by (batch size, kinds,
         # constraints)
         self._predict_cache: dict[tuple, float] = {}
+        # target -> (policy-set digest, DedupPlan): the cross-template
+        # dedup plan of the installed set (_audit_dedup_plan)
+        self._dedup_plan_memo: dict[str, tuple] = {}
 
     def init(self, targets) -> None:
         self.targets = dict(targets)
@@ -329,15 +386,22 @@ class TorchDriver(LocalDriver):
         path is never degraded here: always False."""
         return False
 
-    def _start_delta_warm(self, items: list) -> None:
+    def _start_delta_warm(self, items: list, rewritten: list = (),
+                          st=None) -> None:
         """Compile each ``(program, bindings)``'s K5 delta variant on a
         background ``delta-warmup`` thread (the reference's warm-up
         after the first capped sweep, ``jax_driver.py`` query_audit):
         the compiles hide in the audit interval instead of adding
-        seconds to the first churned sweep.  Unlike the reference's,
-        an exception is kept, not swallowed: :meth:`query_audit` raises
-        it, as a kernel-layer error of a sweep ends the sweep."""
-        warm = self.delta_warm = DeltaWarm(kinds=len(items))
+        seconds to the first churned sweep.  Then each item of
+        ``rewritten`` (:meth:`_rewritten_warm_items` over the target
+        state ``st``) compiles the full K1 variant of a kind's dedup
+        rewrite, which the first forced full sweep would otherwise
+        compile, as the ingest warm does (:meth:`_warm_item`).  Unlike
+        the reference's, an exception is kept, not swallowed:
+        :meth:`query_audit` raises it, as a kernel-layer error of a
+        sweep ends the sweep."""
+        warm = self.delta_warm = DeltaWarm(kinds=len(items),
+                                           rewritten=len(rewritten))
         executor = self.executor
 
         def run():
@@ -347,6 +411,10 @@ class TorchDriver(LocalDriver):
                     if BG_SHUTDOWN.is_set():
                         return
                     executor.prewarm_deltas(prog, bindings)
+                for item in rewritten:
+                    if BG_SHUTDOWN.is_set():
+                        return
+                    self._warm_item(st, item)
             except Exception as exc:    # raised by the next query_audit
                 warm.error = exc
             finally:
@@ -371,33 +439,47 @@ class TorchDriver(LocalDriver):
                 err, warm.error = warm.error, None
                 raise err
 
+    def _warm_item(self, st, item: tuple) -> None:
+        """Compile one ``(kind, program, bindings, with_match, shared
+        shapes)``'s full K1 variant, and load K2 and K3
+        (``prewarm_audit_exec``), under ``_prep_lock``, which every
+        sweep holds while it stages, migrates or rebuilds bindings: the
+        warm's uploads into the per-bindings device cache never
+        interleave with a sweep's.  An item whose bindings are no longer
+        the kind's current ones (a churn or a forced full sweep replaced
+        them, and the driver may recycle their host buffers) is skipped:
+        the next sweep compiles what it needs itself."""
+        kind, prog, bindings, with_match, extra = item
+        with self._prep_lock:
+            cur = st.bindings_cache.get(kind)
+            if cur is None or cur[1] is not bindings:
+                return
+            self.executor.prewarm_audit_exec(prog, bindings,
+                                             DEFAULT_PREWARM_CAP,
+                                             with_match=with_match,
+                                             extra=extra)
+
     def _start_ingest_warm(self, st: TorchTargetState,
                            items: list) -> None:
-        """Compile each ``(kind, program, bindings, with_match)``'s full
-        K1 variant, and load K2 and K3, on up to 4 ``ingest-prewarm``
-        threads draining one queue (the reference's ingest prewarm,
-        ``jax_driver.py`` _materialize_mirror): the compiles overlap the
-        time until the first sweep instead of landing inside it.
-
-        Each item runs under ``_prep_lock``, which every sweep holds
-        while it stages, migrates or rebuilds bindings: the warm's
-        uploads into the per-bindings device cache never interleave
-        with a sweep's.  An item whose bindings are no longer the
-        kind's current ones (a churn or a forced full sweep replaced
-        them, and the driver may recycle their host buffers) is
-        skipped: the next sweep compiles what it needs itself.
+        """Compile each ``(kind, program, bindings, with_match, shared
+        shapes)``'s full K1 variant, and load K2 and K3, on up to 4
+        ``ingest-prewarm`` threads draining one queue (the reference's
+        ingest prewarm, ``jax_driver.py`` _materialize_mirror): the
+        compiles overlap the time until the first sweep instead of
+        landing inside it.  Each item runs as :meth:`_warm_item`.
 
         A warm still running from an earlier ingest is joined first, and
         its unraised error carried over.  Unlike the reference's, an
         exception is kept, not swallowed: :meth:`query_audit` and
         :meth:`wait_ingest_warm` raise it."""
         prev = self.ingest_warm
-        warm = self.ingest_warm = IngestWarm(kinds=len(items))
+        warm = self.ingest_warm = IngestWarm(
+            kinds=sum(1 for it in items if it[4] is None),
+            rewritten=sum(1 for it in items if it[4] is not None))
         if prev is not None:
             for t in prev.threads:
                 t.join()
             warm.error = prev.error
-        executor = self.executor
         queue = list(items)
         qlock = threading.Lock()
         t0 = time.perf_counter()
@@ -408,14 +490,8 @@ class TorchDriver(LocalDriver):
                     with qlock:
                         if not queue or warm.error is not None:
                             return
-                        kind, prog, bindings, with_match = queue.pop(0)
-                    with self._prep_lock:
-                        cur = st.bindings_cache.get(kind)
-                        if cur is None or cur[1] is not bindings:
-                            continue
-                        executor.prewarm_audit_exec(prog, bindings,
-                                                    DEFAULT_PREWARM_CAP,
-                                                    with_match=with_match)
+                        item = queue.pop(0)
+                    self._warm_item(st, item)
             except Exception as exc:    # raised by the next query_audit
                 with qlock:
                     if warm.error is None:
@@ -450,15 +526,28 @@ class TorchDriver(LocalDriver):
     @locked
     def adopt_store(self, target: str, state: dict) -> None:
         """Swap the target's columnar store for a fresh table built
-        from a ``snapshot_state()`` payload.  Valid on a non-empty
+        from a ``snapshot_state()`` payload: the load-a-snapshot-as-a-
+        secondary-store path (whatif/replay.py).  Valid on a non-empty
         driver: every table-derived cache layer is dropped, because the
         new table's generation counters restart and would otherwise
-        collide with cached keys from the old table."""
+        collide with cached keys from the old table.  Beyond the
+        reference's layers that covers the port's own: the executor's
+        device arrays and stored masks (they hang off the dropped
+        bindings), device-resident pages, and the store generation the
+        reactor compares (``store_generation`` moves past the old
+        table's instead of restarting)."""
         from gatekeeper_tpu_torch.store.table import ResourceTable
         st = self._state(target)
+        old_gen = self.store_generation(target) \
+            if isinstance(st, TorchTargetState) else 0
         st.table = ResourceTable.from_state(state)
         st._inv_cache = None
         if isinstance(st, TorchTargetState):
+            st.generation_base = old_gen + 1
+            st.sweep_cache = {}
+            st.dedup_shared_cache = {}
+            st.devpages = {}
+            st.devpages_geom = None
             st.bindings_cache = {}
             st.bindings_retired = {}
             st.mask_cache = {}
@@ -486,9 +575,9 @@ class TorchDriver(LocalDriver):
         st = self._state(target)
         if isinstance(st, TorchTargetState) \
                 and len(entries) >= MIRROR_EAGER_MIN_ROWS:
-            self._materialize_mirror(st)
+            self._materialize_mirror(st, target)
 
-    def _materialize_mirror(self, st) -> None:
+    def _materialize_mirror(self, st, target: str) -> None:
         """Eagerly build what the first audit would otherwise build
         lazily: the shared element-axis extraction, each device kind's
         bindings, the sorted row order and the rank gate (a columnar
@@ -502,7 +591,10 @@ class TorchDriver(LocalDriver):
         on the scalar oracle), and, while the paged route is on
         (``GATEKEEPER_PAGES``, the default), a kind it serves: its
         sweeps re-evaluate pages on the host or, under devpages, launch
-        the delta variant, never the full one."""
+        the delta variant, never the full one.  With ``GATEKEEPER_DEDUP``
+        on, the full variant of each kind's dedup rewrite in the current
+        plan is warmed too (forced full sweeps run it, whatever the
+        route)."""
         from gatekeeper_tpu_torch.enforce.ledger import pages_mode
         t0 = time.perf_counter()
         warm: list[tuple] = []
@@ -528,7 +620,11 @@ class TorchDriver(LocalDriver):
                 with_match = any((c.get("spec") or {}).get("match")
                                  for c in cons)
                 warm.append((kind, compiled.vectorized.program, bindings,
-                             with_match))
+                             with_match, None))
+            if self._dedup_on() and not self.scalar_only:
+                plan = self._audit_dedup_plan(st, target)
+                if plan is not None:
+                    warm.extend(self._rewritten_warm_items(st, plan))
         _, row_order = self._ensure_order(st)
         self._row_rank(st, row_order)
         self.metrics.timer("mirror_materialize").observe(
@@ -849,18 +945,29 @@ class TorchDriver(LocalDriver):
         st.mask_cache[kind] = ((gen, conver), (conver, remap), padded, None)
         return padded[:n_con, :n], None, padded
 
+    @staticmethod
+    def _binding_delta_on() -> bool:
+        """GATEKEEPER_BINDING_DELTA: the incremental update_bindings
+        chain (O(dirty) host work and row-sized device scatters).
+        ``off`` rebuilds bindings whole on every store generation: the
+        bit-identical oracle of the delta chain."""
+        return os.environ.get(
+            "GATEKEEPER_BINDING_DELTA", "on").lower() not in ("off", "0")
+
     def _kind_bindings(self, st: TorchTargetState, kind: str,
                        compiled: CompiledTemplate, constraints: list[dict]):
-        """Per-kind bindings with incremental host updates under churn.
-        Retired bindings (two updates old) are recycled as write buffers
-        (ping-pong); the executor copies every array it uploads, so the
-        recycled numpy buffers never alias device data."""
+        """Per-kind bindings with incremental host updates under churn
+        (unless ``GATEKEEPER_BINDING_DELTA=off``).  Retired bindings (two
+        updates old) are recycled as write buffers (ping-pong); the
+        executor copies every array it uploads, so the recycled numpy
+        buffers never alias device data."""
         from gatekeeper_tpu_torch.ir.prep import update_bindings
         key = (st.table.generation, self.con_version_of(st, kind))
         hit = st.bindings_cache.get(kind)
         if hit is not None and hit[0] == key:
             return hit[1]
-        if hit is not None and hit[0][1] == key[1]:
+        if hit is not None and hit[0][1] == key[1] \
+                and self._binding_delta_on():
             retired = st.bindings_retired.get(kind)
             recycle = retired[1] if retired is not None \
                 and retired[0] == key[1] else None
@@ -1004,6 +1111,339 @@ class TorchDriver(LocalDriver):
     @staticmethod
     def con_version_of(st, kind: str) -> int:
         return st.con_version.get(kind, 0)
+
+    # ------------------------------------------------------------------
+    # reuse: footprint-driven selective reuse and the cross-template
+    # dedup of full sweeps
+
+    @staticmethod
+    def _reuse_eligible(st, kind: str, compiled: CompiledTemplate) -> bool:
+        """A kind whose verdicts depend only on its own rows' columns
+        that the table's column diff can see: row-local, no external
+        providers, no inventory reads."""
+        fp = st.footprints.get(kind)
+        return fp is not None and fp.row_local and not fp.providers \
+            and not compiled.uses_inventory
+
+    def _selective_reuse(self, st: TorchTargetState, kind: str,
+                         compiled: CompiledTemplate, limit):
+        """Footprint-driven selective reuse: the cached sweep entry and
+        bindings when this kind's verdicts provably cannot have changed
+        since they were captured — no dirty column path
+        (store.table.dirty_paths_since) intersects the template's
+        validated read-set (footprint object paths plus the constraint
+        match criteria paths), the key set, row ids and constraint set
+        are unchanged, and the template is reuse-eligible.  The bindings
+        stay as they were: a later churn that does touch the kind
+        derives its dirty rows from the bindings' own delta state, so
+        the device-resident mask is scattered and re-evaluated at every
+        row dirtied since it was last computed.  Caller holds
+        ``_prep_lock``."""
+        ent = st.sweep_cache.get(kind)
+        if ent is None or not self._reuse_eligible(st, kind, compiled):
+            return None
+        fp = st.footprints[kind]
+        table = st.table
+        conver = self.con_version_of(st, kind)
+        if ent["conver"] != conver or ent["limit"] != limit \
+                or ent["kgen"] != table.key_generation \
+                or ent["remap"] != table.remap_generation \
+                or ent["n_rows"] != table.n_rows:
+            return None
+        if table.generation != ent["gen"]:
+            if table.namespaces_dirty_since(ent["gen"]):
+                return None
+            changed = table.dirty_paths_since(ent["gen"])
+            if changed is None:     # window predates the path log
+                return None
+            from gatekeeper_tpu_torch.analysis.footprint import (
+                MATCH_PATHS, paths_intersect)
+            read = set(fp.object_paths()) | set(MATCH_PATHS)
+            for c in changed:
+                if any(paths_intersect(c, r) for r in read):
+                    return None
+        hitb = st.bindings_cache.get(kind)
+        if hitb is None or hitb[1] is not ent["bindings"]:
+            return None
+        # move the cache key to the current generation: the dirty
+        # columns provably do not feed this kind, so its bindings are
+        # current.  A later update_bindings derives its dirty window from
+        # the bindings' own delta state, not from this key
+        st.bindings_cache[kind] = ((table.generation, conver), hitb[1])
+        ent["gen"] = table.generation
+        self.metrics.counter("footprint_kind_sweeps_skipped").inc()
+        return ent, hitb[1]
+
+    def _capture_sweep(self, st: TorchTargetState, kind: str,
+                       compiled: CompiledTemplate, spec: tuple, payload,
+                       limit) -> None:
+        """Store one kind's resolved device payload and its reuse guards,
+        so a later churned sweep whose dirty columns miss this kind's
+        read-set can replay it (:meth:`_selective_reuse`).  The entry
+        keeps the kind's own program even when a dedup rewrite computed
+        the payload (the two agree): the shared columns the rewrite reads
+        leave the bindings when the full sweep ends."""
+        if not self._reuse_eligible(st, kind, compiled):
+            return
+        parts = payload if isinstance(payload, tuple) else (payload,)
+        if sum(int(a.nbytes) for a in parts) > SWEEP_CACHE_MAX_BYTES:
+            return
+        table = st.table
+        with self._prep_lock:
+            st.sweep_cache[kind] = {
+                "mode": spec[0], "payload": payload,
+                "prog": compiled.vectorized.program,
+                "bindings": spec[5], "mask": spec[6],
+                "gen": table.generation, "kgen": table.key_generation,
+                "remap": table.remap_generation, "n_rows": table.n_rows,
+                "conver": self.con_version_of(st, kind), "limit": limit,
+            }
+
+    @staticmethod
+    def _dedup_on() -> bool:
+        """GATEKEEPER_DEDUP: the cross-template dedup of forced full
+        sweeps (default on); ``off`` is the oracle."""
+        return os.environ.get("GATEKEEPER_DEDUP", "on") != "off"
+
+    def _audit_dedup_plan(self, st, target: str):
+        """The cross-template predicate dedup plan of the installed set,
+        or None when no kind is lowered and constrained.  Memoized by
+        the set's digest (templates' sources and constraint documents),
+        so a template or constraint change makes a new plan.  Unlike the
+        reference's, an exception of the build is raised: the sweep
+        ends with it.  Caller holds ``_prep_lock``."""
+        import hashlib
+        import json
+        from gatekeeper_tpu_torch.analysis.policyset import build_dedup_plan
+        dkinds = {}
+        for k in sorted(st.templates):
+            cons = self._kind_constraints(st, k)
+            if st.templates[k].vectorized is not None and cons:
+                dkinds[k] = (st.templates[k].vectorized, cons)
+        if not dkinds:
+            return None
+        h = hashlib.sha256()
+        for k, (_low, cons) in dkinds.items():
+            h.update(f"{k}|{st.templates[k].source}|".encode())
+            h.update(json.dumps(cons, sort_keys=True, default=str).encode())
+        pdigest = h.hexdigest()
+        memo = self._dedup_plan_memo.get(target)
+        if memo is not None and memo[0] == pdigest:
+            return memo[1]
+        plan = build_dedup_plan(dkinds)
+        self._dedup_plan_memo[target] = (pdigest, plan)
+        # plan changed: drop cross-sweep shared columns whose digest is
+        # no longer in the live group set
+        live = set(plan.groups)
+        st.dedup_shared_cache = {d: v for d, v in
+                                 st.dedup_shared_cache.items() if d in live}
+        return plan
+
+    @locked_read
+    def prepare_audit(self, target: str) -> bool:
+        """Build what a forced full sweep needs before the first one: the
+        cross-template dedup plan and, on CUDA, the full K1 variant of
+        every rewritten program over its kind's bindings, so a
+        (re)started process pays both before it declares itself ready.
+        Returns True when a plan is ready (False: dedup off, or nothing
+        lowered).  The reference's Stage-7 AOT compile of certified
+        signatures is not ported (ROADMAP A8)."""
+        st = self.state.get(target)
+        if not isinstance(st, TorchTargetState) or self.scalar_only \
+                or not self._dedup_on():
+            return False
+        with self._prep_lock:
+            plan = self._audit_dedup_plan(st, target)
+            if plan is None:
+                return False
+            if self.device.type == "cuda":
+                for kind, prog, bindings, with_match, extra in \
+                        self._rewritten_warm_items(st, plan):
+                    self.executor.prewarm_audit_exec(
+                        prog, bindings, DEFAULT_PREWARM_CAP,
+                        with_match=with_match, extra=extra)
+        return True
+
+    def _rewritten_warm_items(self, st, plan) -> list[tuple]:
+        """``(kind, rewritten program, bindings, with_match, shared
+        shapes)`` for every kind of ``plan`` that a full sweep would run
+        on the device (bindings built, float32-exact): what a warm
+        compiles so the first full sweep finds each rewritten program's
+        K1 variant built.  Caller holds ``_prep_lock``."""
+        items = []
+        for kind in sorted(plan.rewritten):
+            compiled = st.templates.get(kind)
+            cons = self._kind_constraints(st, kind)
+            if compiled is None or compiled.vectorized is None or not cons \
+                    or st.table.n_rows * len(cons) < SMALL_WORKLOAD_EVALS:
+                continue
+            try:
+                bindings = self._kind_bindings(st, kind, compiled, cons)
+            except ExternalDataError:
+                continue
+            if bindings.f32_unsafe:
+                continue
+            with_match = any((c.get("spec") or {}).get("match")
+                             for c in cons)
+            items.append((kind, plan.rewritten[kind], bindings, with_match,
+                          self._shared_shapes(plan, kind, bindings)))
+        return items
+
+    @staticmethod
+    def _shared_shapes(plan, kind: str, bindings) -> dict:
+        """binding name -> shape of each shared column ``kind``'s
+        rewritten program reads, at ``bindings``' pads."""
+        out = {}
+        for digest in plan.kind_digests[kind]:
+            g = plan.groups[digest]
+            out[g.binding] = (bindings.r_pad, bindings.e_pads.get(g.axis)) \
+                if g.ekind == "e" else (bindings.r_pad,)
+        return out
+
+    def _shared_col(self, st, plan, kind: str, digest: str, bindings):
+        """One shared conjunct's host column, carried ACROSS full sweeps:
+        a geometry-stable cache hit re-evaluates only the rows the store
+        dirtied since the cached generation and splices them into a COPY
+        (the previous sweep's bindings may still reference the cached
+        array).  Sound because shared subtrees are row-local by
+        construction (own columns and digest-stable interner tables; the
+        interner is append-only, so an unchanged row's ids resolve
+        identically).  A constraint-set change changes the digest, a
+        remap or resize misses the guards."""
+        from gatekeeper_tpu_torch.analysis.policyset import eval_shared_host
+        g = plan.groups[digest]
+        member = g.members[kind]
+        table = st.table
+        want_shape = (bindings.r_pad, bindings.e_pads.get(g.axis)) \
+            if g.ekind == "e" else (bindings.r_pad,)
+        hit = st.dedup_shared_cache.get(digest)
+        if hit is not None:
+            c_gen, c_remap, c_col = hit
+            if c_remap == table.remap_generation \
+                    and c_col.shape == want_shape:
+                if c_gen == table.generation:
+                    return c_col
+                dirty = table.dirty_rows_since(c_gen)
+                if len(dirty) <= max(64, table.n_rows // 4):
+                    sub = eval_shared_host(
+                        plan.originals[kind], member.node_idx,
+                        bindings.arrays, g.ekind, rows=dirty)
+                    col = c_col.copy()
+                    col[dirty] = sub
+                    st.dedup_shared_cache[digest] = (
+                        table.generation, table.remap_generation, col)
+                    self.metrics.counter("dedup_shared_delta_evals").inc()
+                    return col
+        col = eval_shared_host(plan.originals[kind], member.node_idx,
+                               bindings.arrays, g.ekind)
+        st.dedup_shared_cache[digest] = (
+            table.generation, table.remap_generation, col)
+        return col
+
+    def _apply_dedup(self, st, plan, kind: str, bindings,
+                     shared_cols: dict, applied: dict):
+        """Swap one kind's program for its dedup rewrite
+        (analysis/policyset.py), injecting the shared predicate columns
+        as plain bool bindings.  The column of a digest is computed ONCE
+        a sweep, on the host, from the first member kind's bound arrays
+        (the numpy twin of the plain evaluator), and handed to every
+        member as the same object; member kinds bind identical arrays
+        for identical canonical inputs, which the shape guard re-checks
+        per kind.  A shape mismatch keeps the kind on its original
+        program and counts ``dedup_fallbacks``; an exception of the twin
+        is raised (the reference swallows it).  Returns the rewritten
+        Program or None."""
+        add: dict = {}
+        for digest in plan.kind_digests[kind]:
+            g = plan.groups[digest]
+            col = shared_cols.get(digest)
+            if col is None:
+                col = self._shared_col(st, plan, kind, digest, bindings)
+                shared_cols[digest] = col
+            want = (bindings.r_pad, bindings.e_pads.get(g.axis)) \
+                if g.ekind == "e" else (bindings.r_pad,)
+            if col.shape != want:
+                self.metrics.counter("dedup_fallbacks").inc()
+                return None
+            add[g.binding] = col
+        # rebind, never mutate (see _install_gates): readers may hold the
+        # previous arrays dict
+        bindings.arrays = {**bindings.arrays, **add}
+        for digest in plan.kind_digests[kind]:
+            applied[digest] = applied.get(digest, 0) \
+                + plan.groups[digest].members[kind].sites
+        return plan.rewritten[kind]
+
+    def _drop_shared_columns(self, rebound: list) -> None:
+        """Take a forced full sweep's shared dedup columns out of the
+        bindings :meth:`_apply_dedup` bound them into, once the sweep
+        ended (formatted or failed), and keep each rewrite's mask as the
+        kind's own program's (the two are equal).  A later non-full
+        sweep then runs each member kind's own program over the arrays
+        it passed before the full sweep, and reuses or delta-updates
+        that mask as it does a kind that was not rewritten: no full K1
+        launch, no variant that no warm built, no dead column uploaded.
+        The reference leaves the columns in."""
+        if not rebound:
+            return
+        with self._prep_lock:
+            for bindings, names, rewritten, own in rebound:
+                self.executor.alias_stored_mask(rewritten, own, bindings,
+                                                names)
+                # rebind, never mutate (see _install_gates)
+                bindings.arrays = {k: v for k, v in bindings.arrays.items()
+                                   if k not in names}
+
+    @staticmethod
+    def _twin_bindings_equal(a, b) -> bool:
+        """True when two kinds' bound arrays are bit-identical: same
+        names, shapes, dtypes, contents.  Shared dedup columns are the
+        same objects in both dicts, so identity short-circuits them;
+        everything else pays one host comparison."""
+        if a is None or b is None:
+            return False
+        if a.c_pad != b.c_pad or a.r_pad != b.r_pad:
+            return False
+        if set(a.arrays) != set(b.arrays):
+            return False
+        for name, x in a.arrays.items():
+            y = b.arrays[name]
+            if x is y:
+                continue
+            xa, ya = np.asarray(x), np.asarray(y)
+            if xa.shape != ya.shape or xa.dtype != ya.dtype \
+                    or not np.array_equal(xa, ya):
+                return False
+        return True
+
+    def _twin_handle(self, twin_src: dict, mode: str, kind: str, prog,
+                     bindings, specs: list):
+        """What-if (shadow) sweeps' whole-kind sharing.  A shadow install
+        stages the candidate set beside the live one under mangled kinds
+        (analysis/policyset.shadow_kind).  For every template the
+        candidate did not change, the shadow twin lowers to the same
+        program over bit-identical bound arrays, so its launches would
+        recompute the live kind's payload exactly.  Live kinds register
+        their spec's index; a shadow kind whose live twin ran before it
+        with an equal program and equal bindings gets the twin's
+        finished handle (a forced full sweep waits for each kind before
+        the next, and a handle's ``get`` is a pure copy to the host),
+        else None and it launches its own K1 and K2."""
+        from gatekeeper_tpu_torch.analysis.policyset import split_shadow_kind
+        base, tag = split_shadow_kind(kind)
+        if tag is None:
+            twin_src[(kind, mode)] = len(specs)
+            return None
+        si = twin_src.get((base, mode))
+        if si is None:
+            return None
+        s_prog, s_bind, s_handle = specs[si][4], specs[si][5], specs[si][7]
+        if s_prog is None or s_prog.cache_key() != prog.cache_key():
+            return None
+        if not self._twin_bindings_equal(s_bind, bindings):
+            return None
+        self.metrics.counter("whatif_twin_dispatches_shared").inc()
+        return s_handle
 
     # ------------------------------------------------------------------
     # continuous enforcement: the paged sweep and its ledger
@@ -1719,8 +2159,9 @@ class TorchDriver(LocalDriver):
     def store_generation(self, target: str) -> int:
         """The store's write generation: the reactor re-reacts a kind it
         reacted moments ago when this moved (a sync controller's write
-        that landed after the react)."""
-        return int(self._state(target).table.generation)
+        that landed after the react).  Monotonic across ``adopt_store``."""
+        st = self._state(target)
+        return int(getattr(st, "generation_base", 0) + st.table.generation)
 
     # ------------------------------------------------------------------
     # external data: the key-collection half of the two-phase design
@@ -1884,11 +2325,13 @@ class TorchDriver(LocalDriver):
                          full=full, rows=len(ordered_rows)) as sweep_sp:
             sweep_ctx = tracer.current()
             ext_warm = self._start_external_warm(st, tracer, sweep_ctx)
+            rebound: list = []
             try:
                 out = self._sweep(st, target, ordered_rows, row_order,
                                   tracing, limit, full, tracer, sweep_ctx,
-                                  t_start, ext_warm)
+                                  t_start, ext_warm, rebound)
             finally:
+                self._drop_shared_columns(rebound)
                 if ext_warm is not None:
                     # a sweep that failed leaves with its own error
                     concurrent.futures.wait([ext_warm])
@@ -1897,7 +2340,8 @@ class TorchDriver(LocalDriver):
         return out
 
     def _sweep(self, st, target, ordered_rows, row_order, tracing, limit,
-               full, tracer, sweep_ctx, t_start, ext_warm=None) \
+               full, tracer, sweep_ctx, t_start, ext_warm=None,
+               rebound: list | None = None) \
             -> tuple[list[Result], str | None]:
         """The body of :meth:`query_audit` under its ``audit.sweep``
         span.
@@ -1916,7 +2360,11 @@ class TorchDriver(LocalDriver):
         ``external`` stanza (the reference reads them only if its future
         is done).  A kind whose provider fails under failurePolicy Fail
         is contained: its results are unknown this sweep
-        (``external_data_kind_failures``), every other kind's stand."""
+        (``external_data_kind_failures``), every other kind's stand.
+        Each bindings that a dedup rewrite bound shared columns into is
+        appended to ``rebound`` with those columns' names, the rewrite
+        and the kind's own program, for :meth:`_drop_shared_columns`
+        when the sweep ends."""
         handler = self.targets[target]
         trace: list | None = [] if tracing else None
         m = self.metrics
@@ -1940,6 +2388,31 @@ class TorchDriver(LocalDriver):
         pg_dirty_pages: set[int] = set()
         dv_on = pg_on and devpages_mode() and not self.scalar_only
         dv_stats = fresh_stats() if dv_on else None
+        # cross-template predicate dedup (analysis/policyset.py): forced
+        # full sweeps only; GATEKEEPER_DEDUP=off is the oracle
+        dedup_plan = None
+        dedup_cols: dict = {}
+        dedup_applied: dict = {}
+        dedup_host_s = 0.0
+        # footprint-driven selective reuse (analysis/footprint.py): a
+        # non-full, untraced sweep replays a kind's captured payload when
+        # no dirty column path meets its read-set;
+        # GATEKEEPER_FOOTPRINT=off is the oracle
+        from gatekeeper_tpu_torch.analysis.footprint import mode as fp_mode
+        fp_enabled = not self.scalar_only and fp_mode() != "off"
+        fp_skipped: list[str] = []
+        fp_saved = 0
+        # what-if twin sharing (whatif/shadow.py): with shadow kinds
+        # staged, a forced full sweep's unchanged twin takes the live
+        # kind's handle; GATEKEEPER_WHATIF_SHARE=off is the oracle
+        twin_src: dict | None = None
+        twin_shared: list[str] = []
+        if full and not self.scalar_only and \
+                os.environ.get("GATEKEEPER_WHATIF_SHARE", "on") != "off":
+            from gatekeeper_tpu_torch.analysis.policyset import \
+                is_shadow_kind
+            if any(is_shadow_kind(k) for k in st.templates):
+                twin_src = {}
         # a full sweep's phase sums, each measured on the sweep thread
         # where its stage ran; every kind's stages end before the next
         # kind's begin, so their sum stays within the sweep's wall
@@ -1985,7 +2458,9 @@ class TorchDriver(LocalDriver):
         with self._prep_lock:
             tk = time.perf_counter()
             self._prefetch_axes(st)
-            prep_done("__axes__", tk)
+            if full and not self.scalar_only and self._dedup_on():
+                dedup_plan = self._audit_dedup_plan(st, target)
+            prep_done("__axes_and_plan__", tk)
             sweep_kinds = sorted(st.templates)
             if full and trace is None and not self.scalar_only:
                 # forced full sweeps (no paged kinds) dispatch in the
@@ -2008,6 +2483,19 @@ class TorchDriver(LocalDriver):
                         pg_kinds.append(kind)
                         continue
                     pg_fallback[kind] = reason
+                if fp_enabled and not full and trace is None:
+                    reuse = self._selective_reuse(st, kind, compiled, limit)
+                    if reuse is not None:
+                        # no launch: phase 2 formats the captured payload
+                        ent, bindings = reuse
+                        specs.append((ent["mode"], kind, compiled,
+                                      constraints, ent["prog"], bindings,
+                                      ent["mask"],
+                                      _ResolvedHandle(ent["payload"])))
+                        fp_skipped.append(kind)
+                        fp_saved += len(ordered_rows) * len(constraints)
+                        prep_done(kind, tk)
+                        continue
                 mask, mask_delta, padded = self._kind_mask(
                     st, target, kind, constraints)
                 small = len(ordered_rows) * len(constraints) \
@@ -2041,8 +2529,32 @@ class TorchDriver(LocalDriver):
                 self._install_gates(st, kind, bindings, mask, mask_delta,
                                     rank, padded)
                 prog = compiled.vectorized.program
+                if dedup_plan is not None and kind in dedup_plan.rewritten:
+                    t_dd = time.perf_counter()
+                    prog2 = self._apply_dedup(st, dedup_plan, kind, bindings,
+                                              dedup_cols, dedup_applied)
+                    if prog2 is not None:
+                        prog = prog2
+                        if rebound is not None:
+                            rebound.append((bindings, {
+                                dedup_plan.groups[d].binding
+                                for d in dedup_plan.kind_digests[kind]},
+                                prog2, compiled.vectorized.program))
+                    t_dd2 = time.perf_counter()
+                    tracer.add_complete("dedup.host_eval", cat="dedup",
+                                        t0=t_dd, t1=t_dd2, parent=sweep_ctx,
+                                        kind=kind)
+                    dedup_host_s += t_dd2 - t_dd
                 mode = "topk" if limit is not None else "mask"
                 prep_done(kind, tk)
+                if twin_src is not None:
+                    handle = self._twin_handle(twin_src, mode, kind, prog,
+                                               bindings, specs)
+                    if handle is not None:
+                        twin_shared.append(kind)
+                        specs.append((mode, kind, compiled, constraints, prog,
+                                      bindings, mask, handle))
+                        continue
                 if full:
                     handle = dispatch(mode, kind, prog, bindings)
                 else:
@@ -2059,9 +2571,20 @@ class TorchDriver(LocalDriver):
         # kind order; the tagged sort restores the scalar driver's order
         rcache: dict[int, tuple] = {}
         tagged: list[tuple[tuple, Result]] = []
-        for mode, kind, compiled, constraints, prog, bindings, mask, \
-                handle in specs:
+        for spec in specs:
+            mode, kind, compiled, constraints, prog, bindings, mask, \
+                handle = spec
             tf = time.perf_counter()
+            # resolve the device payload once: the format path reads it
+            # through a resolved handle, and a fresh (not replayed)
+            # payload is captured for selective reuse by later sweeps
+            payload = None
+            fresh = not isinstance(handle, _ResolvedHandle)
+            if handle is not None and mode in ("topk", "mask"):
+                payload = handle.get()
+                if fresh and mode == "topk":
+                    m.timer("device_wait").observe(time.perf_counter() - tf)
+                handle = _ResolvedHandle(payload)
             try:
                 self._format_kind(st, target, handler, mode, kind, compiled,
                                   constraints, prog, bindings, mask, handle,
@@ -2072,6 +2595,10 @@ class TorchDriver(LocalDriver):
                 # the scalar oracle's re-check hit a Fail-policy provider
                 # failure: the same per-kind containment as phase 1
                 m.counter("external_data_kind_failures").inc()
+            else:
+                if fp_enabled and fresh and payload is not None:
+                    self._capture_sweep(st, kind, compiled, spec, payload,
+                                        limit)
             tf2 = time.perf_counter()
             tracer.add_complete("kind.format", cat="format", t0=tf, t1=tf2,
                                 parent=sweep_ctx, kind=kind, mode=mode)
@@ -2085,7 +2612,13 @@ class TorchDriver(LocalDriver):
                 and not self.scalar_only and self.device.type == "cuda":
             warm = [(sp[4], sp[5]) for sp in specs if sp[0] == "topk"]
             if warm:
-                self._start_delta_warm(warm)
+                rewritten: list = []
+                if self._dedup_on():
+                    with self._prep_lock:
+                        plan = self._audit_dedup_plan(st, target)
+                        if plan is not None:
+                            rewritten = self._rewritten_warm_items(st, plan)
+                self._start_delta_warm(warm, rewritten, st)
         m.counter("audit_sweeps").inc()
         m.counter("audit_results").inc(len(tagged))
         m.timer("audit_sweep_wall").observe(time.perf_counter() - t_start)
@@ -2120,6 +2653,29 @@ class TorchDriver(LocalDriver):
                 phases["attribution"] = attribute_sweep(
                     dev_entries, ph["device_s"], len(ordered_rows),
                     measured=per_kind_dev, metrics=m)
+            if dedup_plan is not None:
+                n_res = len(ordered_rows)
+                saved = sum(max(0, c - 1) * n_res
+                            for c in dedup_applied.values())
+                shared_n = sum(1 for c in dedup_applied.values() if c >= 2)
+                phases["dedup"] = {
+                    "enabled": True,
+                    "groups": len(dedup_plan.groups),
+                    "subprograms_shared": shared_n,
+                    "evaluations_saved": int(saved),
+                    "host_eval_s": round(dedup_host_s, 6),
+                }
+                m.counter("dedup_shared_subprograms").inc(shared_n)
+                m.counter("dedup_evaluations_saved").inc(saved)
+            else:
+                phases["dedup"] = {"enabled": False}
+            if twin_src is not None:
+                phases["whatif"] = {
+                    "twin_shared_kinds": len(twin_shared),
+                    "twin_dispatched_kinds": sum(
+                        1 for sp in specs if sp[0] in ("topk", "mask"))
+                    - len(twin_shared),
+                }
             m.counter("full_sweeps").inc()
             m.timer("full_sweep_host_prep").observe(ph["host_prep_s"])
             m.timer("full_sweep_h2d").observe(ph["h2d_s"])
@@ -2127,6 +2683,17 @@ class TorchDriver(LocalDriver):
             m.timer("full_sweep_format").observe(ph["format_s"])
             m.gauge("full_sweep_h2d_bytes").set(float(ph["h2d_bytes"]))
             m.gauge("full_sweep_overlap_fraction").set(overlap)
+        # the selective-reuse stanza (both sweep shapes): kinds that
+        # replayed a captured payload against kinds that ran, and the
+        # (constraint x row) evaluations the replays saved
+        phases["footprint"] = {
+            "enabled": fp_enabled,
+            "kinds_skipped": len(fp_skipped),
+            "kinds_evaluated": len(specs) - len(fp_skipped),
+            "evaluations_saved": int(fp_saved),
+        }
+        if fp_saved:
+            m.counter("footprint_evaluations_saved").inc(fp_saved)
         # continuous-enforcement stanzas: which kinds served from the
         # ledger vs fell back (with reasons), page-level work, the delta
         # events emitted, and the device-resident path's accounting
@@ -2414,6 +2981,45 @@ class TorchDriver(LocalDriver):
                 break
         return best
 
+    @locked_read
+    def explain_pair(self, target: str, kind: str, constraint_name: str,
+                     resource_key: str) -> str:
+        """Mask dump for one (constraint, resource) pair: every IR node's
+        value on that slice plus rule verdicts (the tracing equivalent of
+        the vectorized engine), with the scalar oracle's verdict
+        appended for cross-checking.  It runs the plain evaluator on the
+        sliced bindings (engine/executor.py ``explain``), never K1."""
+        from gatekeeper_tpu_torch.engine.executor import explain
+        st = self._state(target)
+        compiled = st.templates.get(kind)
+        if compiled is None:
+            return f"no template {kind!r}"
+        row = st.table.lookup(resource_key)
+        if row is None:
+            return f"no resource {resource_key!r}"
+        constraints = self._kind_constraints(st, kind)
+        names = [(c.get("metadata") or {}).get("name") for c in constraints]
+        if constraint_name not in names:
+            return f"no constraint {constraint_name!r} of kind {kind!r}"
+        ci = names.index(constraint_name)
+        if compiled.vectorized is None:
+            return f"template {kind!r} runs on the scalar engine (not lowered)"
+        with self._prep_lock:
+            bindings = self._kind_bindings(st, kind, compiled, constraints)
+            mask, _, _ = self._kind_mask(st, target, kind, constraints)
+        out = explain(compiled.vectorized.program, bindings, ci, row,
+                      match=mask if mask is not TRIVIAL_MATCH else None)
+        handler = self.targets[target]
+        meta = st.table.meta_at(row)
+        review = handler.make_review(meta, st.table.object_at(row))
+        matched = any(True for _ in handler.matching_constraints(
+            review, [constraints[ci]], st.table))
+        oracle = list(self._eval_pair(st, target, compiled, review,
+                                      freeze(review), constraints[ci], None)) \
+            if matched else []
+        return out + f"\n  oracle: {len(oracle)} violation(s)" + "".join(
+            f"\n    msg={r.msg!r}" for r in oracle)
+
     # ------------------------------------------------------------------
     # host formatting through the scalar oracle
 
@@ -2486,9 +3092,7 @@ class TorchDriver(LocalDriver):
         those.  If over-approximated pairs leave the cap under-filled
         while more candidates exist, fall back to the full mask for that
         constraint."""
-        t0 = time.perf_counter()
         counts, rows, valid = handle.get()
-        self.metrics.timer("device_wait").observe(time.perf_counter() - t0)
         full_cand = None
         for ci, c in enumerate(constraints):
             sel = [int(r) for r, v in zip(rows[ci], valid[ci]) if v]

@@ -14,6 +14,11 @@ consults this module at the exact seams a real failure would hit:
                          simulating a saturated/far-away provider
                          (drives deadline expiry + brownout, not
                          breaker-open errors).
+- ``fleet_straggler``  — fires ONCE, inside the fleet graduator's
+                         candidate-twin build (rollout/fleet.py),
+                         failing exactly one cluster of the fleet; the
+                         map-reduce isolation contract marks only that
+                         cluster ``held``, never the fleet.
 
 Watch-class faults (consumed at the reactor's ingest edge,
 ``enforce/reactor.py`` — each models one way a watch stream breaks):
@@ -49,9 +54,8 @@ than a permanently broken subsystem.  ``rearm`` forgets that a one-shot
 fault fired.
 
 Trimmed for the port: the seams of ``probe_hang`` and ``device_lost``
-(the backend supervisor, ROADMAP A8), ``snapshot_corrupt`` (the
-snapshot tier, A8) and ``fleet_straggler`` (the rollout fleet, A7) are
-not in the port yet.
+(the backend supervisor, ROADMAP A8) and ``snapshot_corrupt`` (the
+snapshot tier, A8) are not in the port yet.
 Arming one of them raises ``ClientError`` naming its item wherever the
 armed set is read (``check_armed``, ``active``, ``take``): a fault that
 no seam would fire is never silently ignored.  A fired fault is put on
@@ -73,7 +77,6 @@ UNPORTED = {
     "probe_hang": "ROADMAP A8, the backend supervisor",
     "device_lost": "ROADMAP A8, the backend supervisor",
     "snapshot_corrupt": "ROADMAP A8, the snapshot tier",
-    "fleet_straggler": "ROADMAP A7, the rollout fleet",
 }
 
 

@@ -35,6 +35,14 @@ import numpy as np
 _EDGE_PAD_SUFFIXES = (".any", ".all", ".bitmap")
 
 
+class FleetStackError(ValueError):
+    """The clusters given to :func:`fleet_audit` cannot share one stacked
+    sweep: their drivers are on different devices, or they do not share
+    one policy set.  Raised before anything is launched, so a caller may
+    run those clusters one at a time instead; any other exception of a
+    fleet sweep is a fault of the sweep itself."""
+
+
 @dataclasses.dataclass
 class FleetCluster:
     name: str
@@ -121,7 +129,7 @@ def fleet_audit(clusters: list[FleetCluster],
         raise ValueError("fleet_audit needs at least one cluster")
     devices = {str(c.driver.device) for c in clusters}
     if len(devices) > 1:
-        raise ValueError(f"fleet clusters' drivers are on different "
+        raise FleetStackError(f"fleet clusters' drivers are on different "
                          f"devices: {sorted(devices)}")
     t0 = time.perf_counter()
     limit = limit_per_constraint
@@ -136,7 +144,7 @@ def fleet_audit(clusters: list[FleetCluster],
     kinds = sorted(sts[0].templates)
     for st in sts[1:]:
         if sorted(st.templates) != kinds:
-            raise ValueError("fleet clusters must share one policy set")
+            raise FleetStackError("fleet clusters must share one policy set")
 
     tagged = [[] for _ in clusters]
     rcaches: list[dict] = [{} for _ in clusters]
@@ -159,14 +167,20 @@ def fleet_audit(clusters: list[FleetCluster],
                            row_order, kind, limit, None, tagged[i],
                            rcaches[i])
 
+    # every stacking precondition holds before the first launch
+    cons_of: dict[str, list] = {}
     for kind in kinds:
         cons_by_cluster = [d._kind_constraints(st, kind)
                            for d, st in zip(drivers, sts)]
+        if any(c != cons_by_cluster[0] for c in cons_by_cluster[1:]):
+            raise FleetStackError(
+                f"fleet clusters disagree on constraints for {kind}")
+        cons_of[kind] = cons_by_cluster
+
+    for kind in kinds:
+        cons_by_cluster = cons_of[kind]
         if not any(cons_by_cluster):
             continue
-        if any(c != cons_by_cluster[0] for c in cons_by_cluster[1:]):
-            raise ValueError(
-                f"fleet clusters disagree on constraints for {kind}")
         compiled = sts[0].templates[kind]
         reason = None
         for d, st in zip(drivers, sts):

@@ -46,13 +46,13 @@ from gatekeeper_tpu_torch.target.k8s import TARGET_NAME
 from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget as TTarget
 
 # the reference's phase stanzas of layers the port has not got yet:
-# dedup and footprint (ROADMAP A6), shard (A10), whatif (A7).  The
-# ``external`` stanza is compared: it appears on both sides exactly when
-# a provider is registered
-UNPORTED_STANZAS = {"dedup", "footprint", "shard", "whatif"}
+# shard (ROADMAP A10).  The ``external`` stanza is compared: it appears
+# on both sides exactly when a provider is registered; ``whatif`` only
+# with shadow kinds staged (tests/test_torch_whatif.py)
+UNPORTED_STANZAS = {"shard"}
 FULL_KEYS = {"full", "serial", "host_prep_s", "h2d_s", "device_s",
              "format_s", "h2d_bytes", "pipeline_wall_s", "overlap_fraction",
-             "attribution", "pages", "devpages"}
+             "attribution", "dedup", "footprint", "pages", "devpages"}
 
 
 @pytest.fixture(autouse=True)
@@ -197,11 +197,14 @@ def test_full_sweep_device_path_parity_and_phases(monkeypatch):
 
     # a memoized sweep records no phase breakdown
     ct.audit()
-    assert set(td.last_sweep_phases) == {"full", "pages", "devpages"}
+    assert set(td.last_sweep_phases) == {"full", "footprint", "pages",
+                                         "devpages"}
     assert td.last_sweep_phases["full"] is False
     cj.audit()
     assert set(jd.last_sweep_phases) - UNPORTED_STANZAS == \
-        {"full", "pages", "devpages"}
+        {"full", "footprint", "pages", "devpages"}
+    assert td.last_sweep_phases["footprint"] == \
+        jd.last_sweep_phases["footprint"]
 
 
 def test_full_sweep_serial_mode_matches_pipelined(monkeypatch):
@@ -373,7 +376,8 @@ def test_a_dispatch_error_ends_the_sweep(monkeypatch):
 def test_library_full_sweep_counts_one_eval_per_kind():
     """A forced full sweep of the whole library evaluates each device
     kind once and reduces it once, and the bytes it meters equal the
-    kinds' bindings', sweep after sweep."""
+    kinds' bindings' and the shared dedup columns the sweep bound into
+    them (they leave the bindings when it ends), sweep after sweep."""
     resources = make_mixed(random.Random(11), 60)
     td = TorchDriver(device="cpu")
     c = TBackend(td).new_client([TTarget()])
@@ -385,9 +389,14 @@ def test_library_full_sweep_counts_one_eval_per_kind():
         kinds = td.state[TARGET_NAME].bindings_cache
         assert (ex.mask_evals - before[0], ex.reduces - before[1]) == \
             (len(kinds), len(kinds))
-        assert td.last_sweep_phases["h2d_bytes"] == sum(
+        st = td.state[TARGET_NAME]
+        plan = td._dedup_plan_memo[TARGET_NAME][1]
+        shared = sum(st.dedup_shared_cache[d][2].nbytes
+                     for k in plan.rewritten if k in kinds
+                     for d in plan.kind_digests[k])
+        assert td.last_sweep_phases["h2d_bytes"] == shared + sum(
             b.nbytes() for _k, b in kinds.values())
-    assert len(kinds) > 30
+    assert len(kinds) > 30 and shared > 0
 
 
 def test_full_sweep_leaves_admission_prediction_unchanged():

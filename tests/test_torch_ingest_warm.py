@@ -83,13 +83,15 @@ def _north_star(device="cpu", pods=200, digests=True):
 
 def _items(drv, st):
     """The warm's queue as ``_materialize_mirror`` makes it, for every
-    kind with bindings: ``(kind, program, bindings, with_match)``."""
+    kind with bindings: ``(kind, program, bindings, with_match, None)``
+    (no shared-column shapes: the kinds' own programs)."""
     out = []
     for kind in sorted(st.bindings_cache):
         cons = drv._kind_constraints(st, kind)
         out.append((kind, st.templates[kind].vectorized.program,
                     st.bindings_cache[kind][1],
-                    any((c.get("spec") or {}).get("match") for c in cons)))
+                    any((c.get("spec") or {}).get("match") for c in cons),
+                    None))
     return out
 
 
@@ -234,7 +236,7 @@ def test_warm_plan_is_the_cold_sweeps_plan(monkeypatch):
     ex = drv.executor
     device = ex.device
     _card_stand_in(monkeypatch, ex)
-    for _kind, prog, bindings, with_match in _items(drv, st):
+    for _kind, prog, bindings, with_match, _shared in _items(drv, st):
         assert ex.prewarm_audit_exec(prog, bindings,
                                      torch_driver.DEFAULT_PREWARM_CAP,
                                      with_match) is True
@@ -269,13 +271,13 @@ def test_the_warm_skips_kinds_the_paged_route_serves(monkeypatch, pages):
     monkeypatch.setattr(drv, "device", types.SimpleNamespace(type="cuda"))
     monkeypatch.setattr(drv, "_start_ingest_warm",
                         lambda st_, items: queued.extend(items))
-    drv._materialize_mirror(st)
+    drv._materialize_mirror(st, TARGET_NAME)
     assert len(st.bindings_cache) == 4
     if pages == "on":
         assert queued == []
     else:
-        assert [(k, wm) for k, _p, _b, wm in queued] == \
-            [(k, wm) for k, _p, _b, wm in _items(drv, st)]
+        assert [(k, wm) for k, _p, _b, wm, _sh in queued] == \
+            [(k, wm) for k, _p, _b, wm, _sh in _items(drv, st)]
 
 
 def test_a_trivial_match_kind_warms_without_the_match_gate(monkeypatch):
@@ -327,19 +329,19 @@ def test_warm_drains_every_kind_once(monkeypatch):
     seen = []
     lock = threading.Lock()
 
-    def record(prog, bindings, k, with_match=False):
+    def record(prog, bindings, k, with_match=False, extra=None):
         with lock:
             seen.append((id(prog), k, with_match))
         return True
 
     monkeypatch.setattr(drv.executor, "prewarm_audit_exec", record)
-    items = [(k, p, b, k != "K8sImageDigests")
-             for k, p, b, _wm in _items(drv, st)]
+    items = [(k, p, b, k != "K8sImageDigests", None)
+             for k, p, b, _wm, _sh in _items(drv, st)]
     drv._start_ingest_warm(st, items)
     secs = drv.wait_ingest_warm(timeout=30)
     assert secs is not None and secs >= 0.0
     assert sorted(seen) == sorted((id(p), torch_driver.DEFAULT_PREWARM_CAP,
-                                   wm) for _k, p, _b, wm in items)
+                                   wm) for _k, p, _b, wm, _sh in items)
     assert drv.ingest_warm.kinds == 4 and drv.ingest_warm.error is None
 
 

@@ -202,11 +202,38 @@ def test_cost_runs_a_measured_sweep(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag, item", [
-    ("--policyset", "A6"), ("--footprint", "A8"), ("--certify", "A8"),
+    ("--footprint", "A8"), ("--certify", "A8"),
     ("--health", "A8"), ("--trace", "A8"), ("--pages", "A8"),
     ("--compilesurface", "A8"), ("--memsurface", "A8"),
-    ("--whatif", "A7"), ("--rollout", "A7"), ("--shardplan", "A10"),
+    ("--shardplan", "A10"),
 ])
 def test_unported_subcommands_raise_naming_their_item(flag, item):
     with pytest.raises(ClientError, match=f"not yet ported.*ROADMAP {item}"):
         probe.main([flag, "--device", "cpu"])
+
+
+def test_policyset_report_equals_the_reference(capsys):
+    """``--policyset``: the whole-set report over the library, its lines
+    and rc equal to the reference's."""
+    rc = probe.main(["--policyset"])
+    out = capsys.readouterr().out
+    assert rc == ref_probe.main(["--policyset"])
+    assert out == capsys.readouterr().out
+    assert "shared " in out and "1 shared subprogram group(s)" in out
+
+
+@pytest.mark.parametrize("flag", ["--whatif", "--rollout"])
+def test_whatif_and_rollout_run_on_the_device_asked_for(flag, monkeypatch,
+                                                       capsys):
+    """``--whatif`` and ``--rollout`` on ``--device cpu``: every parity
+    and gate check passes with the reference's rc (0), and the summary
+    names the device the TorchDrivers ran on."""
+    monkeypatch.setenv("GATEKEEPER_WHATIF_PROBE_N", "120")
+    monkeypatch.setenv("GATEKEEPER_ROLLOUT_PROBE_N", "80")
+    monkeypatch.setattr(torch_driver, "SMALL_WORKLOAD_EVALS", 0)
+    rc = probe.main([flag, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "FAIL" not in out
+    assert "(torch engine on cpu)" in out
+    assert rc == ref_probe.main([flag])

@@ -613,8 +613,7 @@ def test_faults_parse_and_fire_like_the_reference(spec, monkeypatch):
 
 
 @pytest.mark.parametrize("name, item", [
-    ("probe_hang", "A8"), ("device_lost", "A8"), ("snapshot_corrupt", "A8"),
-    ("fleet_straggler", "A7")])
+    ("probe_hang", "A8"), ("device_lost", "A8"), ("snapshot_corrupt", "A8")])
 def test_an_unported_seam_raises(name, item, monkeypatch):
     monkeypatch.setenv("GATEKEEPER_FAULT", f"watch_gap,{name}")
     for fn in (tfaults.check_armed, lambda: tfaults.active("watch_gap"),
