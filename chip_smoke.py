@@ -4,7 +4,8 @@ against its plain PyTorch version.
     python3 chip_smoke.py [--resources N] [--k2-only | --k1-only |
                            --k6k7-only | --k3-only | --admission-only |
                            --manager-only | --reactor-only | --worker-only |
-                           --extdata-only | --probe-only | --reuse-only]
+                           --extdata-only | --probe-only | --reuse-only |
+                           --resilience-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -35,6 +36,9 @@ builds K2, K3 and K4 and runs only phase 13, the engine worker split.
 ``--extdata-only`` and ``--probe-only`` build K2 and K3 and run only
 phase 14, external data, or phase 15, the probe.  ``--reuse-only``
 builds K2, K3 and K4 and runs only phase 16, reuse and what-if.
+``--resilience-only`` builds K2 and K3 and runs only phase 17, device
+loss and a process restart.  The card's backend supervisor must be
+healthy at the start and at the end of every phase.
 
 Every TorchDriver starts a background warm-up of its kinds' churn-delta
 variants (K5) after its first capped legacy sweep, and a batch ingest of
@@ -138,7 +142,15 @@ Phases (each prints one line of its numbers):
      version, K6 timed per call and device-only there (beside
      torch.nonzero); each churned sweep's host time on A split into
      the scalar confirm, the direct clears and the ledger serve (the
-     script wraps the driver's methods)
+     script wraps the driver's methods); (a) a warm restart of A: A
+     installs its templates under a fresh GATEKEEPER_SNAPSHOT_DIR, its
+     store and ledger (with the devpages geometry) are saved after the
+     cold sweep, and driver D, a new TorchDriver on the card, installs
+     the same templates there lowering none and restores the store;
+     D's first sweep adopts all 3 kinds (0 ledger_full_builds,
+     geometry_adopted 3, no host confirmation) and each of the 3
+     churned rounds on D equals B with A's K1 and K6 launches; K6 and
+     K4 at D's inputs against their plain versions, timed
   8. devpages budget — the residency planner (B8): drivers A and B of 7
      (C released) go on for 3 more rounds of 1% relabels with
      GATEKEEPER_DEVPAGES_BUDGET_BYTES=131072, under each kind's certified
@@ -299,7 +311,22 @@ Phases (each prints one line of its numbers):
      rewritten programs, K1 and K2 on the shadow sweep and K1b, K2b and
      K3b under graduate_fleet are held against their plain versions and
      timed at their recorded inputs
- 17. the kernels JSON line, the card line, and the final JSON line.
+ 17. resilience (``resilience_phase``): (b) the library over
+     RESILIENCE_ROWS (2,000) rows on a card driver, forced full sweeps: with ``device_lost`` armed the
+     first kind of the sweep's order alone reaches the card, the rest
+     run on the scalar oracle with the healthy digest, the supervisor
+     is degraded (``probe --health`` fails, /healthz answers 503 with
+     the reference's keys), ``reprobe_now`` runs its op on the card and
+     recovers (backend_rejits 1), and the next sweep launches K3, K1
+     and K2 for every device kind, compiles nothing and gives the
+     digest (each kernel held to its plain version and timed there);
+     (c) ``python -m gatekeeper_tpu_torch.resilience.smoke`` twice on
+     the card against one fresh snapshot directory: the warm process
+     lowers nothing, restores the store, hits and never misses (no
+     nvcc build, no Triton variant compiled from scratch) and gives the
+     cold process's verdict digest.  Each step, and the devpages
+     phase's restart (a), fails the run past its time budget
+ 18. the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages and reactor sweeps with GATEKEEPER_PAGES=off:
 they measure the legacy sweep and assert its launch counts, and the
 port, like the reference, defaults to the paged route.
@@ -319,6 +346,7 @@ import os
 import random
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1817,11 +1845,15 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
 
     # -- driver A (paged + devpages), driver B (legacy oracle) and
     # driver C (paged, devpages off: the port's default route, the host
-    # page loop)
+    # page loop).  A installs its templates under a fresh snapshot
+    # directory (the template_ir tier), for the restart below
     resources = make_resources(DEVPAGES_PODS, random.Random(1))
+    snapdir = tempfile.mkdtemp(prefix="gatekeeper-restart-")
     t0 = time.perf_counter()
     a, b, c = TorchDriver(), TorchDriver(), TorchDriver()
+    os.environ["GATEKEEPER_SNAPSHOT_DIR"] = snapdir
     ca = setup_north_star(a, resources, random.Random(2), c_per_kind=1)
+    os.environ.pop("GATEKEEPER_SNAPSHOT_DIR")
     cb = setup_north_star(b, resources, random.Random(2), c_per_kind=1)
     cc = setup_north_star(c, resources, random.Random(2), c_per_kind=1)
     ingest_s = time.perf_counter() - t0
@@ -1875,6 +1907,7 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
           f"{led.total_violations()} violations; devpages h2d_bytes "
           f"{cold_dv['h2d_bytes']}; launches "
           f"{ {k: v for k, v in cold_counts.items() if v} }", flush=True)
+    d, cd, restart = restart_driver(fns, a, res_b, snapdir, cold_s)
 
     n_churn = max(DEVPAGES_PODS // 100, 1)
     churn_rng = random.Random(1234)
@@ -1892,6 +1925,7 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
             resources[i] = o
             ca.add_data(o)
             cb.add_data(o)
+            cd.add_data(o)
             if on_c:
                 cc.add_data(o)
         ops.clear()
@@ -1911,6 +1945,7 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
         dv = dict(a.last_sweep_phases["devpages"])
         pg = dict(a.last_sweep_phases["pages"])
         res_b, b_s = sweep(b, False)
+        restart_round(fns, d, rep, counts, res_b, restart)
         if on_c:
             reset_counts(fns)
             res_c, c_s = sweep(c, True, devpages=False)
@@ -1988,6 +2023,8 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
               f"{k6_text(rec['K6'])}", flush=True)
         del calls, ins, got
     rec["K6"]["launches"] = k6_launches
+    restart_done(rec, restart, snapdir)
+    del d, cd
     mask_bytes = 4 * r_pad
     if mem[2] - mem[1] >= mask_bytes:
         fail(f"devpages: device memory grew by {mem[2] - mem[1]} bytes from "
@@ -2002,6 +2039,179 @@ def devpages_phase(rec: dict, fns: dict, dev, main_masks: list) -> None:
     split.close()
     os.environ.pop("GATEKEEPER_DEVPAGES", None)
     del a, b, ca, cb, led, split
+
+
+RESTART_BUDGET_S = 25.0        # (a) devpages restart: the step fails past it
+
+
+def paged_sweep(drv, devpages: bool = True):
+    """One capped sweep with GATEKEEPER_PAGES on (and devpages), then both
+    back off, as every phase but devpages runs; (results, seconds)."""
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    os.environ["GATEKEEPER_PAGES"] = "on"
+    os.environ["GATEKEEPER_DEVPAGES"] = "on" if devpages else "off"
+    try:
+        t0 = time.perf_counter()
+        res, _ = drv.query_audit(TARGET, QueryOpts(limit_per_constraint=CAP))
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+    finally:
+        os.environ["GATEKEEPER_PAGES"] = "off"
+        os.environ["GATEKEEPER_DEVPAGES"] = "off"
+
+
+def restart_driver(fns, a, res_b, snapdir: str, cold_s: float):
+    """(a) A warm restart of driver A on the card: A's store and ledger
+    (pagemap with its devpages geometry) saved under ``snapdir``, where A
+    installed its templates; driver D, a new ``TorchDriver()``, installs
+    the same templates and constraints there (its template_ir tier hits:
+    it lowers nothing) and restores the store (it ingests nothing).  D's
+    first capped sweep under pages and devpages must adopt every kind's
+    verdicts and geometry (0 ledger_full_builds, 3 kinds adopted,
+    geometry_adopted 3), confirm nothing on the host, and equal the
+    oracle B's results.  Returns D, its client and the step's record for
+    :func:`restart_round`."""
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import scatter
+    from gatekeeper_tpu_torch.library.north_star import setup_north_star
+    t_step = time.perf_counter()
+    lowerings = [0]
+    orig_lower = torch_driver.lower_template
+
+    def counting(*args, **kw):
+        lowerings[0] += 1
+        return orig_lower(*args, **kw)
+    os.environ["GATEKEEPER_SNAPSHOT_DIR"] = snapdir
+    os.environ["GATEKEEPER_PAGES"] = "on"
+    try:
+        t0 = time.perf_counter()
+        if not a.save_store_snapshot(TARGET):
+            fail("devpages restart: A's store snapshot was not saved")
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _d, fs in os.walk(snapdir) for f in fs)
+        torch_driver.lower_template = counting
+        t0 = time.perf_counter()
+        d = TorchDriver()
+        cd = setup_north_star(d, [], random.Random(2), c_per_kind=1)
+        install_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if not d.restore_store_snapshot(TARGET):
+            fail("devpages restart: D found no store snapshot")
+        restore_s = time.perf_counter() - t0
+    finally:
+        torch_driver.lower_template = orig_lower
+        os.environ.pop("GATEKEEPER_SNAPSHOT_DIR", None)
+        os.environ["GATEKEEPER_PAGES"] = "off"
+    ir_hits = d.metrics.counter("template_ir_snapshot_hits").value
+    if lowerings[0] or ir_hits != 3 or d._state(TARGET).table.n_rows \
+            != a._state(TARGET).table.n_rows:
+        fail(f"devpages restart: D lowered {lowerings[0]} templates, "
+             f"template_ir hits {ir_hits}, rows "
+             f"{d._state(TARGET).table.n_rows}")
+    reset_counts(fns)
+    res_d, first_s = paged_sweep(d)
+    counts = launch_counts(fns)
+    pg = dict(d.last_sweep_phases["pages"])
+    dv = dict(d.last_sweep_phases["devpages"])
+    adopted = d.metrics.counter("ledger_snapshot_adoptions").value
+    if norm(res_d) != norm(res_b):
+        fail("devpages restart: D's first sweep differs from the oracle B's")
+    if pg["ledger_full_builds"] or adopted != 3 \
+            or dv["geometry_adopted"] != 3 or pg["rows_reevaluated"] \
+            or dv["rows_confirmed"] or pg["events"]:
+        fail(f"devpages restart: D's first sweep adopted {adopted} kinds; "
+             f"pages {pg}, devpages {dv}")
+    print(f"phase devpages restart: A's snapshot saved in {save_s:.4f}s "
+          f"({nbytes} bytes on disk); D installed 3 templates in "
+          f"{install_s:.4f}s lowering none (template_ir hits {ir_hits}), "
+          f"restored {d._state(TARGET).table.n_rows} rows in "
+          f"{restore_s:.4f}s; D's first capped sweep {first_s:.4f}s against "
+          f"A's cold ledger build {cold_s:.4f}s: {adopted} kinds adopted, "
+          f"ledger_full_builds 0, geometry_adopted {dv['geometry_adopted']},"
+          f" host confirmations 0, resident masks seeded "
+          f"{dv['mask_builds']}; {len(res_d)} results equal B's; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return d, cd, {"t_step": time.perf_counter() - t_step, "save_s": save_s,
+                   "restore_s": restore_s, "first_s": first_s,
+                   "bytes": nbytes, "k4": K4Calls(scatter), "k6_calls": [],
+                   "k4_batches": [], "k4_err": 0.0,
+                   "launches": collections.Counter(counts)}
+
+
+def restart_round(fns, d, rep: int, counts_a: dict, res_b,
+                  restart: dict) -> None:
+    """D's churned sweep of round ``rep`` beside A's: equal to the oracle
+    B's results, with A's K1 and K6 launches; K4 and K6 recorded."""
+    from gatekeeper_tpu_torch.kernels import devdelta
+    t0 = time.perf_counter()
+    orig = devdelta.mask_delta
+    if rep == 0:
+        devdelta.mask_delta = recording(orig, restart["k6_calls"])
+    restart["k4"].install()
+    reset_counts(fns)
+    try:
+        res_d, d_s = paged_sweep(d)
+        counts = launch_counts(fns)
+    finally:
+        devdelta.mask_delta = orig
+        restart["k4"].restore()
+    # this round's batches only: holding every round's device tensors
+    # would grow the memory the phase holds flat between rounds
+    restart["k4_batches"] = [jobs for (jobs,), _out in restart["k4"].many]
+    if not restart["k4"].many:
+        fail(f"devpages restart churn {rep + 1}: D launched no batched K4")
+    _n, err = restart["k4"].check(f"devpages restart churn {rep + 1} on D")
+    restart["k4_err"] = max(restart["k4_err"], err)
+    restart["launches"].update(counts)
+    dv = dict(d.last_sweep_phases["devpages"])
+    if norm(res_d) != norm(res_b):
+        fail(f"devpages restart churn {rep + 1}: D's results differ from B's")
+    if counts["K6"] != counts_a["K6"] or counts["K1"] != counts_a["K1"] \
+            or dv["kinds_device"] != 3 or dv["kinds_fallback"]:
+        fail(f"devpages restart churn {rep + 1}: D launched {counts}, A "
+             f"{counts_a}; devpages {dv}")
+    print(f"phase devpages restart churn {rep + 1}: D's capped sweep "
+          f"{d_s:.4f}s, results equal B's, rows_confirmed "
+          f"{dv['rows_confirmed']}, delta_overflows {dv['delta_overflows']};"
+          f" launches {counts['K1']} K1, {counts['K6']} K6 as A's, "
+          f"{counts['K4m']} batched K4", flush=True)
+    restart["t_step"] += time.perf_counter() - t0
+
+
+def restart_done(rec: dict, restart: dict, snapdir: str) -> None:
+    """(a)'s kernels at D's own inputs (K6 of D's first churned round, its
+    batched K4 calls), each held to its plain version and timed; the
+    step's seconds against RESTART_BUDGET_S."""
+    import shutil
+    from gatekeeper_tpu_torch.kernels import devdelta, scatter
+    t0 = time.perf_counter()
+    join_warms()
+    calls = restart["k6_calls"]
+    err6 = max(k6_check(devdelta, ins, "D's churned sweep input", got)[1]
+               for ins, got in calls)
+    ins6 = max(calls, key=lambda c: c[0][0].shape[1])[0]
+    n = restart["launches"]
+    rec["K6rs"] = {"launches": n["K6"], "max_abs_err": err6,
+                   **k6_numbers(devdelta, *ins6)}
+    rec["K4rs"] = {"launches": n["K4m"], "max_abs_err": restart["k4_err"],
+                   **k4m_numbers(scatter, restart["k4_batches"])}
+    shutil.rmtree(snapdir, ignore_errors=True)
+    total = restart["t_step"] + time.perf_counter() - t0
+    print(f"phase devpages restart kernels: K6 equal to plain on D's "
+          f"{len(calls)} deltas, {k6_text(rec['K6rs'])}; K4 batched equal "
+          f"to plain, {rec['K4rs']['ms']:.4f} ms, device "
+          f"{rec['K4rs']['device_ms']:.4f} (bound "
+          f"{rec['K4rs']['bound_ms']:.6f}); launches on D "
+          f"{ {k: v for k, v in n.items() if v} }; the restart step took "
+          f"{total:.1f}s (save {restart['save_s']:.3f}s, restore "
+          f"{restart['restore_s']:.3f}s, first sweep "
+          f"{restart['first_s']:.3f}s; budget {RESTART_BUDGET_S:.0f}s)",
+          flush=True)
+    if total > RESTART_BUDGET_S:
+        fail(f"devpages restart: the step took {total:.1f}s, over its "
+             f"{RESTART_BUDGET_S:.0f}s")
 
 
 DEVPAGES_BUDGET = 131_072
@@ -3638,8 +3848,11 @@ def manager_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
         with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
             health = json.loads(r.read())
         if "gatekeeper_admission_requests" not in metrics or \
+                "gatekeeper_supervisor_backend_supervisor_state 0" \
+                not in metrics or \
                 not {"admission.request", "audit.cycle"} <= spans or \
-                health != {"state": "healthy", "backend": str(drv.device)}:
+                health.get("state") != "healthy" or \
+                health.get("backend") != str(drv.device):
             fail(f"manager endpoints: metrics "
                  f"{'gatekeeper_admission_requests' in metrics}, spans "
                  f"{sorted(spans)[:8]}, healthz {health}")
@@ -5814,6 +6027,253 @@ def reuse_phase(rec: dict, fns: dict) -> None:
           flush=True)
 
 
+RESILIENCE_ROWS = LIBRARY_ROWS
+"""(b) and (c) run the library over the library phase's own store size
+(2,000 ``make_mixed`` rows): at another size the healthy sweep compiles
+new K1 variants and their K5 delta warms, more than the step's 15 s can
+hold; at the library phase's store they are built already."""
+DEVICE_LOST_BUDGET_S = 15.0    # (b): the step fails past it
+PROCESS_RESTART_BUDGET_S = 40.0   # (c): the step fails past it
+SMOKE_TIMEOUT_S = 300
+
+
+def http_health(port: int) -> tuple[int, dict]:
+    """GET /healthz: (status code, body), a 503 read from its error."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+HEALTH_KEYS = {"state", "reason", "since", "last_probe_at", "last_ok_at",
+               "reprobe_attempts", "platform", "n_devices", "backend",
+               "restart_persistent_cache_hits",
+               "restart_persistent_cache_misses"}
+"""The reference's /healthz body: its supervisor's status and the
+restart cache counters (gatekeeper_tpu/webhook/server.py)."""
+
+
+def quiet_health(probe, argv: list) -> int:
+    """``probe.main(argv)`` with its JSON line kept off the script's
+    output; its exit code."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        return probe.main(argv)
+
+
+def run_smoke(env: dict) -> dict:
+    """One ``python -m gatekeeper_tpu_torch.resilience.smoke`` process on
+    the card; its JSON line and its wall seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "gatekeeper_tpu_torch.resilience.smoke"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=SMOKE_TIMEOUT_S)
+    if out.returncode != 0:
+        fail(f"restart smoke exited {out.returncode}: {out.stderr[-3000:]}")
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    doc["wall_s"] = time.perf_counter() - t0
+    return doc
+
+
+def resilience_phase(rec: dict, fns: dict) -> None:
+    """(b) Device loss: the library over RESILIENCE_ROWS ``make_mixed``
+    rows (the library phase's store) on a card driver; a forced full sweep gives the healthy digest;
+    with ``device_lost`` armed the next one launches K1 for the first
+    kind of its order only, the rest run on the scalar oracle, and the
+    digest holds; the card's supervisor is degraded (``--health`` fails,
+    ``/healthz`` answers 503 with the reference's keys); ``reprobe_now``
+    runs its op on the card and brings it back (``backend_rejits`` 1);
+    the next forced full sweep launches K3, K1 and K2 for every device
+    kind, compiles no Triton variant and gives the digest, each kernel
+    held to its plain version.  (c) Process restart: the restart smoke
+    twice on the card against one fresh snapshot directory, with this
+    script's Triton cache and build directory; the warm process lowers
+    nothing, restores the store, hits and never misses (no nvcc build,
+    no Triton variant compiled from scratch) and gives the cold
+    process's verdict digest."""
+    from gatekeeper_tpu_torch.client import probe
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.kernels import ir_eval
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.resilience import faults
+    from gatekeeper_tpu_torch.resilience import supervisor as sup_mod
+    from gatekeeper_tpu_torch.resilience.smoke import _verdict_digest
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.webhook.policy import ValidationHandler
+    from gatekeeper_tpu_torch.webhook.server import WebhookServer
+
+    # ---- (b) device loss
+    t_b = time.perf_counter()
+    saved_small = torch_driver.SMALL_WORKLOAD_EVALS
+    torch_driver.SMALL_WORKLOAD_EVALS = 0
+    os.environ["GATEKEEPER_SUPERVISOR_REPROBE"] = "0"
+    opts = QueryOpts(limit_per_constraint=CAP, full=True)
+    try:
+        t0 = time.perf_counter()
+        drv = TorchDriver()
+        client = Backend(drv).new_client([K8sValidationTarget()])
+        for t, con in all_docs():
+            client.add_template(t)
+            client.add_constraint(con)
+        # the library phase's store: its K1 and K5 variants are built
+        client.add_data_batch(make_mixed(random.Random(0), RESILIENCE_ROWS))
+        install_s = time.perf_counter() - t0
+        sup = drv.supervisor
+        if sup is not sup_mod.get_supervisor(torch.device("cuda", 0)) \
+                or sup.state != sup_mod.HEALTHY:
+            fail(f"resilience: the card's supervisor is {sup.state}")
+        join_warms()
+        v0 = triton_variants(ir_eval)
+        reset_counts(fns)
+        t0 = time.perf_counter()
+        want = _verdict_digest(drv.query_audit(TARGET, opts)[0])
+        healthy_s = time.perf_counter() - t0
+        healthy = {k: v for k, v in launch_counts(fns).items() if v}
+        # the delta warm the first capped sweep started compiles on its
+        # own thread: join it before counting variants
+        join_warms()
+        v1 = triton_variants(ir_eval)
+        faults.rearm("device_lost")
+        os.environ["GATEKEEPER_FAULT"] = "device_lost"
+        try:
+            reset_counts(fns)
+            t0 = time.perf_counter()
+            lost = _verdict_digest(drv.query_audit(TARGET, opts)[0])
+            lost_s = time.perf_counter() - t0
+            lost_counts = {k: v for k, v in launch_counts(fns).items() if v}
+        finally:
+            os.environ.pop("GATEKEEPER_FAULT", None)
+        st = drv._state(TARGET)
+        first = drv.memsurface_sweep_order(st, sorted(st.templates))[0]
+        on_dev = int(st.templates[first].vectorized is not None)
+        lost_reason = sup.reason
+        if lost != want:
+            fail("device loss: the faulted sweep's digest differs")
+        if sup.state != sup_mod.DEGRADED or "device_lost" not in sup.reason:
+            fail(f"device loss: supervisor {sup.status()}")
+        if lost_counts.get("K1", 0) != on_dev \
+                or lost_counts.get("K2", 0) != on_dev:
+            fail(f"device loss: the faulted sweep launched {lost_counts} "
+                 f"(K1 and K2 {on_dev} time(s), for {first}, expected)")
+        rc_lost = quiet_health(probe, ["--health"])
+        server = WebhookServer(ValidationHandler(client), port=0)
+        server.start()
+        try:
+            code, body = http_health(server.port)
+        finally:
+            server.stop()
+        if rc_lost == 0 or code != 503 or set(body) != HEALTH_KEYS \
+                or body["state"] != "degraded":
+            fail(f"device loss: --health rc {rc_lost}, /healthz {code} "
+                 f"{body}")
+        t0 = time.perf_counter()
+        ok = sup.reprobe_now()
+        reprobe_s = time.perf_counter() - t0
+        rejits = drv.metrics.counter("backend_rejits").value
+        if not ok or sup.state != sup_mod.HEALTHY or rejits != 1:
+            fail(f"device loss: re-probe {ok}, supervisor {sup.status()}, "
+                 f"backend_rejits {rejits}")
+        with RecordK123() as r:
+            reset_counts(fns)
+            t0 = time.perf_counter()
+            back = _verdict_digest(drv.query_audit(TARGET, opts)[0])
+            back_s = time.perf_counter() - t0
+            counts = r.counts()
+        v2 = triton_variants(ir_eval)
+        if back != want:
+            fail("device loss: the recovered sweep's digest differs")
+        if None in (v1, v2) or v2 != v1:
+            fail(f"device loss: the recovered sweep compiled Triton "
+                 f"variants ({v1} before, {v2} after)")
+        if any(counts[k] != healthy.get(k, 0) for k in ("K1", "K2", "K3")) \
+                or min(counts.values()) <= 0:
+            fail(f"device loss: the recovered sweep launched {counts}, the "
+                 f"healthy one {healthy}")
+        rc_back = quiet_health(probe, ["--health"])
+        if rc_back != 0:
+            fail(f"device loss: --health exits {rc_back} after recovery")
+        t_k = time.perf_counter()
+        errs = check_k123(ex, r.calls, "device loss, recovered sweep")
+        # timed at the last kinds' inputs (a mean over 8 of the 48)
+        calls = {k: v[-8:] for k, v in r.calls.items()}
+    finally:
+        torch_driver.SMALL_WORKLOAD_EVALS = saved_small
+        os.environ.pop("GATEKEEPER_SUPERVISOR_REPROBE", None)
+    k123_entries(rec, "rc", calls, counts, errs)
+    kernels_s = time.perf_counter() - t_k
+    b_s = time.perf_counter() - t_b
+    print(f"phase resilience device loss: library x {RESILIENCE_ROWS} rows, "
+          f"forced full sweeps cap {CAP}: healthy {healthy_s:.4f}s "
+          f"(launches {healthy}, Triton variants compiled {v1 - v0}); "
+          f"device_lost after {first}: {lost_s:.4f}s, launches "
+          f"{lost_counts}, digest {lost} equal, supervisor degraded "
+          f"({lost_reason}), "
+          f"--health rc {rc_lost}, /healthz {code} with the reference's "
+          f"keys; reprobe_now {reprobe_s:.4f}s on the card -> healthy, "
+          f"backend_rejits {rejits}; recovered sweep {back_s:.4f}s, "
+          f"launches {counts}, 0 Triton variants compiled, digest equal, "
+          f"--health rc {rc_back}; K1 {k1_text(rec['K1rc'])}; K2 "
+          f"{k2_text(rec['K2rc'])}; step {b_s:.1f}s (library install "
+          f"and ingest {install_s:.1f}s, kernel checks and times "
+          f"{kernels_s:.1f}s; budget {DEVICE_LOST_BUDGET_S:.0f}s)",
+          flush=True)
+    del drv, client, calls, r
+    if b_s > DEVICE_LOST_BUDGET_S:
+        fail(f"device loss: the step took {b_s:.1f}s, over its "
+             f"{DEVICE_LOST_BUDGET_S:.0f}s")
+
+    # ---- (c) process restart
+    t_c = time.perf_counter()
+    snapdir = tempfile.mkdtemp(prefix="gatekeeper-smoke-")
+    env = {**os.environ, "GATEKEEPER_SNAPSHOT_DIR": snapdir,
+           "GATEKEEPER_SMOKE_N": str(RESILIENCE_ROWS)}
+    env.pop("GATEKEEPER_FAULT", None)
+    try:
+        cold = run_smoke(env)
+        warm = run_smoke(env)
+    finally:
+        import shutil
+        shutil.rmtree(snapdir, ignore_errors=True)
+    wb = warm["builds"]
+    if warm["lowerings"] or not warm["store_restored"] \
+            or warm["restart_persistent_cache_hits"] <= 0 \
+            or warm["restart_persistent_cache_misses"] \
+            or wb["nvcc_misses"] or wb["triton_misses"] \
+            or warm["verdict_digest"] != cold["verdict_digest"] \
+            or cold["lowerings"] <= 0 or cold["store_restored"] \
+            or min(warm["launches"].values()) <= 0 \
+            or warm["launches"] != cold["launches"]:
+        fail(f"process restart: cold {cold}, warm {warm}")
+    c_s = time.perf_counter() - t_c
+    print(f"phase resilience process restart: the smoke on the card "
+          f"({RESILIENCE_ROWS} rows, {cold['templates']} templates, the "
+          f"audit's default cap): cold serving_seconds {cold['serving_seconds']} "
+          f"(startup {cold['startup_seconds']}, {cold['lowerings']} "
+          f"lowerings, builds {cold['builds']}: "
+          f"{cold['builds']['triton_misses']} Triton variants the earlier "
+          f"phases had not compiled), warm serving_seconds "
+          f"{warm['serving_seconds']} (startup {warm['startup_seconds']}, "
+          f"lowerings 0, store restored, restart hits "
+          f"{warm['restart_persistent_cache_hits']}, misses 0, builds "
+          f"{wb}); digest {warm['verdict_digest']} equal; the sweep's "
+          f"launches {warm['launches']} in each; process walls "
+          f"{cold['wall_s']:.1f}s / {warm['wall_s']:.1f}s; step {c_s:.1f}s "
+          f"(budget {PROCESS_RESTART_BUDGET_S:.0f}s)", flush=True)
+    if c_s > PROCESS_RESTART_BUDGET_S:
+        fail(f"process restart: the step took {c_s:.1f}s, over its "
+             f"{PROCESS_RESTART_BUDGET_S:.0f}s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", type=int, default=100_000)
@@ -5858,6 +6318,10 @@ def main() -> int:
                       "phase (dedup, selective reuse, what-if, rollout, "
                       "explain_pair, the probe's --policyset, --whatif and "
                       "--rollout)")
+    only.add_argument("--resilience-only", action="store_true",
+                      help="build K2 and K3 and run only the resilience "
+                      "phase (device loss and recovery on a card driver, "
+                      "the restart smoke twice on the card)")
     ap.add_argument("--reactor-pods", type=int, default=REACTOR_PODS,
                     help="pods of the reactor phase (REACTOR_PODS by "
                     "default): its cold ledger build and rung-2 resync "
@@ -5903,7 +6367,8 @@ def main() -> int:
                        if args.reactor_only else ("topk", "dfa")
                        if args.extdata_only or args.probe_only
                        else ("topk", "dfa", "scatter")
-                       if args.reuse_only else build.KERNELS)
+                       if args.reuse_only else ("topk", "dfa")
+                       if args.resilience_only else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
           f"{ {k: round(v, 3) for k, v in secs.items()} }, triton "
@@ -5919,7 +6384,7 @@ def main() -> int:
         else None if (args.k1_only or args.k2_only or args.k3_only
                       or args.k6k7_only or args.reactor_only
                       or args.extdata_only or args.probe_only
-                      or args.reuse_only) \
+                      or args.reuse_only or args.resilience_only) \
         else AdmissionOracle()
     try:
         return run_phases(args, card, dev, rec, answers)
@@ -5948,16 +6413,27 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
                                                         constraint_doc,
                                                         template_doc)
     from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.resilience import supervisor as sup_mod
     fns = kernel_fns(ir_eval, topk, dfa, scatter, devdelta, invjoin,
                      residency)
     # each phase's wall seconds, printed before the kernels line
     took: dict[str, float] = {}
     t_mark = [time.perf_counter()]
+    # the card's backend supervisor: healthy at the start and at the end
+    # of every phase (only the resilience phase moves it, and back)
+    card_sup = sup_mod.get_supervisor(dev)
+
+    def healthy(where: str) -> None:
+        if card_sup.state != sup_mod.HEALTHY:
+            fail(f"the card's supervisor is {card_sup.status()} {where}")
 
     def mark(name: str) -> None:
+        healthy(f"after {name}")
         now = time.perf_counter()
         took[name] = round(now - t_mark[0], 1)
         t_mark[0] = now
+
+    healthy("at the start")
 
     def counts_of(*keys) -> dict:
         return {k: v for k, v in launch_counts(fns).items() if k in keys}
@@ -6000,6 +6476,11 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         return 0
     if args.reuse_only:
         reuse_phase(rec, fns)
+        print(card, flush=True)
+        return 0
+    if args.resilience_only:
+        resilience_phase(rec, fns)
+        healthy("after resilience")
         print(card, flush=True)
         return 0
 
@@ -6598,10 +7079,14 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     # replay, rollout, explain_pair and the probe's what-if subcommands
     reuse_phase(rec, fns)
     mark("reuse")
+
+    # ---- 17. resilience: device loss and recovery, a process restart
+    resilience_phase(rec, fns)
+    mark("resilience")
     print(f"phase timing: seconds a phase after the build {took}, "
           f"{sum(took.values()):.1f}s in all", flush=True)
 
-    # ---- 17. kernels line, card line, final line
+    # ---- 18. kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -6719,6 +7204,21 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         "K3bg": ("dfa_batched_graduate_fleet", "cuda",
                  "gatekeeper_tpu_torch/csrc/dfa.cu",
                  "gatekeeper_tpu/whatif/fleet.py:47"),
+        "K4rs": ("scatter_rows_many_devpages_restart", "cuda",
+                 "gatekeeper_tpu_torch/csrc/scatter.cu",
+                 "gatekeeper_tpu/engine/veval.py:1049"),
+        "K6rs": ("devdelta_devpages_restart", "cuda",
+                 "gatekeeper_tpu_torch/csrc/devdelta.cu",
+                 "gatekeeper_tpu/engine/veval.py:1185"),
+        "K1rc": ("ir_eval_device_recovered", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/engine/veval.py:294"),
+        "K2rc": ("topk_device_recovered", "cuda",
+                 "gatekeeper_tpu_torch/csrc/topk.cu",
+                 "gatekeeper_tpu/engine/veval.py:660"),
+        "K3rc": ("dfa_device_recovered", "cuda",
+                 "gatekeeper_tpu_torch/csrc/dfa.cu",
+                 "gatekeeper_tpu/engine/veval.py:227"),
     }
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K1bl", "K2b",
@@ -6726,7 +7226,8 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
                 "K2mgr", "K3mgr", "K4mgr", "K5mgr", "K1rmgr", "K3rmgr",
                 "K4rx", "K3rx", "K1rx", "K6rx", "K1fs", "K2fs", "K3fs",
                 "K1wk", "K2wk", "K3wk", "K1ext", "K2ext", "K3ext", "K1dd",
-                "K1sh", "K2sh", "K1bg", "K2bg", "K3bg"):
+                "K1sh", "K2sh", "K1bg", "K2bg", "K3bg", "K4rs", "K6rs",
+                "K1rc", "K2rc", "K3rc"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -21,9 +21,9 @@ only when its footprint is row-local with no external providers.
 Not ported yet: ``GATEKEEPER_FOOTPRINT=strict`` perturbation-validates
 every footprint over the small-model worlds (translation validation and
 the small-model enumerator are not part of the port); here it raises
-instead of quietly running as ``on``.  The snapshot tier that makes a
-warm restart re-run zero analyses is not ported either, and footprints
-do not drive selective invalidation in the port's audit sweep.
+instead of quietly running as ``on``.  Footprints persist in the
+snapshot ``fp`` tier (resilience/snapshot.py), so a warm restart re-runs
+zero analyses.
 """
 
 from __future__ import annotations
@@ -352,17 +352,26 @@ def analyze(kind: str, lowered) -> Footprint:
 
 def certify(kind: str, lowered) -> Footprint:
     """Memoized entry point the engine uses: the static analysis, keyed
-    by :func:`footprint_digest`."""
+    by :func:`footprint_digest` and persisted in the snapshot ``fp``
+    tier, so a warm restart re-runs zero analyses."""
     global analyses_run
     digest = footprint_digest(lowered)
     cached = _memo.get(digest)
     if cached is not None:
         _publish(kind, cached)
         return cached
+    from gatekeeper_tpu_torch.resilience import snapshot as _snap
+    hit = _snap.load_footprint(digest)     # 1-tuple or None (miss)
+    if hit is not None and isinstance(hit[0], Footprint) \
+            and hit[0].version == FOOTPRINT_VERSION:
+        _memo[digest] = hit[0]
+        _publish(kind, hit[0])
+        return hit[0]
     fp = analyze(kind, lowered)
     analyses_run += 1
     violations.pop(kind, None)
     _memo[digest] = fp
+    _snap.save_footprint(digest, fp)
     _publish(kind, fp)
     return fp
 

@@ -62,11 +62,8 @@ with the port's admission batches.
 ``GATEKEEPER_MEMSURFACE_TEST_UNDER=<Kind>`` is the deterministic test
 seam: the analyzer deliberately under-claims for that kind (bypassing
 the memo), proving end-to-end that the validation harness catches an
-unsound certificate.
-
-Trimmed from the JAX package's module: the snapshot tier ``ms`` of
-:func:`certify` (certificates persisted across restarts), which comes
-with the port's ``resilience/snapshot``; the in-process memo stays.
+unsound certificate.  Certificates persist in the snapshot ``ms``
+tier (resilience/snapshot.py), so a warm restart re-runs no analysis.
 """
 
 from __future__ import annotations
@@ -468,9 +465,10 @@ def scalar_surface(kind: str) -> MemorySurface:
 
 
 def certify(kind: str, compiled, lowered, device=None) -> MemorySurface:
-    """Memoized entry point the engine uses (the JAX package's snapshot
-    tier is trimmed, see the module note).  The TEST_UNDER seam bypasses
-    the memo — the deliberately unsound certificate must reach the
+    """Memoized/snapshot-backed entry point the engine uses.
+    Certificates persist in the snapshot ``ms`` tier, so a warm restart
+    re-runs zero analyses.  The TEST_UNDER seam bypasses memo and
+    snapshot — the deliberately unsound certificate must reach the
     caller, not a cached honest one.  ``device`` is the driver's: it
     sets the default budget (:func:`budget_bytes`)."""
     global analyses_run
@@ -481,10 +479,19 @@ def certify(kind: str, compiled, lowered, device=None) -> MemorySurface:
         if cached is not None:
             _publish(kind, cached, device)
             return cached
+        from gatekeeper_tpu_torch.resilience import snapshot as _snap
+        hit = _snap.load_memsurface(digest)     # 1-tuple or None
+        if hit is not None and isinstance(hit[0], MemorySurface) \
+                and hit[0].version == MS_VERSION:
+            _memo[digest] = hit[0]
+            _publish(kind, hit[0], device)
+            return hit[0]
     cert = analyze(kind, lowered)
     analyses_run += 1
     if not seam:
         _memo[digest] = cert
+        from gatekeeper_tpu_torch.resilience import snapshot as _snap
+        _snap.save_memsurface(digest, cert)
     _publish(kind, cert, device)
     return cert
 

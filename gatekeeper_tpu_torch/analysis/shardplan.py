@@ -26,8 +26,8 @@ present, is eligible.
 
 Not ported yet: ``GATEKEEPER_SHARDPLAN=strict`` executes every plan on a
 simulated 2-shard mesh (multi-GPU is not part of the port); here it
-raises instead of quietly running as ``warn``.  The snapshot tier is
-not ported either.
+raises instead of quietly running as ``warn``.  Plans persist in the
+snapshot ``sp`` tier (resilience/snapshot.py).
 """
 
 from __future__ import annotations
@@ -245,17 +245,26 @@ def analyze(kind: str, lowered) -> PartitionPlan:
 
 def certify(kind: str, lowered) -> PartitionPlan:
     """Memoized entry point the engine uses: the static analysis, keyed
-    by :func:`shardplan_digest`."""
+    by :func:`shardplan_digest` and persisted in the snapshot ``sp``
+    tier, so a warm restart re-runs zero analyses."""
     global analyses_run
     digest = shardplan_digest(lowered)
     cached = _memo.get(digest)
     if cached is not None:
         _publish(kind, cached)
         return cached
+    from gatekeeper_tpu_torch.resilience import snapshot as _snap
+    hit = _snap.load_shardplan(digest)     # 1-tuple or None (miss)
+    if hit is not None and isinstance(hit[0], PartitionPlan) \
+            and hit[0].version == SHARDPLAN_VERSION:
+        _memo[digest] = hit[0]
+        _publish(kind, hit[0])
+        return hit[0]
     plan = analyze(kind, lowered)
     analyses_run += 1
     violations.pop(kind, None)
     _memo[digest] = plan
+    _snap.save_shardplan(digest, plan)
     _publish(kind, plan)
     return plan
 

@@ -24,10 +24,12 @@ zero metrics): every sweep records device/host timings, result counts
 and per-phase durations into ``last_sweep`` and the cumulative
 ``metrics`` registry.
 
-Trimmed for the port: the sweep report carries no ``backend_state`` or
-``degraded`` and no recovery listener re-warms after a backend
-recovery (the supervisor is ROADMAP A8), the store snapshot after a
-sweep is a no-op (ROADMAP A8).  The audit warm-up's error is raised by
+Each sweep report carries the serving posture of the driver's device
+(``backend_state``, and ``degraded`` with its reason while the backend
+supervisor is not healthy, resilience/supervisor.py); a recovery of that
+device re-warms the audit variants while the loop runs; each sweep
+persists the store snapshot when ``GATEKEEPER_SNAPSHOT_DIR`` is set.
+The audit warm-up's error is raised by
 the next ``audit_once`` instead of being swallowed, and so is the
 attached event reactor's kept error (enforce/reactor.py), after that
 sweep has run: the sweep is the fallback that repairs the ledger.  The
@@ -222,10 +224,20 @@ class AuditManager:
                      host_prep_s=report.get("host_prep_s"),
                      overlap_fraction=report.get("overlap_fraction"))
 
-        # (the reference reports its backend supervisor's serving
-        # posture here, ``backend_state`` and ``degraded``: ROADMAP A8.
-        # The port has no fallback backend to report: a kernel error
-        # ends the sweep)
+        # serving posture (resilience/supervisor): a sweep that ran —
+        # partly or wholly — on the scalar oracle after its device was
+        # lost is correct but must say so (maps to the reference's
+        # status.byPod[] operating report; see BASELINE.md).  A driver
+        # without a device (LocalDriver, an engine worker's remote
+        # driver) has nothing to degrade
+        from gatekeeper_tpu_torch.resilience.supervisor import (
+            HEALTHY, supervisor_of)
+        sup = supervisor_of(getattr(self.client, "driver", None))
+        report["backend_state"] = sup.state if sup is not None else HEALTHY
+        if sup is not None and sup.state != HEALTHY:
+            report["degraded"] = True
+            report["degraded_reason"] = sup.reason
+            self.metrics.counter("audit_sweeps_degraded").inc()
 
         update_lists = self._update_lists(results)
 
@@ -254,10 +266,21 @@ class AuditManager:
         return report
 
     def _maybe_snapshot_store(self) -> None:
-        """Warm-restart persistence: the reference persists each
-        target's columnar store after a successful sweep when
-        GATEKEEPER_SNAPSHOT_DIR is set.  The port has no snapshot tier
-        yet (``save_store_snapshot``, ROADMAP A8): a no-op."""
+        """Warm-restart persistence: after a successful sweep, persist
+        each target's columnar store (with the ledger's pagemap) so a
+        restarted process restores the inventory from disk instead of
+        replaying it.  No-op unless GATEKEEPER_SNAPSHOT_DIR is set."""
+        drv = getattr(self.client, "driver", None)
+        if drv is None or not hasattr(drv, "save_store_snapshot"):
+            return
+        try:
+            from gatekeeper_tpu_torch.resilience import snapshot as _snap
+            if not _snap.enabled():
+                return
+            for target in getattr(drv, "targets", {}):
+                drv.save_store_snapshot(target)
+        except Exception as e:   # noqa: BLE001 — persistence is
+            _log.warning("store snapshot failed", error=e)   # best-effort
 
     def _update_lists(self, results) -> dict[str, list[dict]]:
         """Group results per constraint selfLink with cap + truncation
@@ -365,12 +388,31 @@ class AuditManager:
             for target in getattr(drv, "targets", {}):
                 self._warms.append(
                     warm_audit(drv, target, cap=self.violations_limit))
-        # (the reference also registers a backend-recovery listener that
-        # re-warms after a recovery: ROADMAP A8, no supervisor here)
+            # backend recovery => the driver drops its device state; the
+            # same warm-up rebuilds it in the background so the next
+            # interval tick sweeps on the device without compiling
+            from gatekeeper_tpu_torch.resilience.supervisor import \
+                supervisor_of
+            sup = supervisor_of(drv)
+            if sup is not None:
+                sup.add_recovery_listener(self, "_rewarm_on_recovery")
         self._stop.clear()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="audit-manager")
         self._thread.start()
+
+    def _rewarm_on_recovery(self) -> None:
+        """Recovery listener: re-warm the audit variants after the
+        driver dropped its device state.  A stopped manager warms
+        nothing; the warm's error is raised by the next ``audit_once``."""
+        from gatekeeper_tpu_torch.utils.compile_cache import warm_audit
+        drv = getattr(self.client, "driver", None)
+        if self._thread is None or drv is None \
+                or not hasattr(drv, "executor"):
+            return
+        for target in getattr(drv, "targets", {}):
+            self._warms.append(
+                warm_audit(drv, target, cap=self.violations_limit))
 
     def _raise_warm_error(self) -> None:
         for warm in self._warms:

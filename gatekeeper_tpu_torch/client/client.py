@@ -11,7 +11,6 @@ resources via HandleViolation.
 
 from __future__ import annotations
 
-import os
 import threading
 from typing import Any
 
@@ -68,21 +67,43 @@ class Client:
                 raise ClientError(f"unknown target {tt.target!r}")
             if first_handler is None:
                 first_handler = handler
-            # (the JAX package's warm-restart snapshot branch is not
-            # part of the port yet: every template compiles cold)
-            compiled = compile_target_rego(tmpl.kind, tt.target, tt.rego)
-            # Stage-1 static vet (analysis/vetter.py): error findings
-            # reject the template at ingestion, before anything is
-            # registered.  providers=None here — the client has no
-            # provider registry in scope (providers may legitimately be
-            # registered after the template); the reconciler enforces
-            # provider existence with the live set.
-            from gatekeeper_tpu_torch.analysis import has_errors, vet_module
-            diags = vet_module(compiled.module, providers=None,
-                               file=tmpl.kind)
-            if has_errors(diags):
-                from gatekeeper_tpu_torch.errors import VetError
-                raise VetError(diags)
+            # warm-restart fast path: a snapshotted module is the parsed
+            # AST of this exact source AFTER it passed hygiene checks and
+            # the stage-1 vet (entries are only written below, post-vet),
+            # so parse + vet are skipped wholesale on a hit
+            from gatekeeper_tpu_torch.resilience import snapshot as _snap
+            compiled = None
+            if _snap.enabled():
+                hit = _snap.load_template_module(tmpl.kind, tt.target,
+                                                 tt.rego)
+                if hit is not None:
+                    try:
+                        from gatekeeper_tpu_torch.api.templates import \
+                            rebuild_from_module
+                        module, uses_inv = hit[0]
+                        compiled = rebuild_from_module(
+                            tmpl.kind, tt.target, tt.rego, module, uses_inv)
+                    except Exception:   # noqa: BLE001 — cold rebuild
+                        compiled = None
+            if compiled is None:
+                compiled = compile_target_rego(tmpl.kind, tt.target, tt.rego)
+                # Stage-1 static vet (analysis/vetter.py): error findings
+                # reject the template at ingestion, before anything is
+                # registered.  providers=None here — the client has no
+                # provider registry in scope (providers may legitimately
+                # be registered after the template); the reconciler
+                # enforces provider existence with the live set.
+                from gatekeeper_tpu_torch.analysis import (has_errors,
+                                                           vet_module)
+                diags = vet_module(compiled.module, providers=None,
+                                   file=tmpl.kind)
+                if has_errors(diags):
+                    from gatekeeper_tpu_torch.errors import VetError
+                    raise VetError(diags)
+                if _snap.enabled():
+                    _snap.save_template_module(
+                        tmpl.kind, tt.target, tt.rego,
+                        (compiled.module, compiled.uses_inventory))
             compiled_by_target[tt.target] = compiled
         return compiled_by_target, build_crd(tmpl, first_handler.match_schema())
 
@@ -180,68 +201,49 @@ class Client:
         skips); the reference has no batch AddData because its informer
         delivers events singly — but its initial list-sync is exactly a
         batch, and at 1M objects per-call overhead dominates."""
-        import gc
-        with self._lock.write():
-            # cyclic-GC passes during the bulk loop traverse the whole
-            # (million-object) resource graph repeatedly; pause
-            # collection for the bounded duration of the batch (~30%
-            # of 1M-object ingest time)
-            gc_was_enabled = gc.isenabled()
-            gc.disable()
-            try:
-                handled = {}
-                any_wipe = any(isinstance(o, WipeData) or o is WipeData
-                               for o in objs)
-                for name, handler in self.targets.items():
-                    batch_fn = getattr(handler, "process_data_batch", None)
-                    if batch_fn is not None and not any_wipe:
-                        # wipe-free batches (the overwhelmingly common
-                        # case) take the target's native batch extractor
-                        entries = [e for e in batch_fn(objs)
-                                   if e is not None]
-                        if entries:
-                            self.driver.put_data_batch(name, entries)
-                            handled[name] = True
+        from gatekeeper_tpu_torch.utils.gcpause import BulkLoad
+        # cyclic-GC passes during the bulk loop traverse the whole
+        # (million-object) resource graph repeatedly (~30% of 1M-object
+        # ingest time): pause them for the batch, and freeze a large one
+        # after it (utils/gcpause.py)
+        with self._lock.write(), BulkLoad(len(objs)):
+            handled = {}
+            any_wipe = any(isinstance(o, WipeData) or o is WipeData
+                           for o in objs)
+            for name, handler in self.targets.items():
+                batch_fn = getattr(handler, "process_data_batch", None)
+                if batch_fn is not None and not any_wipe:
+                    # wipe-free batches (the overwhelmingly common
+                    # case) take the target's native batch extractor
+                    entries = [e for e in batch_fn(objs)
+                               if e is not None]
+                    if entries:
+                        self.driver.put_data_batch(name, entries)
+                        handled[name] = True
+                    continue
+                entries: list = []
+
+                def flush():
+                    if entries:
+                        self.driver.put_data_batch(name, entries)
+                        entries.clear()
+                        handled[name] = True
+
+                for obj in objs:
+                    if isinstance(obj, WipeData) or obj is WipeData:
+                        # order matters: objects queued BEFORE the
+                        # wipe must land before it (and be wiped),
+                        # exactly as the looped form behaves
+                        flush()
+                        self.driver.wipe_data(name)
+                        handled[name] = True
                         continue
-                    entries: list = []
-
-                    def flush():
-                        if entries:
-                            self.driver.put_data_batch(name, entries)
-                            entries.clear()
-                            handled[name] = True
-
-                    for obj in objs:
-                        if isinstance(obj, WipeData) or obj is WipeData:
-                            # order matters: objects queued BEFORE the
-                            # wipe must land before it (and be wiped),
-                            # exactly as the looped form behaves
-                            flush()
-                            self.driver.wipe_data(name)
-                            handled[name] = True
-                            continue
-                        try:
-                            entries.append(handler.process_data(obj))
-                        except UnhandledData:
-                            continue
-                    flush()
-                return Responses(handled=handled)
-            finally:
-                if len(objs) >= 65536 and \
-                        os.environ.get("GATEKEEPER_NO_GC_FREEZE") != "1":
-                    # a million-object resource cache makes every later
-                    # cyclic-GC pass traverse the whole graph (~4s per
-                    # large allocation burst).  The cache is long-lived
-                    # and acyclic (parsed JSON), so move the current
-                    # heap to GC's permanent generation — refcounting
-                    # still reclaims it; only cycle *detection* skips it.
-                    # Young-generation collect only: a full pass would
-                    # itself traverse the million objects we are about
-                    # to freeze (~3.5s at 1M for nothing)
-                    gc.collect(1)
-                    gc.freeze()
-                if gc_was_enabled:
-                    gc.enable()
+                    try:
+                        entries.append(handler.process_data(obj))
+                    except UnhandledData:
+                        continue
+                flush()
+            return Responses(handled=handled)
 
     def remove_data(self, obj: Any) -> Responses:
         with self._lock.write():

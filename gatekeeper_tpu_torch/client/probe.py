@@ -22,9 +22,10 @@ the scalar-fallback pins of library/lowering_buckets.json) and
 (the whole-set report with its dedup plan), ``--whatif`` (shadow,
 replay, fleet and stream parity) and ``--rollout [--library]`` (a
 candidate promoted to ``deny`` and a fleet graduation plan), the last
-two on a ``TorchDriver`` on the same device.  The other subcommands
-need layers the port has not got yet and raise ``ClientError`` naming
-their ROADMAP item (``UNPORTED``).
+two on a ``TorchDriver`` on the same device, and ``--health`` (the
+serving posture of that device's backend supervisor).  The other
+subcommands need layers the port has not got yet and raise
+``ClientError`` naming their ROADMAP item (``UNPORTED``).
 """
 
 from __future__ import annotations
@@ -497,8 +498,8 @@ def run_whatif(device=None) -> int:
 
     Every driver is a ``TorchDriver`` on ``device`` (the card unless
     ``--device cpu``).  Exit contract (:func:`_severity_rc`): 2 on any
-    parity break, 0 clean.  (The reference's 1, parity held on a scalar
-    fallback, needs the backend supervisor, ROADMAP A8.)"""
+    parity break, 1 when parity held on the scalar oracle (the device
+    was lost), 0 clean."""
     import os as _os
     import random
     import tempfile
@@ -624,9 +625,13 @@ def run_whatif(device=None) -> int:
           f"skipped, {brep.skipped} error(s), scalar={srep.digest} "
           f"batched={brep.digest}")
 
+    scalar = driver.scalar_only
+    if scalar:
+        print("  warn scalar-only backend: parity validated on the "
+              "oracle path, device NOT")
     print(f"whatif: {n_err} parity failure(s) (torch engine on "
-          f"{driver.device})")
-    return _severity_rc(n_err, 0)
+          f"{driver.device}{', scalar-fallback' if scalar else ''})")
+    return _severity_rc(n_err, 1 if scalar else 0)
 
 
 def run_rollout(use_library: bool = False, device=None) -> int:
@@ -640,15 +645,12 @@ def run_rollout(use_library: bool = False, device=None) -> int:
     dryrun → warn → deny — and prints the per-rung evidence, the
     capture-log health counters, and a 4-cluster fleet graduation
     plan.  All flight side effects land in a temp dir; every driver is
-    a ``TorchDriver`` on ``device`` (the card unless ``--device cpu``).
-    The reference also points ``GATEKEEPER_SNAPSHOT_DIR`` at the temp
-    dir for its rollout snapshot tier, which the port has not got yet
-    (ROADMAP A8).
+    a ``TorchDriver`` on ``device`` (the card unless ``--device cpu``),
+    and the rollout's snapshot tier writes under the temp dir too.
 
     Exit contract (:func:`_severity_rc`): 2 when the candidate fails
-    to graduate (or the fleet plan blocks/holds a cluster), 0 clean.
-    (The reference's 1, graduated on a scalar fallback, needs the
-    backend supervisor, ROADMAP A8.)"""
+    to graduate (or the fleet plan blocks/holds a cluster), 1 when it
+    graduated on the scalar oracle (the device was lost), 0 clean."""
     import os as _os
     import random
     import sys
@@ -682,10 +684,13 @@ def run_rollout(use_library: bool = False, device=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         saved_env = {k: _os.environ.get(k)
                      for k in ("GATEKEEPER_FLIGHT_DIR",
-                               "GATEKEEPER_FLIGHT_ADMISSION")}
+                               "GATEKEEPER_FLIGHT_ADMISSION",
+                               "GATEKEEPER_SNAPSHOT_DIR")}
         saved_rec = fr._recorder
         _os.environ["GATEKEEPER_FLIGHT_DIR"] = tmp
         _os.environ["GATEKEEPER_FLIGHT_ADMISSION"] = "1"
+        _os.environ["GATEKEEPER_SNAPSHOT_DIR"] = \
+            _os.path.join(tmp, "snaps")
         fr._recorder = None
         try:
             vh = ValidationHandler(client)
@@ -772,9 +777,15 @@ def run_rollout(use_library: bool = False, device=None) -> int:
             except Exception:   # noqa: BLE001 — probe hygiene only
                 pass
 
+    if driver.scalar_only:
+        n_warn += 1
+        print("  warn scalar-only backend: promotion gates validated "
+              "on the oracle path, device NOT")
     wall = _time.perf_counter() - t0
     print(f"rollout: {n_err} gate failure(s) (torch engine on "
-          f"{driver.device}) in {wall:.1f}s")
+          f"{driver.device}"
+          f"{', scalar-fallback' if driver.scalar_only else ''}) "
+          f"in {wall:.1f}s")
     return _severity_rc(n_err, n_warn)
 
 
@@ -850,7 +861,6 @@ def run_cost(device=None) -> int:
 UNPORTED = {
     "--footprint": "ROADMAP A8, the footprint validator's worlds",
     "--certify": "ROADMAP A8, translation validation",
-    "--health": "ROADMAP A8, the backend supervisor",
     "--trace": "ROADMAP A8",
     "--pages": "ROADMAP A8",
     "--compilesurface": "ROADMAP A8, the compile-surface certifier",
@@ -859,6 +869,66 @@ UNPORTED = {
 }
 """The reference's subcommands the port has not got, each with the item
 that brings it: asking for one raises ``ClientError`` naming it."""
+
+
+def run_health(device=None) -> int:
+    """``probe --health``: the k8s liveness/readiness consumer.  One
+    JSON line with the serving posture of the backend supervisor of the
+    device asked for (the card unless ``--device``): state, degradation
+    reason, probe timestamps, and the warm-restart persistent-cache
+    counters; exit 0 only while that device is healthy — a degraded,
+    recovering or poisoned process still serves correct verdicts (the
+    scalar oracle) but reports not-ready so the operator sees the
+    posture, mirroring the reference's status.byPod[].  A card that
+    cannot be resolved reports ``unavailable``."""
+    import json
+    import time as _time
+
+    from gatekeeper_tpu_torch.resilience.snapshot import restart_report
+    from gatekeeper_tpu_torch.resilience.supervisor import (HEALTHY,
+                                                            get_supervisor)
+    from gatekeeper_tpu_torch.utils.device import resolve_device
+
+    try:
+        st = get_supervisor(resolve_device(device)).status()
+    except RuntimeError as e:
+        st = {"state": "unavailable", "backend": "none", "reason": str(e),
+              "since": None, "last_probe_at": None, "last_ok_at": None,
+              "reprobe_attempts": 0}
+    rep = restart_report()
+    iso = lambda t: (_time.strftime("%Y-%m-%dT%H:%M:%SZ", _time.gmtime(t))
+                     if t else None)
+    out = {
+        "state": st["state"],
+        "backend": st["backend"],
+        "reason": st["reason"],
+        "since": iso(st["since"]),
+        "last_probe_at": iso(st["last_probe_at"]),
+        "last_ok_at": iso(st["last_ok_at"]),
+        "reprobe_attempts": st["reprobe_attempts"],
+        "restart_persistent_cache_hits":
+            rep["restart_persistent_cache_hits"],
+        "restart_persistent_cache_misses":
+            rep["restart_persistent_cache_misses"],
+    }
+    # watch-driven enforcement posture (enforce/reactor.py): the state
+    # machine (live/degraded/resyncing) per live reactor.  Informational
+    # only — a degraded watch falls back to sweep cadence, still
+    # serving correct verdicts, so it does not change the exit code.
+    from gatekeeper_tpu_torch.enforce.reactor import export_state
+    reactors = export_state()
+    if reactors:
+        out["reactors"] = [
+            {"name": r["name"], "state": r["state"],
+             "state_age_s": r["state_age_s"],
+             "last_sweep_age_s": r.get("last_sweep_age_s")}
+            for r in reactors]
+    print(json.dumps(out))
+    if st["state"] != HEALTHY:
+        print(f"HEALTH FAIL ({st['state']}: {st['reason']})")
+        return 2
+    print(f"HEALTH OK ({st['backend']})")
+    return 0
 
 
 def _refuse(flag: str):
@@ -881,6 +951,7 @@ def _run_subcommand(argv: list[str], device=None) -> int | None:
     strict = "--strict" in argv
     pos = [a for a in argv if a not in ("--library", "--strict")]
     table = (
+        ("--health", lambda rest: run_health(device)),
         ("--whatif", lambda rest: run_whatif(device)),
         ("--rollout", lambda rest: run_rollout(use_library=use_library,
                                                device=device)),

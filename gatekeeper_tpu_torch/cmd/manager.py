@@ -25,11 +25,12 @@ Under ``GATEKEEPER_PAGES`` (on by default) the manager builds the event
 reactor (enforce/reactor.py), which turns each watch event into a
 single-page re-evaluation of the verdict ledger between sweeps.
 
-Trimmed for the port, each refused when asked for:
-- ``GATEKEEPER_SNAPSHOT_DIR`` (warm-restart snapshots, which the
-  reference's ``main`` turns on by default) — ROADMAP A8;
-- a ``GATEKEEPER_FAULT`` whose seam the port lacks
-  (resilience/faults.py).
+``main`` turns warm-restart snapshots on (``GATEKEEPER_SNAPSHOT_DIR``
+defaults to ``<cache_root>/snapshots``, utils/compile_cache.py); a
+``Manager`` built directly stays hermetic.  The webhook's ``/healthz``,
+the overload ladder's floor, the VWC's annotations and the audit
+reports read the backend supervisor of the driver's device
+(resilience/supervisor.py).
 """
 
 from __future__ import annotations
@@ -53,8 +54,7 @@ from gatekeeper_tpu_torch.controllers.config import CONFIG_GVK
 from gatekeeper_tpu_torch.controllers.constrainttemplate import TEMPLATE_GVK
 from gatekeeper_tpu_torch.controllers.registry import ControlPlane, add_to_manager
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-from gatekeeper_tpu_torch.errors import ClientError
-from gatekeeper_tpu_torch.resilience import faults
+from gatekeeper_tpu_torch.resilience.supervisor import supervisor_of
 from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
 from gatekeeper_tpu_torch.utils.metrics import Metrics
 from gatekeeper_tpu_torch.webhook.batcher import MicroBatcher
@@ -98,22 +98,10 @@ def bootstrap_cluster(cluster) -> None:
               "providers", namespaced=False)
 
 
-def refuse_unported(args: argparse.Namespace) -> None:
-    """Raise ClientError for a flag or variable that asks for a layer the
-    port has not got yet, naming its ROADMAP item: never run without
-    it silently."""
-    if os.environ.get("GATEKEEPER_SNAPSHOT_DIR"):
-        raise ClientError(
-            "GATEKEEPER_SNAPSHOT_DIR: warm-restart snapshots are not yet "
-            "ported to gatekeeper_tpu_torch (ROADMAP A8); unset it")
-    faults.check_armed()
-
-
 class Manager:
     """Everything main() builds, held together for tests and the demo."""
 
     def __init__(self, args: argparse.Namespace, cluster=None):
-        refuse_unported(args)
         self.metrics = Metrics()
         if cluster is not None:
             self.cluster = cluster
@@ -170,9 +158,9 @@ class Manager:
             # compile-surface rungs instead of halving blindly
             certified_rungs=lambda: self.client.certified_review_rungs(
                 args.max_batch))
-        self.overload = OverloadController(self.batcher.depth,
-                                           self.batcher.capacity,
-                                           metrics=self.metrics)
+        self.overload = OverloadController(
+            self.batcher.depth, self.batcher.capacity, metrics=self.metrics,
+            supervisor=supervisor_of(self.client.driver))
         self.handler = ValidationHandler(self.client, cluster=self.cluster,
                                          batcher=self.batcher,
                                          metrics=self.metrics,
@@ -218,9 +206,10 @@ class Manager:
                 from gatekeeper_tpu_torch.webhook.bootstrap import bootstrap_webhook
                 from gatekeeper_tpu_torch.webhook.server import backend_of
                 try:
-                    bootstrap_webhook(self.cluster, self._cert_dir,
-                                      self.webhook.port,
-                                      backend=backend_of(self.client))
+                    bootstrap_webhook(
+                        self.cluster, self._cert_dir, self.webhook.port,
+                        backend=backend_of(self.client),
+                        supervisor=supervisor_of(self.client.driver))
                 except Exception as e:
                     _log.error("webhook bootstrap failed", error=e)
         self.audit.start()
@@ -377,9 +366,14 @@ def run_demo(mgr: Manager, n_namespaces: int = 1000) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    # (the reference's main turns warm-restart snapshots on by default,
-    # GATEKEEPER_SNAPSHOT_DIR next to its executable cache: ROADMAP A8,
-    # off in the port)
+    # warm-restart persistence defaults ON for the managed entry point:
+    # snapshots (lowered IR / dedup plan / store / pagemap) live next to
+    # the build caches.  GATEKEEPER_SNAPSHOT_DIR="" disables; tests
+    # constructing Manager directly stay hermetic (no default there).
+    if "GATEKEEPER_SNAPSHOT_DIR" not in os.environ:
+        from gatekeeper_tpu_torch.utils.compile_cache import cache_root
+        os.environ["GATEKEEPER_SNAPSHOT_DIR"] = \
+            os.path.join(cache_root(), "snapshots")
     mgr = Manager(args)
     if args.demo:
         out = run_demo(mgr)

@@ -6,10 +6,9 @@ pattern injects the policy client and a shared WatchManager into each
 controller package.  Here ``add_to_manager`` wires the whole control
 plane: watch manager, the constraint-kind registrar (owned by the
 template controller), the sync registrar (owned by the config
-controller), and the two statically-watched reconcilers.
-
-Trimmed for the port: the backend supervisor's template re-queue on
-recovery (ROADMAP A8).
+controller), and the two statically-watched reconcilers.  A recovery of
+the client driver's device re-enqueues every ConstraintTemplate
+(resilience/supervisor.py).
 """
 
 from __future__ import annotations
@@ -74,6 +73,18 @@ class ControlPlane:
                 return total
 
 
+def _template_requeuer(cluster, mgr, template_controller):
+    from gatekeeper_tpu_torch.controllers.runtime import Request
+
+    def _requeue():
+        for obj in cluster.list(TEMPLATE_GVK):
+            meta = obj.get("metadata") or {}
+            mgr.enqueue(template_controller,
+                        Request(name=meta.get("name", ""),
+                                namespace=meta.get("namespace")))
+    return _requeue
+
+
 def add_to_manager(cluster: FakeCluster, client: Client,
                    mgr: ControllerManager | None = None,
                    external_data: ExternalDataRuntime | None = None) \
@@ -109,10 +120,18 @@ def add_to_manager(cluster: FakeCluster, client: Client,
     if served is None or served(PROVIDER_GVK):
         provider_controller = ReconcileProvider(cluster, external_data)
         mgr.watch(PROVIDER_GVK, provider_controller)
-    # (the reference also registers a recovery listener with the backend
-    # supervisor that re-enqueues every ConstraintTemplate: ROADMAP A8;
-    # the port has no supervisor, so nothing recovers and nothing
-    # re-enqueues)
+    # backend recovery (resilience/supervisor): re-enqueue every
+    # ConstraintTemplate so the idempotent reconcile re-installs each
+    # template through the driver's warm put_template path (failure
+    # recovery is reconcile idempotence).  The manager is held weakly by
+    # the supervisor of the client driver's device: test-built control
+    # planes don't accumulate there
+    from gatekeeper_tpu_torch.resilience.supervisor import supervisor_of
+    sup = supervisor_of(getattr(client, "driver", None))
+    if sup is not None:
+        mgr._requeue_templates = _template_requeuer(  # type: ignore[attr-defined]
+            cluster, mgr, template_controller)
+        sup.add_recovery_listener(mgr, "_requeue_templates")
     return ControlPlane(cluster=cluster, client=client, mgr=mgr,
                         watch_manager=wm,
                         constraint_registrar=constraint_registrar,

@@ -211,17 +211,13 @@ class VerdictLedger:
         per kind the confirmed rows plus the constraint-set digest and
         row-space shape that gate adoption.  Row ids are valid against
         a table restored from the companion store snapshot (restore
-        bulk-upserts in saved row order)."""
-        out = {}
-        for kind, ent in self.entries.items():
-            out[kind] = {
-                "condigest": ent.condigest, "n_rows": ent.n_rows,
-                "rv": ent.rv,
-                "rows": {row: (ident, {c: list(rs)
-                               for c, rs in by_c.items()})
-                         for row, (ident, by_c) in ent.rows.items()},
-            }
-        return out
+        bulk-upserts in saved row order).  Each kind's ``rows`` is the
+        live entry's own mapping, not a copy: the caller pickles the
+        payload at once, under the driver's write lock (copying a
+        cluster's worth of rows first only fed the garbage collector)."""
+        return {kind: {"condigest": ent.condigest, "n_rows": ent.n_rows,
+                       "rv": ent.rv, "rows": ent.rows}
+                for kind, ent in self.entries.items()}
 
     def adopt(self, kind: str, payload: dict, condigest: str,
               table, conver: int) -> bool:
@@ -230,7 +226,10 @@ class VerdictLedger:
         the restored table.  Guards are stamped from the restored
         table's counters: the snapshot pair (store + pagemap) was taken
         atomically, so the just-restored rows ARE the state the
-        verdicts were computed over."""
+        verdicts were computed over.  The entry takes the payload's rows
+        as they are (``snapshot_payload``'s shape, unpickled): the
+        caller hands over a payload it owns, and copying a cluster's
+        worth of rows only feeds the garbage collector."""
         if payload.get("condigest") != condigest:
             return False
         if payload.get("n_rows") != table.n_rows:
@@ -239,9 +238,7 @@ class VerdictLedger:
             gen=table.generation, kgen=table.key_generation,
             remap=table.remap_generation, n_rows=table.n_rows,
             conver=conver, condigest=condigest,
-            rv=int(payload.get("rv", 0) or 0),
-            rows={row: (tuple(ident), dict(by_c))
-                  for row, (ident, by_c) in payload["rows"].items()})
+            rv=int(payload.get("rv", 0) or 0), rows=payload["rows"])
         self.entries[kind] = ent
         return True
 

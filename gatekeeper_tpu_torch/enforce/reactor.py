@@ -233,7 +233,6 @@ class Reactor:
         # the first exception of client.react / client.resync or of the
         # pump loop, kept until a sweep or stop() raises it
         self.error: BaseException | None = None
-        faults.check_armed()
         _registry.add(self)
 
     # ------------------------------------------------------------------

@@ -590,6 +590,22 @@ class ProgramExecutor:
         self.cache_hits = 0
         self._devdelta_keys: set = set()
 
+    def reset_for_recovery(self, bindings_list) -> None:
+        """Forget the device arrays and stored violation masks this
+        executor left on each of ``bindings_list``, after a backend
+        recovery (resilience/supervisor.py): a later dispatch over them
+        uploads and evaluates afresh.  The kernel modules stay loaded:
+        the CUDA context is the same one."""
+        for b in bindings_list:
+            caches = b.__dict__.get("_device_caches")
+            if caches is not None:
+                caches.pop(id(self), None)
+            masks = b.__dict__.get("_viol_masks")
+            if masks is not None:
+                for key in [k for k in masks if k[0] == id(self)]:
+                    del masks[key]
+        self._devdelta_keys = set()
+
     # ------------------------------------------------------------------
     # uploads
 

@@ -78,7 +78,19 @@ format seconds, bytes uploaded and overlap reported in
 mode.  The reference's default, a pool of 8 dispatch threads, lost to
 it on the card's host at every store measured (ROADMAP Queue C).
 ``explain_pair`` dumps one (constraint, resource) pair through the plain
-evaluator.  Sharding is not part of this port yet.
+evaluator.
+
+Each driver reads the backend supervisor of its device
+(resilience/supervisor.py): ``scalar_only`` is true while it is not
+healthy, so a device lost mid-sweep (the ``device_lost`` seam, or a
+failed re-probe) moves the remaining kinds to the scalar oracle, and a
+recovery drops the device state the driver left (``_on_backend_recovered``).
+Under ``GATEKEEPER_SNAPSHOT_DIR`` (resilience/snapshot.py) template
+install reads and writes the lowered-IR tier, the dedup plan its tier,
+and ``save_store_snapshot`` / ``restore_store_snapshot`` persist the
+store with the ledger's pagemap, which the first paged sweep of a
+restarted process adopts per kind instead of a cold build.  Sharding is
+not part of this port yet.
 """
 
 from __future__ import annotations
@@ -104,7 +116,9 @@ from gatekeeper_tpu_torch.engine.executor import (BG_SHUTDOWN,
                                                   spawn_bg)
 from gatekeeper_tpu_torch.ir.lower import CannotLower, lower_template
 from gatekeeper_tpu_torch.ir.prep import build_bindings
+from gatekeeper_tpu_torch.resilience import faults
 from gatekeeper_tpu_torch.rego.values import Obj, freeze
+from gatekeeper_tpu_torch.utils.gcpause import BulkLoad
 from gatekeeper_tpu_torch.utils.metrics import Metrics
 
 
@@ -284,15 +298,14 @@ class TorchTargetState(TargetState):
         self.memsurfaces: dict[str, object] = {}
         # continuous enforcement (enforce/ledger.py): the target's
         # VerdictLedger (created on the first paged sweep), a restored
-        # pagemap awaiting adoption (always None: the port has no
-        # snapshot tier yet), and the dirty-log overflow watermark
-        # already exported to metrics
+        # pagemap snapshot awaiting per-kind adoption, and the dirty-log
+        # overflow watermark already exported to metrics
         self.ledger = None
         self.ledger_restored: dict | None = None
         self.dirtylog_overflows_seen = 0
         # device-resident pages (enforce/devpages.py): per-kind
         # KindPages (resident mask + page table), and snapshot geometry
-        # awaiting adoption (always None without a snapshot tier)
+        # awaiting adoption by the first devpages sweep
         self.devpages: dict[str, object] = {}
         self.devpages_geom: dict | None = None
         # kind -> last device sweep payload + guards, for footprint-
@@ -353,6 +366,13 @@ class TorchDriver(LocalDriver):
         self.executor = ProgramExecutor(device)
         self.device = self.executor.device
         self.metrics = Metrics()
+        # the serving posture of this driver's device (one supervisor a
+        # device, resilience/supervisor.py): scalar_only reads it per
+        # dispatch, and a recovery drops the device state it left
+        from gatekeeper_tpu_torch.resilience.supervisor import \
+            get_supervisor
+        self.supervisor = get_supervisor(self.device)
+        self.supervisor.add_recovery_listener(self, "_on_backend_recovered")
         # serializes reader-side cache fills (bindings/mask prep):
         # racing audit readers would otherwise interleave interner
         # appends and column/cache mutations across kinds
@@ -380,11 +400,42 @@ class TorchDriver(LocalDriver):
 
     @property
     def scalar_only(self) -> bool:
-        """True when the device path is degraded and every kind must
-        run on the scalar oracle.  The port has no resilience supervisor
-        yet (the reference's health probes and breaker), so the device
-        path is never degraded here: always False."""
-        return False
+        """Is the device path unavailable *right now*?  A property, not
+        a construction-time bool: serving paths re-consult the backend
+        supervisor of this driver's device per dispatch, so a mid-sweep
+        degradation routes the remaining kinds through the scalar oracle
+        and a recovery routes later sweeps back onto the device."""
+        return not self.supervisor.use_device()
+
+    def _on_backend_recovered(self) -> None:
+        """Recovery listener: drop every device array, stored mask and
+        resident page this driver left on the device before it was lost,
+        so the next dispatch uploads and evaluates afresh (the bindings,
+        the stored masks, the devpages' resident pages, the selective-
+        reuse payloads and the dedup memo).  The kernel modules stay
+        loaded: the CUDA context is the same one.  Host state (the
+        store, the ledger's verdicts) stays.  (The supervisor logs a
+        listener's exception and goes on with the others.)"""
+        with self._prep_lock:
+            held = []
+            for st in self.state.values():
+                if not isinstance(st, TorchTargetState):
+                    continue
+                held += [b for _key, b in st.bindings_cache.values()]
+                held += [b for _ver, b in st.bindings_retired.values()]
+                held += [e["bindings"] for e in st.sweep_cache.values()]
+                st.bindings_cache = {}
+                st.bindings_retired = {}
+                st.mask_cache = {}
+                st.installed_match = {}
+                st.rank_cache = None
+                st.order_cache = None
+                st.sweep_cache = {}
+                st.devpages = {}
+            self.executor.reset_for_recovery(
+                [b for b in held if b is not None])
+            self._dedup_plan_memo.clear()
+        self.metrics.counter("backend_rejits").inc()
 
     def _start_delta_warm(self, items: list, rewritten: list = (),
                           st=None) -> None:
@@ -524,6 +575,81 @@ class TorchDriver(LocalDriver):
         return warm.seconds
 
     @locked
+    def save_store_snapshot(self, target: str) -> bool:
+        """Persist the target's columnar store (rows + interned string
+        table) for warm restart, with the verdict ledger's pagemap
+        companion: each kind's confirmed verdicts, the watch RV
+        watermark they were built at, and the kind's devpages geometry.
+        No-op unless GATEKEEPER_SNAPSHOT_DIR is set.  Every payload is
+        host data (resilience/snapshot.py)."""
+        from gatekeeper_tpu_torch.enforce.ledger import pages_mode
+        from gatekeeper_tpu_torch.resilience import snapshot as _snap
+        if not _snap.enabled():
+            return False
+        st = self._state(target)
+        ok = _snap.save_store(target, st.table.snapshot_state())
+        if ok and isinstance(st, TorchTargetState):
+            if st.ledger is not None and st.ledger.entries:
+                # the ledger's confirmed verdicts ride the same snapshot
+                # so a warm restart adopts them (per kind, revalidated by
+                # constraint digest + row count) instead of paying a cold
+                # build.  Ledger entries are keyed by constraint kind and
+                # the store watermark by resource kind, so each entry
+                # gets the global epoch (RVs are cluster-global) and the
+                # per-resource-kind map rides along under a reserved key
+                # for the reactor's per-stream floors
+                payload = st.ledger.snapshot_payload()
+                wm = st.table.rv_watermark()
+                wm_max = max(wm.values(), default=0)
+                for kind, p in payload.items():
+                    p["rv"] = max(int(p.get("rv", 0) or 0), wm_max)
+                    # the device pagemap's geometry rides the pg tier: a
+                    # restart adopting the verdicts also adopts the paged
+                    # layout, so the first device sweep derives nothing
+                    kp = st.devpages.get(kind)
+                    if kp is not None and getattr(kp, "slots", 0):
+                        p["devpages"] = kp.geometry()
+                if wm:
+                    payload["__rv__"] = dict(wm)
+                _snap.save_pagemap(target, payload)
+            elif pages_mode():
+                # pages-on deployment snapshotted before the first sweep
+                # built a ledger: an empty pagemap makes the restore a
+                # hit with zero adoptions, not a spurious tier miss
+                _snap.save_pagemap(target, {})
+        return ok
+
+    @locked
+    def restore_store_snapshot(self, target: str) -> bool:
+        """Warm restart: rebuild the target's columnar store from the
+        on-disk snapshot instead of replaying the full inventory, and
+        stage the pagemap's verdicts for adoption by the first paged
+        sweep.  Only valid on a fresh (empty) store; returns False on
+        miss, disabled persistence, or a non-empty table."""
+        from gatekeeper_tpu_torch.enforce.ledger import pages_mode
+        from gatekeeper_tpu_torch.resilience import snapshot as _snap
+        st = self._state(target)
+        if len(st.table) > 0:
+            return False
+        # the restore is the cold ingest's counterpart: a cluster's worth
+        # of objects in one burst, so it pauses (and past the ingest's
+        # threshold freezes) the cyclic GC as Client.add_data_batch does
+        with BulkLoad() as load:
+            hit = _snap.load_store(target)
+            if hit is None:
+                return False
+            st.table.restore_state(hit[0])
+            load.n_objects = len(st.table)
+            # the pagemap tier only exists for paged deployments: with
+            # pages off the ledger is never consulted, so no tier miss
+            # is charged
+            if isinstance(st, TorchTargetState) and pages_mode():
+                hitpg = _snap.load_pagemap(target)
+                st.ledger_restored = hitpg[0] if hitpg is not None \
+                    else None
+        return True
+
+    @locked
     def adopt_store(self, target: str, state: dict) -> None:
         """Swap the target's columnar store for a fresh table built
         from a ``snapshot_state()`` payload: the load-a-snapshot-as-a-
@@ -639,14 +765,25 @@ class TorchDriver(LocalDriver):
     def put_template(self, target: str, kind: str,
                      compiled: CompiledTemplate) -> None:
         if compiled.vectorized is None:
-            try:
-                compiled.vectorized = lower_template(compiled.module,
-                                                     compiled.interp)
-            except CannotLower:
-                compiled.vectorized = None  # scalar fallback
-            if compiled.vectorized is not None:
-                compiled.vectorized = self._verify_lowered(
-                    kind, compiled.vectorized)
+            from gatekeeper_tpu_torch.resilience import snapshot as _snap
+            hit = _snap.load_template_ir(kind, target, compiled.source)
+            if hit is not None:
+                # warm restart: lowering AND stage-2 verification are
+                # skipped — the snapshot stores the verified outcome
+                # (possibly None: a known-scalar-only certificate)
+                compiled.vectorized = hit[0]
+                self.metrics.counter("template_ir_snapshot_hits").inc()
+            else:
+                try:
+                    compiled.vectorized = lower_template(compiled.module,
+                                                         compiled.interp)
+                except CannotLower:
+                    compiled.vectorized = None  # scalar fallback
+                if compiled.vectorized is not None:
+                    compiled.vectorized = self._verify_lowered(
+                        kind, compiled.vectorized)
+                _snap.save_template_ir(kind, target, compiled.source,
+                                       compiled.vectorized)
         st = self._state(target)
         if isinstance(st, TorchTargetState):
             # stage 5 (dependency footprint), then stage 6 (partition
@@ -1209,12 +1346,13 @@ class TorchDriver(LocalDriver):
         """The cross-template predicate dedup plan of the installed set,
         or None when no kind is lowered and constrained.  Memoized by
         the set's digest (templates' sources and constraint documents),
-        so a template or constraint change makes a new plan.  Unlike the
+        so a template or constraint change makes a new plan, and kept in
+        the warm-restart snapshot tier under that digest.  Unlike the
         reference's, an exception of the build is raised: the sweep
         ends with it.  Caller holds ``_prep_lock``."""
-        import hashlib
         import json
         from gatekeeper_tpu_torch.analysis.policyset import build_dedup_plan
+        from gatekeeper_tpu_torch.resilience import snapshot as _snap
         dkinds = {}
         for k in sorted(st.templates):
             cons = self._kind_constraints(st, k)
@@ -1222,15 +1360,23 @@ class TorchDriver(LocalDriver):
                 dkinds[k] = (st.templates[k].vectorized, cons)
         if not dkinds:
             return None
-        h = hashlib.sha256()
-        for k, (_low, cons) in dkinds.items():
-            h.update(f"{k}|{st.templates[k].source}|".encode())
-            h.update(json.dumps(cons, sort_keys=True, default=str).encode())
-        pdigest = h.hexdigest()
+        parts = [
+            f"{k}|{_snap.template_digest(k, target, st.templates[k].source)}|"
+            + json.dumps(cons, sort_keys=True, default=str)
+            for k, (_low, cons) in dkinds.items()]
+        pdigest = _snap.policyset_digest(parts)
         memo = self._dedup_plan_memo.get(target)
         if memo is not None and memo[0] == pdigest:
             return memo[1]
-        plan = build_dedup_plan(dkinds)
+        # the plan is a pure function of the installed set: persisted to
+        # the warm-restart snapshot tier, so a restarted process loads it
+        # instead of re-running the whole-policy-set analysis
+        hit = _snap.load_dedup_plan(pdigest)
+        if hit is not None:
+            plan = hit[0]
+        else:
+            plan = build_dedup_plan(dkinds)
+            _snap.save_dedup_plan(pdigest, plan)
         self._dedup_plan_memo[target] = (pdigest, plan)
         # plan changed: drop cross-sweep shared columns whose digest is
         # no longer in the live group set
@@ -1571,7 +1717,13 @@ class TorchDriver(LocalDriver):
         ex = self.executor
         kp = st.devpages.get(kind)
         if kp is None:
-            kp = st.devpages[kind] = _dvp.KindPages(kind=kind)
+            kp = _dvp.KindPages(kind=kind)
+            if st.devpages_geom:
+                # a warm restart's geometry stashed by a host-paged sweep
+                geom = st.devpages_geom.pop(kind, None)
+                if isinstance(geom, dict) and kp.adopt_geometry(geom):
+                    dv["geometry_adopted"] += 1
+            st.devpages[kind] = kp
         h2d0 = ex.h2d_bytes
         sc0, sr0 = ex.h2d_scatter_bytes, ex.h2d_scatter_rows
         try:
@@ -1801,6 +1953,46 @@ class TorchDriver(LocalDriver):
         ent = led.entry(kind)
         conver = self.con_version_of(st, kind)
         condigest = _ledger_digest(constraints)
+        if ent.gen < 0 and st.ledger_restored:
+            # warm restart: adopt the snapshot's verdicts when the
+            # constraint set (by the port's own digest) and the row space
+            # still match the restored table — zero cold full builds
+            payload = st.ledger_restored.pop(kind, None)
+            if payload is not None and led.adopt(kind, payload, condigest,
+                                                 table, conver):
+                ent = led.entry(kind)
+                self.metrics.counter("ledger_snapshot_adoptions").inc()
+                geom = payload.get("devpages")
+                if isinstance(geom, dict):
+                    if dv is not None:
+                        # adopt the device pagemap's geometry now: a
+                        # clean restart may have nothing dirty, so the
+                        # first devpages sweep (which would pop a stash)
+                        # can be arbitrarily far away
+                        from gatekeeper_tpu_torch.enforce import \
+                            devpages as _dvp_mod
+                        kp = st.devpages.get(kind)
+                        if kp is None:
+                            kp = st.devpages[kind] = _dvp_mod.KindPages(
+                                kind=kind)
+                        if kp.adopt_geometry(geom):
+                            dv["geometry_adopted"] += 1
+                    else:
+                        # devpages off this sweep: stash it for the first
+                        # devpages sweep to adopt
+                        if st.devpages_geom is None:
+                            st.devpages_geom = {}
+                        st.devpages_geom[kind] = geom
+                if dv is not None and self._devpages_active(compiled):
+                    # seed the resident mask from the restored table (one
+                    # K1 and one K6, the stream unread), so the first
+                    # churned sweep deltas against the adopted verdicts'
+                    # mask instead of reconciling against zeros, which
+                    # would confirm every violating row on the host
+                    # (the reference reconciles: ROADMAP Queue C)
+                    self._devpaged_kind(st, target, handler, compiled,
+                                        constraints, kind, led, ent, conver,
+                                        rcache, pg, dv, refresh_only=True)
         rebuild = None
         if ent.gen < 0:
             rebuild = "cold"
@@ -2063,9 +2255,9 @@ class TorchDriver(LocalDriver):
         against the existing ledger rows — the entry is marked cold but
         keeps its verdicts, so a clean resync emits zero events and a
         divergent one emits exactly the true appear/clear delta, never
-        a drop-and-replay phantom storm.  (The reference also discards
-        the kind's pending snapshot adoption here: the port has no
-        snapshot tier, ROADMAP A8.)"""
+        a drop-and-replay phantom storm.  Pending snapshot adoptions
+        for the kind are discarded: a resync exists precisely because
+        adopted state is suspect."""
         from gatekeeper_tpu_torch.enforce.ledger import pages_mode
         if not pages_mode():
             return None
@@ -2075,6 +2267,8 @@ class TorchDriver(LocalDriver):
         with self._prep_lock:
             led = st.ledger
             for k in self._react_kinds(st, kind):
+                if st.ledger_restored:
+                    st.ledger_restored.pop(k, None)
                 if led is not None:
                     ent = led.entries.get(k)
                     if ent is not None:
@@ -2142,10 +2336,8 @@ class TorchDriver(LocalDriver):
         return out
 
     def ledger_rv(self, target: str, kind: str) -> int:
-        """The kind's live RV watermark (0 = none recorded) — seeds the
-        reactor's first-event staleness check.  (The reference also
-        reads a restored snapshot's watermark map here: the port has no
-        snapshot tier, ROADMAP A8, so nothing fills ``ledger_restored``.)"""
+        """The kind's adopted/live RV watermark (0 = none recorded) —
+        seeds the reactor's first-event staleness check on restart."""
         st = self._state(target)
         if not isinstance(st, TorchTargetState):
             return 0
@@ -2154,6 +2346,22 @@ class TorchDriver(LocalDriver):
             ent = led.entries.get(kind)
             if ent is not None and ent.rv:
                 return int(ent.rv)
+        if st.ledger_restored:
+            # resource-kind floors from the snapshot's watermark map
+            # (reactor streams are keyed by resource kind; the ledger
+            # entries below are keyed by constraint kind)
+            wm = st.ledger_restored.get("__rv__")
+            if isinstance(wm, dict) and kind in wm:
+                try:
+                    return int(wm[kind] or 0)
+                except (TypeError, ValueError):
+                    return 0
+            payload = st.ledger_restored.get(kind)
+            if isinstance(payload, dict):
+                try:
+                    return int(payload.get("rv", 0) or 0)
+                except (TypeError, ValueError):
+                    return 0
         return 0
 
     def store_generation(self, target: str) -> int:
@@ -2302,6 +2510,16 @@ class TorchDriver(LocalDriver):
         st = self._state(target)
         if not isinstance(st, TorchTargetState):
             return super().query_audit(target, opts)
+        # a sweep allocates in bursts (the row order of a cold store; a
+        # cold ledger build confirms every pair on the host and keeps
+        # each verdict): the collector is paused for it, as for a bulk
+        # load, and its first pass after the sweep sees the burst once
+        # instead of rescanning a cluster's heap along the way
+        with BulkLoad():
+            return self._query_audit(st, target, opts, t_start)
+
+    def _query_audit(self, st, target: str, opts: QueryOpts | None,
+                     t_start: float) -> tuple[list[Result], str | None]:
         tracing = opts.tracing if opts is not None else self.default_tracing
         limit = opts.limit_per_constraint if opts is not None else None
         full = opts.full if opts is not None else False
@@ -2466,7 +2684,16 @@ class TorchDriver(LocalDriver):
                 # forced full sweeps (no paged kinds) dispatch in the
                 # Stage-8 order; phase 2's tagged sort keeps the results
                 sweep_kinds = self.memsurface_sweep_order(st, sweep_kinds)
-            for kind in sweep_kinds:
+            for kind_i, kind in enumerate(sweep_kinds):
+                # fault injection: lose the card mid-sweep (after the
+                # first kind when there are several) — scalar_only
+                # re-consults the supervisor below, so the remaining
+                # kinds run on the scalar oracle and the sweep completes
+                # with correct verdicts
+                if (kind_i > 0 or len(sweep_kinds) == 1) \
+                        and faults.take("device_lost"):
+                    self.supervisor.report_failure(
+                        "fault injection: device_lost mid-sweep")
                 tk = time.perf_counter()
                 compiled = st.templates[kind]
                 constraints = self._kind_constraints(st, kind)
@@ -2498,7 +2725,8 @@ class TorchDriver(LocalDriver):
                         continue
                 mask, mask_delta, padded = self._kind_mask(
                     st, target, kind, constraints)
-                small = len(ordered_rows) * len(constraints) \
+                small = self.scalar_only or \
+                    len(ordered_rows) * len(constraints) \
                     < SMALL_WORKLOAD_EVALS
                 if compiled.vectorized is None or mask is None or small:
                     # unlowerable template — or a workload too small to

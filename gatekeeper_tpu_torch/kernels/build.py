@@ -1,14 +1,15 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
-library with a plain C interface under :func:`build_dir`,
-named by a hash of the source so an edited kernel rebuilds and an
-unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing
+library with a plain C interface under :func:`build_dir` (in a
+subdirectory keyed by the card and toolchain), named by a hash of the
+source so an edited kernel rebuilds and an unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing
 library, all at once, and waits for them; :func:`load` builds on first
 use and opens the library with ``ctypes``; :func:`entry` hands out a C
-entry point with its argument types bound once.  Nothing here runs at
-import time: the CPU tests import every module on hosts without
-``nvcc``.
+entry point with its argument types bound once.  Each library looked up
+counts in the build caches' stats (utils/compile_cache.py): found on
+disk a hit, built by ``nvcc`` a miss.  Nothing here runs at import
+time: the CPU tests import every module on hosts without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -63,24 +64,35 @@ def build_dir() -> str:
 
 
 def so_path(name: str) -> str:
+    """The library of ``csrc/<name>.cu``: under the build directory's
+    subdirectory for this card and toolchain (utils/compile_cache.py
+    ``resolve_cache_path``), named by the source's hash, so a tree
+    carried to another card or toolchain builds anew."""
+    from gatekeeper_tpu_torch.utils.compile_cache import resolve_cache_path
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(build_dir(), f"lib{name}_{digest}.so")
+    return os.path.join(resolve_cache_path("cuda", build_dir()),
+                        f"lib{name}_{digest}.so")
 
 
 def build(names=KERNELS) -> dict[str, float]:
     """Compile every missing library in ``names`` in parallel; returns
     seconds per library actually built (0.0 for one already built).
     Raises RuntimeError with nvcc's output when a build fails."""
-    os.makedirs(build_dir(), exist_ok=True)
+    from gatekeeper_tpu_torch.utils.compile_cache import \
+        persistent_cache_stats
+    stats = persistent_cache_stats()
     procs = {}
     out: dict[str, float] = {}
     for name in names:
         path = so_path(name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
         if os.path.exists(path):
             out[name] = 0.0
+            stats.note_nvcc(built=False)
             continue
+        stats.note_nvcc(built=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", GENCODE, "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
@@ -110,9 +122,9 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
+            # build() counts the library a hit or a miss
             path = so_path(name)
-            if not os.path.exists(path):
-                build((name,))
+            build((name,))
             lib = _LIBS[name] = ctypes.CDLL(path)
     return lib
 

@@ -104,6 +104,7 @@ import torch
 from gatekeeper_tpu_torch.ir.prep import binding_axes
 from gatekeeper_tpu_torch.ir.program import Program
 from gatekeeper_tpu_torch.kernels import build
+from gatekeeper_tpu_torch.utils import compile_cache
 
 _ALWAYS = "ONE"     # the all-true [1, 1, 1] block: "always defined"
 
@@ -780,6 +781,17 @@ def _load_kernel(src: str):
     return mod.ir_kernel
 
 
+def _variants(kern) -> int | None:
+    """Variants Triton's JIT holds in memory for one kernel (None where
+    this Triton keeps them elsewhere)."""
+    caches = getattr(kern, "device_caches", None)
+    if caches is not None:
+        return sum(len(c[0]) for c in caches.values())
+    if isinstance(getattr(kern, "cache", None), dict):
+        return sum(len(c) for c in kern.cache.values())
+    return None
+
+
 def _kernel_for(program: Program, sig: dict[str, tuple[str, tuple]]):
     # the source unrolls over the key count of every cset ``.B``
     key = (program.cache_key(),
@@ -918,8 +930,16 @@ def _launch(program: Program, arrays: dict, out: torch.Tensor,
             with _COMPILE_LOCK:
                 ck = plan.compiled.get(aligned)
                 if ck is None:
+                    entries = compile_cache.triton_cache_entries()
+                    v0 = _variants(plan.kern)
                     ck = plan.kern[plan.grid](*args, plan.r_pad, n_rows,
                                               *plan.tail, **plan.kw)
+                    v1 = _variants(plan.kern)
+                    if v0 is None or v1 is None or v1 > v0:
+                        # a variant made ready: from Triton's disk cache
+                        # when the compile left no new cache entry
+                        compile_cache.persistent_cache_stats().note_triton(
+                            compile_cache.triton_cache_entries() > entries)
                     if hasattr(ck, "__getitem__"):
                         plan.compiled[aligned] = ck
                     return plan

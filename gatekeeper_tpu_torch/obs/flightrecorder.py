@@ -11,10 +11,9 @@ raises, so it is safe to call from any seam including failure paths.
 export (so the in-flight sweep's span tree survives) to a JSON
 artifact under ``GATEKEEPER_FLIGHT_DIR`` (default
 ``$TMPDIR/gatekeeper-flight``), pruning to the newest
-``GATEKEEPER_FLIGHT_KEEP`` (default 20) files.  In the port it is
-invoked on ``GATEKEEPER_FAULT=*`` trips (resilience/faults.py); the
-reference also dumps on its backend supervisor's degradation, which
-the port does not have yet (ROADMAP A8).
+``GATEKEEPER_FLIGHT_KEEP`` (default 20) files.  It is invoked on
+``GATEKEEPER_FAULT=*`` trips (resilience/faults.py) and on a backend
+supervisor's degradation (resilience/supervisor.py).
 
 Admission corpus (replay and rollout read it): with
 ``GATEKEEPER_FLIGHT_ADMISSION=1`` the webhook also persists each

@@ -85,14 +85,26 @@ def dfa_digest(pattern: str) -> str:
 
 def cached_dfa(pattern: str):
     """compile_dfa with a bounded process-wide memo (None results
-    cached too: unsupported patterns should not re-parse per rebuild).
-    The port has no snapshot tier yet, so every process compiles each
-    pattern once."""
+    cached too: unsupported patterns should not re-parse per rebuild)
+    backed by the snapshot tier: a warm restart loads every compiled
+    table (or negative certificate) instead of re-running subset
+    construction."""
     global compiles_run
     if pattern in _dfa_cache:
         return _dfa_cache[pattern]
-    compiles_run += 1
-    dfa = compile_dfa(pattern)
+    from gatekeeper_tpu_torch.resilience import snapshot
+    dfa = None
+    got = snapshot.load_dfa(dfa_digest(pattern)) if snapshot.enabled() \
+        else None
+    if got is not None:
+        (dfa,) = got
+        if dfa is not None and not isinstance(dfa, DFA):
+            dfa, got = None, None           # foreign payload: recompile
+    if got is None:
+        compiles_run += 1
+        dfa = compile_dfa(pattern)
+        if snapshot.enabled():
+            snapshot.save_dfa(dfa_digest(pattern), dfa)
     while len(_dfa_cache) >= DFA_CACHE_MAX:
         _dfa_cache.pop(next(iter(_dfa_cache)))
     _dfa_cache[pattern] = dfa

@@ -4,6 +4,17 @@
 Tests and CI arm faults through the environment; the production code
 consults this module at the exact seams a real failure would hit:
 
+- ``probe_hang``       — the backend supervisor's re-probe parks
+                         forever, simulating a card whose driver call
+                         never returns; the probe's join deadline
+                         passes and the supervisor is poisoned
+                         (resilience/supervisor.py).
+- ``device_lost``      — fires ONCE, mid-sweep, demoting the backend
+                         supervisor of the sweeping driver's device as
+                         if the card died under a dispatched kernel.
+- ``snapshot_corrupt`` — fires ONCE per snapshot read, making the
+                         loader treat the entry as corrupt; exercises
+                         the delete-and-rebuild path.
 - ``queue_storm``      — fires ONCE, stalling admission batch
                          formation so the bounded queue fills and the
                          overload ladder engages (a simulated consumer
@@ -51,16 +62,8 @@ Watch-class faults (consumed at the reactor's ingest edge,
 are one-shot per process (the set of already-fired names is kept here)
 so a single armed fault produces one discrete failure event rather
 than a permanently broken subsystem.  ``rearm`` forgets that a one-shot
-fault fired.
-
-Trimmed for the port: the seams of ``probe_hang`` and ``device_lost``
-(the backend supervisor, ROADMAP A8) and ``snapshot_corrupt`` (the
-snapshot tier, A8) are not in the port yet.
-Arming one of them raises ``ClientError`` naming its item wherever the
-armed set is read (``check_armed``, ``active``, ``take``): a fault that
-no seam would fire is never silently ignored.  A fired fault is put on
-the flight recorder's ring and the ring is dumped to disk
-(obs/flightrecorder.py ``dump``).
+fault fired.  A fired fault is put on the flight recorder's ring and
+the ring is dumped to disk (obs/flightrecorder.py ``dump``).
 """
 
 from __future__ import annotations
@@ -68,34 +71,13 @@ from __future__ import annotations
 import os
 import threading
 
-from gatekeeper_tpu_torch.errors import ClientError
-
 _fired: set[str] = set()
 _lock = threading.Lock()
-
-UNPORTED = {
-    "probe_hang": "ROADMAP A8, the backend supervisor",
-    "device_lost": "ROADMAP A8, the backend supervisor",
-    "snapshot_corrupt": "ROADMAP A8, the snapshot tier",
-}
 
 
 def _armed() -> set[str]:
     spec = os.environ.get("GATEKEEPER_FAULT", "")
-    armed = {f.strip() for f in spec.split(",") if f.strip()}
-    missing = sorted(armed & set(UNPORTED))
-    if missing:
-        raise ClientError(
-            f"GATEKEEPER_FAULT={spec}: the seam of {missing[0]} is not yet "
-            f"ported to gatekeeper_tpu_torch ({UNPORTED[missing[0]]}); "
-            f"unset it")
-    return armed
-
-
-def check_armed() -> None:
-    """Raise ClientError when GATEKEEPER_FAULT arms a fault whose seam
-    the port lacks (entry points call it before they start)."""
-    _armed()
+    return {f.strip() for f in spec.split(",") if f.strip()}
 
 
 def active(name: str) -> bool:

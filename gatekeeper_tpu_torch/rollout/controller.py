@@ -22,10 +22,9 @@ plus two off-ramps: ``rejected`` (an evidence gate failed; nothing was
 ever installed) and ``rolled_back`` (a brownout escalation ≥ SHED_WARN
 landed during the rollout window — the OverloadController listener
 restores the pre-rollout policy set atomically and flight-records the
-evidence).  The reference persists every transition as its ninth
-snapshot tier ("ro") so a warm restart resumes mid-rollout; the port has
-no snapshot tier yet (ROADMAP A8): ``_persist`` keeps nothing, and
-``resume`` refuses to run under ``GATEKEEPER_SNAPSHOT_DIR``.
+evidence).  Every transition persists in the snapshot tier "ro"
+(resilience/snapshot.py), so a warm restart resumes mid-rollout
+(``resume``).
 
 The candidate client of the replay gate and the standalone parity
 oracle run on a ``TorchDriver`` on the live driver's device.
@@ -169,26 +168,50 @@ class PromotionController:
             self._persist()
             return new_state
 
-    # -- persistence (the reference's ninth snapshot tier)
+    # -- persistence (the ninth snapshot tier)
 
     def _persist(self) -> None:
-        """Keeps nothing: the snapshot tier the reference writes each
-        transition to is not ported (ROADMAP A8)."""
+        try:
+            from gatekeeper_tpu_torch.resilience import snapshot as snap
+            snap.save_rollout(self.name, {
+                "state": self.state,
+                "installed": self.installed,
+                "pre_fingerprint": self.pre_fingerprint,
+                "history": self.history[-32:],
+                "prior_constraints": [
+                    [list(k), v] for k, v in
+                    self._prior_constraints.items()],
+                "prior_templates": [
+                    [k, list(v)] for k, v in
+                    self._prior_templates.items()],
+            })
+        except Exception:   # noqa: BLE001 — persistence is best-effort
+            pass
 
     def resume(self) -> bool:
-        """Warm-restart entry.  Without a snapshot directory there is
-        nothing to resume from: False, as the reference returns on a
-        snapshot miss.  With ``GATEKEEPER_SNAPSHOT_DIR`` set it raises
-        ``ClientError``: resuming from the snapshot tier waits for
-        ROADMAP A8."""
-        import os
-        if os.environ.get("GATEKEEPER_SNAPSHOT_DIR"):
-            from gatekeeper_tpu_torch.errors import ClientError
-            raise ClientError(
-                "PromotionController.resume: GATEKEEPER_SNAPSHOT_DIR is "
-                "set, but the rollout's snapshot tier is not yet ported to "
-                "gatekeeper_tpu_torch (ROADMAP A8, the snapshot tier)")
-        return False
+        """Warm-restart entry: restore the persisted state machine and
+        re-apply the installed rung's enforcement to the (fresh) live
+        client, so the rollout resumes at the same rung it was at."""
+        from gatekeeper_tpu_torch.resilience import snapshot as snap
+        hit = snap.load_rollout(self.name)
+        if hit is None:
+            return False
+        payload = hit[0]
+        with self._lock:
+            self.state = payload.get("state", "candidate")
+            self.installed = payload.get("installed")
+            self.pre_fingerprint = payload.get("pre_fingerprint")
+            self.history = list(payload.get("history") or [])
+            self._prior_constraints = {
+                tuple(k): v for k, v in
+                (payload.get("prior_constraints") or [])}
+            self._prior_templates = {
+                k: tuple(v) for k, v in
+                (payload.get("prior_templates") or [])}
+            if self.installed in ENFORCE_RUNGS:
+                self._apply_rung(self.installed, snapshot_prior=False)
+            self._gauge()
+        return True
 
     # -- the state machine -------------------------------------------------
 

@@ -9,9 +9,10 @@ Here the same three objects are written through the cluster protocol
 the self-signed serving cert is generated with the system openssl when
 the cert dir is empty (no cert library is vendored).
 
-In the port the VWC's serving-posture annotations state what
-``/healthz`` states (healthy, on the driver's device); re-annotating on
-a backend recovery waits for the supervisor (ROADMAP A8).
+The VWC's serving-posture annotations state what ``/healthz`` states:
+the backend supervisor's state and backend for the serving driver's
+device (resilience/supervisor.py), refreshed when that device recovers;
+without a supervisor (a driver with no device), healthy on ``backend``.
 """
 
 from __future__ import annotations
@@ -106,13 +107,14 @@ def bootstrap_webhook(cluster, cert_dir: str, port: int,
                       webhook_name: str = DEFAULT_WEBHOOK_NAME,
                       namespace: str = NAMESPACE,
                       service: str = SERVICE_NAME,
-                      backend: str = "scalar") -> bool:
+                      backend: str = "scalar", supervisor=None) -> bool:
     """Install the serving secret + service + VWC (policy.go:81-100).
     Returns False (and installs nothing) when certs are unavailable —
     the operator then deploys manually, exactly the
-    ``-enable-manual-deploy`` posture.  ``backend`` names the device
-    admissions are served on (webhook/server.backend_of), for the
-    VWC's annotations."""
+    ``-enable-manual-deploy`` posture.  The VWC's annotations state the
+    posture of ``supervisor`` (the serving driver's device's) and are
+    refreshed on its recovery; without one, healthy on ``backend``
+    (webhook/server.backend_of)."""
     ca = ensure_certs(cert_dir, service, namespace)
     if ca is None:
         return False
@@ -148,7 +150,8 @@ def bootstrap_webhook(cluster, cert_dir: str, port: int,
                 "apiVersion": "admissionregistration.k8s.io/v1",
                 "kind": "ValidatingWebhookConfiguration",
                 "metadata": {"name": webhook_name,
-                             "annotations": _backend_annotations(backend)},
+                             "annotations": _backend_annotations(
+                                 backend, supervisor)},
                 "webhooks": [{**hook, "sideEffects": "None",
                               "admissionReviewVersions": ["v1", "v1beta1"]}]})
         except NotFoundError:
@@ -156,20 +159,54 @@ def bootstrap_webhook(cluster, cert_dir: str, port: int,
                 "apiVersion": "admissionregistration.k8s.io/v1beta1",
                 "kind": "ValidatingWebhookConfiguration",
                 "metadata": {"name": webhook_name,
-                             "annotations": _backend_annotations(backend)},
+                             "annotations": _backend_annotations(
+                                 backend, supervisor)},
                 "webhooks": [hook]})
     except ApiError:
         return False        # registration kinds not served: manual deploy
+    if supervisor is not None:
+        _watch_backend_recovery(cluster, webhook_name, supervisor)
     return True
 
 
-def _backend_annotations(backend: str) -> dict:
+def _backend_annotations(backend: str, supervisor=None) -> dict:
     """Serving-posture annotations on the VWC — the operator-visible
-    analogue of the reference's ``status.byPod[]`` report (BASELINE.md),
-    stating what ``/healthz`` states: the port has no backend supervisor
-    (ROADMAP A8) and no fallback backend, so the state is ``healthy``
-    and the backend is the driver's device.  The reference's
-    ``backend-reason`` annotation (set while degraded) and its
-    re-annotation on recovery come with the supervisor."""
-    return {"gatekeeper.sh/backend-state": "healthy",
-            "gatekeeper.sh/backend": backend}
+    analogue of the reference's ``status.byPod[]`` report (BASELINE.md):
+    failurePolicy stays Ignore either way (a degraded webhook serves
+    correct verdicts from the scalar oracle; it never fails closed),
+    but the annotations say which engine answers admissions right now.
+    Without a supervisor the driver has no device to lose: healthy, on
+    ``backend``."""
+    if supervisor is None:
+        return {"gatekeeper.sh/backend-state": "healthy",
+                "gatekeeper.sh/backend": backend}
+    st = supervisor.status()
+    ann = {"gatekeeper.sh/backend-state": st["state"],
+           "gatekeeper.sh/backend": st["backend"]}
+    if st["state"] != "healthy" and st["reason"]:
+        ann["gatekeeper.sh/backend-reason"] = st["reason"][:256]
+    return ann
+
+
+def _watch_backend_recovery(cluster, webhook_name: str, supervisor) -> None:
+    """Refresh the VWC's backend annotations when the supervisor
+    transitions back to healthy, so the operating report recovers with
+    the backend."""
+
+    def _refresh():
+        for api in ("admissionregistration.k8s.io/v1",
+                    "admissionregistration.k8s.io/v1beta1"):
+            try:
+                gvk = GVK.from_api_version(
+                    api, "ValidatingWebhookConfiguration")
+                obj = cluster.get(gvk, webhook_name)
+                meta = obj.setdefault("metadata", {})
+                ann = meta.setdefault("annotations", {})
+                ann.pop("gatekeeper.sh/backend-reason", None)
+                ann.update(_backend_annotations("", supervisor))
+                cluster.update(obj)
+                return
+            except ApiError:
+                continue
+
+    supervisor.on_recovery(_refresh)

@@ -32,8 +32,9 @@ decision is counted (``admission_shed_total{reason=}``).
 ``GATEKEEPER_BROWNOUT`` = ``auto`` (default) | ``off`` | ``0``..``4``
 (pin a rung — chaos/bench use this to hold a service level steady).
 
-In the port the supervisor floor is always HEALTHY: there is no backend
-supervisor yet (ROADMAP A8), and no degraded backend to floor.
+The floor reads the backend supervisor handed to the controller, the
+one of the serving driver's device (resilience/supervisor.py); without
+one (a driver that has no device) it is HEALTHY.
 """
 
 from __future__ import annotations
@@ -83,9 +84,11 @@ class OverloadController:
     float compares under a small lock."""
 
     def __init__(self, depth_fn, capacity: int,
-                 metrics: Metrics | None = None):
+                 metrics: Metrics | None = None, supervisor=None):
         # depth_fn: () -> current pending-queue depth (batcher.depth)
         self.depth_fn = depth_fn
+        # the serving driver's device supervisor (the floor), or None
+        self.supervisor = supervisor
         self.capacity = max(1, capacity)
         self.metrics = metrics if metrics is not None else Metrics()
         self._lock = threading.Lock()
@@ -118,12 +121,19 @@ class OverloadController:
         return os.environ.get("GATEKEEPER_BROWNOUT", "auto")
 
     def _supervisor_floor(self) -> int:
-        """Backend degradation sets a minimum rung in the reference (a
-        degraded or recovering backend at least SHED_DRYRUN, a poisoned
-        one SCALAR_ONLY).  The port has no backend supervisor (ROADMAP
-        A8) and no degraded backend: a kernel error ends the sweep or
-        the batch instead of moving it to a fallback, so the floor is
-        always HEALTHY."""
+        """Backend degradation sets a minimum rung: a degraded backend
+        is already slower (scalar fallback), so start shedding
+        observability-only work before the queue proves it; a poisoned
+        backend has no device path at all.  ``peek_state`` is one
+        attribute read — this runs per admission request."""
+        from gatekeeper_tpu_torch.resilience import supervisor
+        if self.supervisor is None:
+            return HEALTHY
+        st = self.supervisor.peek_state()
+        if st == supervisor.POISONED:
+            return SCALAR_ONLY
+        if st in (supervisor.DEGRADED, supervisor.RECOVERING):
+            return SHED_DRYRUN
         return HEALTHY
 
     def scalar_begin(self) -> None:

@@ -8,10 +8,10 @@ request body is a v1beta1 AdmissionReview; the response echoes the
 request UID.  TLS/cert bootstrap (policy.go:81-100) is deployment
 machinery a cluster would provide; the serving semantics live here.
 
-Trimmed for the port: ``/healthz`` answers 200 with ``state: healthy``
-and the driver's device (the reference's backend supervisor and its
-restart-cache counters are ROADMAP A8) and ``/metrics`` carries no
-supervisor registry.
+``/healthz`` and the ``gatekeeper_supervisor`` part of ``/metrics`` read
+the backend supervisor of the handler's driver's device
+(resilience/supervisor.py); a driver without a device (LocalDriver, an
+engine worker's remote driver) answers healthy on its ``backend_of``.
 """
 
 from __future__ import annotations
@@ -143,25 +143,35 @@ class WebhookServer:
 
             def do_GET(self):
                 """GET /metrics — Prometheus text exposition of the
-                shared registry (audit/admission/device counters).
-                GET /healthz — the serving posture as JSON, always 200
-                with ``state: healthy`` and the driver's device as the
-                backend (no supervisor in the port).  GET
+                shared registry (audit/admission/device counters) plus
+                the backend supervisor's gauges.  GET /healthz — the
+                supervisor's serving posture as JSON: 200 while the
+                driver's device is healthy, 503 when degraded/poisoned
+                (admissions still serve, via the scalar oracle — the
+                status code is for k8s readiness).  GET
                 /debug/violations and /debug/trace — the ledgers' and
                 the tracer's JSON exports."""
                 if self.path == "/healthz":
-                    # the keys the port can state: the reference's body
-                    # is its backend supervisor's status with restart
-                    # cache counters (ROADMAP A8).  The port has no
-                    # supervisor and no fallback backend — a kernel
-                    # error ends the sweep or the batch — so a serving
-                    # process is healthy on the driver's own device
                     import json as _json
-                    payload = _json.dumps(
-                        {"state": "healthy",
-                         "backend": backend_of(outer.handler.client)}
-                    ).encode()
-                    self.send_response(200)
+                    from gatekeeper_tpu_torch.resilience.snapshot import \
+                        restart_report
+                    from gatekeeper_tpu_torch.resilience.supervisor import \
+                        HEALTHY, supervisor_of
+                    sup = supervisor_of(
+                        getattr(outer.handler.client, "driver", None))
+                    if sup is None:
+                        body = {"state": HEALTHY,
+                                "backend": backend_of(outer.handler.client)}
+                    else:
+                        body = dict(sup.status())
+                        rep = restart_report()
+                        body["restart_persistent_cache_hits"] = \
+                            rep["restart_persistent_cache_hits"]
+                        body["restart_persistent_cache_misses"] = \
+                            rep["restart_persistent_cache_misses"]
+                    payload = _json.dumps(body).encode()
+                    self.send_response(
+                        200 if body["state"] == HEALTHY else 503)
                     self.send_header("Content-Type", "application/json")
                     self.send_header("Content-Length", str(len(payload)))
                     self.end_headers()
@@ -200,10 +210,18 @@ class WebhookServer:
                 if self.path != "/metrics":
                     self.send_error(404)
                     return
-                # (the reference appends its backend supervisor's own
-                # registry under the gatekeeper_supervisor prefix:
-                # ROADMAP A8, no supervisor in the port)
                 text = outer.metrics.render_prometheus()
+                from gatekeeper_tpu_torch.resilience.supervisor import \
+                    supervisor_of
+                sup = supervisor_of(
+                    getattr(outer.handler.client, "driver", None))
+                if sup is not None:
+                    # distinct prefix: the supervisor keeps its own
+                    # registry, and several of its names would otherwise
+                    # collide with the handler registry's in one
+                    # exposition
+                    text += sup.metrics.render_prometheus(
+                        prefix="gatekeeper_supervisor")
                 payload = text.encode()
                 self.send_response(200)
                 self.send_header("Content-Type",

@@ -7,9 +7,9 @@ Two time machines over the same engine path:
   (``ResourceTable.snapshot_state()``) as a *secondary* store under a
   fresh ``TorchDriver`` and audits it with whatever policy set you hand
   it: the live set for "what was violating last week", a candidate set
-  for "what would this change have rejected last week".  Reading a
-  payload back from the snapshot tier (`load_historical_store`) waits
-  for that tier (ROADMAP A8).
+  for "what would this change have rejected last week";
+  `load_historical_store` reads such a payload back from the store
+  snapshot tier of a live or historical snapshot root.
 - `replay_admissions` feeds a recorded AdmissionReview corpus
   (obs/flightrecorder, GATEKEEPER_FLIGHT_ADMISSION=1) back through a
   client's review path and compares verdicts against what was
@@ -25,11 +25,10 @@ import time
 
 def load_historical_store(target: str, root: str | None = None) -> dict | None:
     """The store-tier snapshot payload for ``target``, from the live
-    snapshot dir or an explicit historical ``root``.  The port has no
-    snapshot tier yet: this raises ``ClientError`` naming its item."""
-    from gatekeeper_tpu_torch.errors import ClientError
-    raise ClientError("load_historical_store: not yet ported to "
-                      "gatekeeper_tpu_torch (ROADMAP A8, the snapshot tier)")
+    snapshot dir or an explicit historical ``root``; None on miss."""
+    from gatekeeper_tpu_torch.resilience import snapshot as _snap
+    hit = _snap.load_store(target, root=root)
+    return hit[0] if hit is not None else None
 
 
 @dataclasses.dataclass

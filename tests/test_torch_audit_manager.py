@@ -252,18 +252,45 @@ def test_statuses_equal_the_reference(pages, monkeypatch):
 # the port's trims
 
 
-def test_report_states_no_backend_posture(setup):
-    """No supervisor in the port: the sweep report carries neither
-    ``backend_state`` nor ``degraded``."""
+def test_report_states_no_backend_posture(setup, monkeypatch, tmp_path):
+    """The sweep report carries the serving posture of the driver's
+    device, as the reference's does: ``backend_state`` healthy, then,
+    once the device is lost, ``degraded`` with its reason and the same
+    violations from the scalar oracle (a LocalDriver has no device to
+    lose).  Under GATEKEEPER_SNAPSHOT_DIR each sweep persists the store,
+    which a fresh driver restores.  The test keeps the name it had while
+    the port's report carried no posture."""
+    from gatekeeper_tpu_torch.resilience import supervisor as tsup
+    from gatekeeper_tpu_torch.target.k8s import TARGET_NAME
+    monkeypatch.setenv("GATEKEEPER_SUPERVISOR_REPROBE", "0")
+    monkeypatch.setenv("GATEKEEPER_SNAPSHOT_DIR", str(tmp_path))
     cluster, client, plane, am, _ = setup
     ingest_namespaces(cluster, client, n=6)
     cluster.create(template_obj())
     plane.run_until_idle()
     cluster.create(constraint_obj())
     plane.run_until_idle()
-    report = am.audit_once()
-    assert report["skipped"] is False and report["violations"] == 4
-    assert "backend_state" not in report and "degraded" not in report
+    tsup.reset_for_tests()
+    try:
+        report = am.audit_once()
+        assert report["skipped"] is False and report["violations"] == 4
+        assert report["backend_state"] == "healthy"
+        assert "degraded" not in report
+        if not isinstance(client.driver, TorchDriver):
+            return
+        fresh = TorchDriver(device="cpu")
+        fresh.init(client.driver.targets)
+        assert fresh.restore_store_snapshot(TARGET_NAME)
+        assert len(fresh._state(TARGET_NAME).table) == 6
+        client.driver.supervisor.report_failure("card lost")
+        report = am.audit_once(full=True)
+        assert report["violations"] == 4
+        assert report["backend_state"] == "degraded"
+        assert report["degraded"] is True
+        assert report["degraded_reason"] == "card lost"
+        assert am.metrics.counter("audit_sweeps_degraded").value == 1
+    finally:
+        tsup.reset_for_tests()
 
 
 class _FailingAudit:

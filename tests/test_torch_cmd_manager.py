@@ -28,7 +28,6 @@ from gatekeeper_tpu_torch.audit.manager import gvk_of_constraint
 from gatekeeper_tpu_torch.cmd.manager import Manager, parse_args, run_demo
 from gatekeeper_tpu_torch.engine import torch_driver
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-from gatekeeper_tpu_torch.errors import ClientError
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASIC = os.path.join(REPO, "demo", "basic")
@@ -273,27 +272,49 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("argv, env, item", [
-    ([], {"GATEKEEPER_SNAPSHOT_DIR": "/tmp/snapshots"}, "ROADMAP A8"),
+    ([], {"GATEKEEPER_SNAPSHOT_DIR": "snapshots"}, "ROADMAP A8"),
     ([], {"GATEKEEPER_FAULT": "device_lost"}, "ROADMAP A8"),
 ])
-def test_unported_flags_and_variables_raise(argv, env, item, monkeypatch):
-    """Each flag or variable that asks for a layer the port lacks is
-    refused by name, before a driver is built."""
+def test_unported_flags_and_variables_raise(argv, env, item, monkeypatch,
+                                            tmp_path):
+    """The variables ROADMAP A8 brought are accepted as the reference
+    accepts them: the manager builds its driver, and its demo sweep
+    holds the reference's 20 capped status violations.  Under
+    GATEKEEPER_SNAPSHOT_DIR the sweep persists the store there; with
+    ``device_lost`` armed the device is lost mid-sweep, the sweep
+    completes on the scalar oracle and reports the device degraded.
+    The test keeps the name, and ``item`` the case ids, it had while
+    the port refused these variables; nothing raises now."""
+    from gatekeeper_tpu_torch.resilience import faults
+    from gatekeeper_tpu_torch.resilience import snapshot as snap
+    from gatekeeper_tpu_torch.resilience import supervisor as tsup
+    monkeypatch.setenv("GATEKEEPER_SUPERVISOR_REPROBE", "0")
     for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    built = []
-    monkeypatch.setattr("gatekeeper_tpu_torch.cmd.manager.TorchDriver",
-                        lambda *a, **kw: built.append(1))
-    with pytest.raises(ClientError, match="not yet ported") as e:
-        Manager(parse_args(["--port", "-1"] + CPU + argv))
-    assert item in str(e.value)
-    assert built == []
+        monkeypatch.setenv(k, str(tmp_path / v) if k.endswith("_DIR")
+                           else v)
+    tsup.reset_for_tests()
+    faults.reset_for_tests()
+    try:
+        mgr = Manager(parse_args(["--port", "-1"] + CPU + argv))
+        assert isinstance(mgr.client.driver, TorchDriver)
+        out = run_demo(mgr, n_namespaces=40)
+        assert out["status_violations"] == 20
+        if "GATEKEEPER_SNAPSHOT_DIR" in env:
+            assert out["sweep"]["backend_state"] == "healthy"
+            assert snap.load_store(
+                "admission.k8s.gatekeeper.sh") is not None
+        else:
+            assert out["sweep"]["backend_state"] == "degraded"
+            assert "device_lost" in out["sweep"]["degraded_reason"]
+    finally:
+        tsup.reset_for_tests()
+        faults.reset_for_tests()
 
 
 def test_kubeconfig_builds_a_kube_cluster(tmp_path, monkeypatch):
     """``--kubeconfig`` binds the manager to a real apiserver through
     cluster/kube.py (here the HTTP stub of tests/fake_apiserver.py),
-    while the variables of layers still missing go on raising."""
+    and builds as well under GATEKEEPER_SNAPSHOT_DIR."""
     from gatekeeper_tpu.cluster.fake import FakeCluster as StubCluster
     from gatekeeper_tpu_torch.cluster.kube import KubeCluster
     from tests.fake_apiserver import FakeApiServer
@@ -317,10 +338,11 @@ def test_kubeconfig_builds_a_kube_cluster(tmp_path, monkeypatch):
         assert mgr.cluster._server == stub.url
         assert mgr.cluster._headers == {"Authorization": "Bearer t"}
         with monkeypatch.context() as m:
-            m.setenv("GATEKEEPER_SNAPSHOT_DIR", "/tmp/snapshots")
-            with pytest.raises(ClientError, match="not yet ported"):
-                Manager(parse_args(["--kubeconfig", str(path), "--port",
-                                    "-1"] + CPU))
+            m.setenv("GATEKEEPER_SNAPSHOT_DIR", str(tmp_path / "snaps"))
+            mgr = Manager(parse_args(["--kubeconfig", str(path), "--port",
+                                      "-1"] + CPU))
+            mgr.cluster.close()
+            assert isinstance(mgr.cluster, KubeCluster)
     finally:
         stub.stop()
 
@@ -392,15 +414,24 @@ def test_flight_admission_records_the_corpus(monkeypatch, tmp_path):
     assert [v["name"] for v in events[0]["verdicts"]] == ["ns-must-have-gk"]
 
 
-def test_main_sets_no_snapshot_dir(monkeypatch, capsys):
-    """The reference's main turns warm-restart snapshots on by default;
-    the port's leaves GATEKEEPER_SNAPSHOT_DIR alone (ROADMAP A8)."""
+def test_main_sets_no_snapshot_dir(monkeypatch, capsys, tmp_path):
+    """``main`` turns warm-restart snapshots on by default, as the
+    reference's does: GATEKEEPER_SNAPSHOT_DIR becomes
+    ``<cache_root>/snapshots``; one set by the caller (an empty one
+    disables them) is left alone.  The test keeps the name it had while
+    the port's ``main`` set none."""
     from gatekeeper_tpu_torch.cmd import manager as cmd
+    monkeypatch.setenv("GATEKEEPER_TORCH_CACHE_DIR", str(tmp_path))
     monkeypatch.delenv("GATEKEEPER_SNAPSHOT_DIR", raising=False)
     monkeypatch.setattr(cmd, "run_demo", lambda mgr: {"ok": True})
     assert cmd.main(["--demo", "--port", "-1"] + CPU) == 0
-    assert "GATEKEEPER_SNAPSHOT_DIR" not in os.environ
+    assert os.environ["GATEKEEPER_SNAPSHOT_DIR"] == \
+        os.path.join(str(tmp_path), "snapshots")
     assert json.loads(capsys.readouterr().out) == {"ok": True}
+    monkeypatch.setenv("GATEKEEPER_SNAPSHOT_DIR", "")
+    assert cmd.main(["--demo", "--port", "-1"] + CPU) == 0
+    assert os.environ["GATEKEEPER_SNAPSHOT_DIR"] == ""
+    capsys.readouterr()
 
 
 def test_reactor_under_pages_and_the_provider_kind_served(monkeypatch):

@@ -791,8 +791,7 @@ def test_slow_provider_drives_deadline_expiry(monkeypatch):
     wait on another caller's single-flight lease) gives up."""
     monkeypatch.setenv("GATEKEEPER_FAULT", "slow_provider")
     monkeypatch.setenv("GATEKEEPER_FAULT_STALL_S", "0.3")
-    faults.check_armed()                     # the seam is ported now
-    assert faults.active("slow_provider")
+    assert faults.active("slow_provider")   # the seam is ported now
     rt, fake = _install("torch", timeout_s=0.05, retries=0)
     t0 = time.monotonic()
     out = rt.prefetch("sig-prov", ["img-b"])

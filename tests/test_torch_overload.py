@@ -501,10 +501,45 @@ class TestQueueFullEnvelope:
 
 class TestSupervisorFloor:
     def test_floor_is_always_healthy(self, monkeypatch):
-        """No backend supervisor and no degraded backend in the port:
-        the ladder's floor never rises, so a calm queue reads HEALTHY."""
+        """A ladder handed no supervisor (a driver without a device) has
+        nothing to floor: a calm queue reads HEALTHY.  The floor of a
+        ladder with a supervisor is the next test's; this one keeps the
+        name it had while the port's ladder had no floor."""
         monkeypatch.setenv("GATEKEEPER_BROWNOUT", "auto")
         c = OverloadController(lambda: 0, capacity=10)
         assert c._supervisor_floor() == ol.HEALTHY
         assert c.rung() == ol.HEALTHY
         assert c.max_rung == ol.HEALTHY
+
+    @pytest.mark.parametrize("state, want", [
+        ("healthy", ol.HEALTHY), ("degraded", ol.SHED_DRYRUN),
+        ("recovering", ol.SHED_DRYRUN), ("poisoned", ol.SCALAR_ONLY)])
+    def test_floor_per_state_equals_the_reference(self, state, want,
+                                                  monkeypatch):
+        """The floor of each supervisor state, the port's ladder reading
+        the supervisor of its driver's device, the reference's its
+        process supervisor; a calm queue sits on the floor."""
+        from gatekeeper_tpu.resilience import supervisor as jsup
+        from gatekeeper_tpu.utils import device_probe
+        from gatekeeper_tpu.webhook.overload import \
+            OverloadController as JController
+        from gatekeeper_tpu_torch.resilience import supervisor as tsup
+        monkeypatch.setenv("GATEKEEPER_BROWNOUT", "auto")
+        monkeypatch.setenv("GATEKEEPER_SUPERVISOR_REPROBE", "0")
+        tsup.reset_for_tests()
+        device_probe.reset_for_tests()
+        try:
+            drv = TorchDriver(device="cpu")
+            rs = jsup.get_supervisor()
+            assert rs.state == jsup.HEALTHY
+            for sup in (drv.supervisor, rs):
+                sup._state = state
+            c = OverloadController(lambda: 0, capacity=10,
+                                   supervisor=drv.supervisor)
+            assert c._supervisor_floor() == \
+                JController(lambda: 0, capacity=10)._supervisor_floor() \
+                == want
+            assert c.rung() == want
+        finally:
+            tsup.reset_for_tests()
+            device_probe.reset_for_tests()

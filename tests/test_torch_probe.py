@@ -10,7 +10,9 @@ equal the reference's on the same files, ``--cost`` runs a measured
 forced full sweep, and each subcommand that needs a layer the port has
 not got raises ClientError naming its ROADMAP item."""
 
+import json
 import pytest
+import torch
 import yaml
 
 from gatekeeper_tpu.client import probe as ref_probe
@@ -203,13 +205,28 @@ def test_cost_runs_a_measured_sweep(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag, item", [
     ("--footprint", "A8"), ("--certify", "A8"),
-    ("--health", "A8"), ("--trace", "A8"), ("--pages", "A8"),
+    ("--trace", "A8"), ("--pages", "A8"),
     ("--compilesurface", "A8"), ("--memsurface", "A8"),
     ("--shardplan", "A10"),
 ])
 def test_unported_subcommands_raise_naming_their_item(flag, item):
     with pytest.raises(ClientError, match=f"not yet ported.*ROADMAP {item}"):
         probe.main([flag, "--device", "cpu"])
+
+
+def test_health_reports_the_device_asked_for(capsys):
+    """``--health`` (ported with the supervisor): the reference's JSON
+    line for the supervisor of the device asked for, rc 0 while it is
+    healthy; without a card the default device is ``unavailable``."""
+    assert probe.main(["--health", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    doc = json.loads(out[0])
+    assert doc["state"] == "healthy" and doc["backend"] == "cpu"
+    assert out[1] == "HEALTH OK (cpu)"
+    if not torch.cuda.is_available():
+        assert probe.main(["--health"]) == 2
+        doc = json.loads(capsys.readouterr().out.splitlines()[0])
+        assert doc["state"] == "unavailable"
 
 
 def test_policyset_report_equals_the_reference(capsys):

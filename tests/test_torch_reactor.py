@@ -64,7 +64,6 @@ from gatekeeper_tpu_torch.cluster import fake as tfake
 from gatekeeper_tpu_torch.engine import torch_driver
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
 from gatekeeper_tpu_torch.enforce import reactor as treactor
-from gatekeeper_tpu_torch.errors import ClientError
 from gatekeeper_tpu_torch.kernels import devdelta
 from gatekeeper_tpu_torch.library import all_docs as tall_docs
 from gatekeeper_tpu_torch.resilience import faults as tfaults
@@ -615,14 +614,23 @@ def test_faults_parse_and_fire_like_the_reference(spec, monkeypatch):
 @pytest.mark.parametrize("name, item", [
     ("probe_hang", "A8"), ("device_lost", "A8"), ("snapshot_corrupt", "A8")])
 def test_an_unported_seam_raises(name, item, monkeypatch):
+    """The seams of the supervisor and the snapshot tier (ROADMAP A8) are
+    ported: armed beside a watch seam, nothing raises any more, a reactor
+    builds, and each is active and fires once as the reference's does.
+    The test keeps the name, and ``item`` the case ids, it had while the
+    port refused these seams."""
     monkeypatch.setenv("GATEKEEPER_FAULT", f"watch_gap,{name}")
-    for fn in (tfaults.check_armed, lambda: tfaults.active("watch_gap"),
-               lambda: tfaults.take("watch_gap")):
-        with pytest.raises(ClientError, match=f"not yet ported.*{item}"):
-            fn()
+    for mod in (jfaults, tfaults):
+        mod.reset_for_tests()
+    assert tfaults.active("watch_gap") == jfaults.active("watch_gap")
+    assert tfaults.active(name) is jfaults.active(name) is True
+    fired = [[mod.take(n) for n in ("watch_gap", name) for _ in range(2)]
+             for mod in (jfaults, tfaults)]
+    assert fired[0] == fired[1] == [True, False, True, False]
     drv, c = _client(_pkg("port"))
-    with pytest.raises(ClientError, match=name):
-        treactor.Reactor(c)
+    treactor.Reactor(c)
+    for mod in (jfaults, tfaults):
+        mod.reset_for_tests()
 
 
 @pytest.mark.parametrize("stall", ["0.2", "0.35"])
@@ -637,7 +645,6 @@ def test_slow_provider_seam_stalls_fetches(stall, monkeypatch):
     import gatekeeper_tpu_torch.externaldata as t_ext
     monkeypatch.setenv("GATEKEEPER_FAULT", "watch_gap,slow_provider")
     monkeypatch.setenv("GATEKEEPER_FAULT_STALL_S", stall)
-    tfaults.check_armed()
     assert tfaults.active("slow_provider") == jfaults.active("slow_provider")
     _drv, c = _client(_pkg("port"))
     treactor.Reactor(c)

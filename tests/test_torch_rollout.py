@@ -32,7 +32,6 @@ from gatekeeper_tpu.whatif import make_cluster as jmake_cluster
 from gatekeeper_tpu_torch.client.client import Backend as TBackend
 from gatekeeper_tpu_torch.engine import torch_driver
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-from gatekeeper_tpu_torch.errors import ClientError
 from gatekeeper_tpu_torch.obs import flightrecorder as tfr
 from gatekeeper_tpu_torch.resilience import faults
 from gatekeeper_tpu_torch.rollout import (BLOCKED, GRADUATED, HELD, REJECTED,
@@ -245,15 +244,30 @@ class TestPromotionController:
 
     def test_resume_under_a_snapshot_dir_names_its_item(self, monkeypatch,
                                                         tmp_path):
-        """The reference's warm-restart case resumes from its ninth
-        snapshot tier; the port has none yet and refuses."""
+        """The reference's warm restart: kill the process at warn
+        (simulated by a fresh client and controller), resume from the
+        ninth snapshot tier, re-apply the rung, and finish the ladder."""
+        from gatekeeper_tpu_torch.resilience import snapshot as snap
+        monkeypatch.setenv("GATEKEEPER_SNAPSHOT_DIR", str(tmp_path / "s"))
         templates, constraints = _policy_subset()
         _d, client = _mk_client(templates, constraints)
-        ctrl = PromotionController(client, templates, constraints[1:],
-                                   name="t-resume", events=[])
-        monkeypatch.setenv("GATEKEEPER_SNAPSHOT_DIR", str(tmp_path / "s"))
-        with pytest.raises(ClientError, match="not yet ported.*ROADMAP A8"):
-            ctrl.resume()
+        events = _record_corpus(client, monkeypatch, tmp_path)
+        candidate = [dict(c) for c in constraints[1:]]
+        ctrl = PromotionController(client, templates, candidate,
+                                   name="t-resume", events=events)
+        assert ctrl.run(target_rung="warn") == "warn"
+        ro_hits_before = snap.stats.ro_hits
+
+        _d2, client2 = _mk_client(templates, constraints)
+        ctrl2 = PromotionController(client2, templates, candidate,
+                                    name="t-resume", events=events)
+        assert ctrl2.resume() is True
+        assert snap.stats.ro_hits > ro_hits_before
+        assert ctrl2.state == "warn" and ctrl2.installed == "warn"
+        for c in candidate:
+            doc = client2.constraints[c["kind"]][c["metadata"]["name"]]
+            assert doc["spec"]["enforcementAction"] == "warn"
+        assert ctrl2.step() == "deny"
 
     def test_a_shadow_sweep_error_is_raised(self, monkeypatch, tmp_path):
         """Unlike the reference, an error of the shadow sweep itself is
@@ -336,7 +350,7 @@ class TestFleetGraduation:
         templates, constraints = _policy_subset()
         fleet = _mk_fleet(templates, constraints, 4)
         monkeypatch.setenv("GATEKEEPER_FAULT", "fleet_straggler")
-        faults.check_armed()                # the seam is ported now
+        assert faults.active("fleet_straggler")     # the seam is ported
         rep = graduate_fleet(fleet, templates,
                              [dict(c) for c in constraints[1:]],
                              block_size=2)

@@ -607,19 +607,44 @@ def _get(port: int, path: str):
 
 class TestPortEndpoints:
     def test_healthz_states_the_drivers_device(self, handler):
-        """No backend supervisor in the port: /healthz answers 200,
-        healthy, with the driver's device as the backend."""
+        """/healthz states the backend supervisor of the driver's device
+        with the reference's body keys: 200 while healthy, 503 once the
+        device is lost.  A driver without a device (LocalDriver) answers
+        200, healthy, on ``scalar``."""
+        import urllib.error
+
+        from gatekeeper_tpu.resilience import supervisor as jsup
+        from gatekeeper_tpu.utils import device_probe
+        from gatekeeper_tpu_torch.resilience import supervisor as tsup
         server = WebhookServer(handler, port=0)
         server.start()
         try:
             status, headers, body = _get(server.port, "/healthz")
+            assert status == 200
+            assert headers["Content-Type"] == "application/json"
+            doc = json.loads(body)
+            if not isinstance(handler.client.driver, TorchDriver):
+                assert doc == {"state": "healthy", "backend": "scalar"}
+                return
+            device_probe.reset_for_tests()
+            want = set(jsup.get_supervisor().status()) | {
+                "restart_persistent_cache_hits",
+                "restart_persistent_cache_misses"}
+            assert set(doc) == want
+            assert doc["state"] == "healthy" and doc["backend"] == "cpu"
+            handler.client.driver.supervisor.report_failure("card lost")
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _get(server.port, "/healthz")
+            assert e.value.code == 503
+            doc = json.loads(e.value.read())
+            assert set(doc) == want
+            assert doc["state"] == "degraded"
+            assert doc["reason"] == "card lost"
+            assert doc["backend"] == "cpu-fallback"
         finally:
             server.stop()
-        assert status == 200
-        assert headers["Content-Type"] == "application/json"
-        want = "cpu" if isinstance(handler.client.driver, TorchDriver) \
-            else "scalar"
-        assert json.loads(body) == {"state": "healthy", "backend": want}
+            tsup.reset_for_tests()
+            device_probe.reset_for_tests()
 
     def test_debug_violations_has_no_reactors(self, handler):
         """``/debug/violations`` carries ``reactors``, every live event
@@ -649,6 +674,9 @@ class TestPortEndpoints:
         del rx, ref
 
     def test_metrics_carry_no_supervisor_registry(self, handler):
+        """/metrics appends the supervisor registry of the driver's
+        device under the reference's ``gatekeeper_supervisor`` prefix;
+        a driver without a device (LocalDriver) has none to append."""
         server = WebhookServer(handler, port=0)
         server.start()
         try:
@@ -658,7 +686,11 @@ class TestPortEndpoints:
             server.stop()
         text = body.decode()
         assert "gatekeeper_admission_requests" in text
-        assert "gatekeeper_supervisor" not in text
+        if isinstance(handler.client.driver, TorchDriver):
+            assert "gatekeeper_supervisor_backend_supervisor_state 0" \
+                in text
+        else:
+            assert "gatekeeper_supervisor" not in text
 
 
 class TestAdmissionCorpus:

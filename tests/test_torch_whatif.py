@@ -25,7 +25,6 @@ from gatekeeper_tpu_torch import whatif
 from gatekeeper_tpu_torch.client.client import Backend as TBackend
 from gatekeeper_tpu_torch.engine import torch_driver
 from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
-from gatekeeper_tpu_torch.errors import ClientError
 from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget as TTarget
 from gatekeeper_tpu_torch.whatif import (ShadowSession, normalize_results,
                                          replay_admissions,
@@ -264,9 +263,28 @@ class TestReplay:
             device="cpu")
         assert rep.verdicts == oracle
 
-    def test_load_historical_store_names_its_item(self, live):
-        with pytest.raises(ClientError, match="not yet ported.*ROADMAP A8"):
-            whatif.load_historical_store(live["port"]["handler"].name)
+    def test_load_historical_store_names_its_item(self, live, monkeypatch,
+                                                  tmp_path):
+        """The reference's round trip: a store snapshot written under one
+        root reads back as a HISTORICAL root while the live env points
+        nowhere, and replays to the live verdicts.  The port's entry and
+        the reference's, under one root, do not cross."""
+        from gatekeeper_tpu.resilience import snapshot as jsnap
+        from gatekeeper_tpu_torch.resilience import snapshot as snap
+        root = str(tmp_path / "snaps")
+        name = live["port"]["handler"].name
+        monkeypatch.setenv("GATEKEEPER_SNAPSHOT_DIR", root)
+        assert snap.save_store(name, live["port"]["state"])
+        assert jsnap.save_store(name, live["ref"]["state"])
+        monkeypatch.delenv("GATEKEEPER_SNAPSHOT_DIR")
+        assert whatif.load_historical_store(name) is None
+        got = whatif.load_historical_store(name, root=root)
+        assert got == live["port"]["state"]
+        rep = replay_snapshot(live["templates"], live["constraints"], got,
+                              20, device="cpu")
+        assert rep.verdicts == live["port"]["baseline"]
+        assert jwhatif.load_historical_store(name, root=root) == \
+            live["ref"]["state"]
 
     def test_admission_stream_replay_is_exact(self, live, monkeypatch,
                                               tmp_path):
