@@ -5,7 +5,7 @@ against its plain PyTorch version.
                            --k6k7-only | --k3-only | --admission-only |
                            --manager-only | --reactor-only | --worker-only |
                            --extdata-only | --probe-only | --reuse-only |
-                           --resilience-only]
+                           --certify-only | --resilience-only]
 
 ``--k2-only`` runs phases 1-2 for K2 alone and K2's random-mask phases,
 then prints the card line; it uses only the K2 wrappers' public names,
@@ -36,6 +36,8 @@ builds K2, K3 and K4 and runs only phase 13, the engine worker split.
 ``--extdata-only`` and ``--probe-only`` build K2 and K3 and run only
 phase 14, external data, or phase 15, the probe.  ``--reuse-only``
 builds K2, K3 and K4 and runs only phase 16, reuse and what-if.
+``--certify-only`` builds K2, K3 and K4 and runs only phase 18, the
+certifiers.
 ``--resilience-only`` builds K2 and K3 and runs only phase 17, device
 loss and a process restart.  The card's backend supervisor must be
 healthy at the start and at the end of every phase.
@@ -229,7 +231,7 @@ Phases (each prints one line of its numbers):
      manager's defaults: ``Manager`` from ``parse_args(["--port", "0",
      "--audit-interval", "3600", ...])`` with GATEKEEPER_PAGES unset (on)
      and GATEKEEPER_DEVPAGES=on; the manager phase's 202 constraints and
-     REACTOR_PODS (1,200; ``--reactor-pods``) make_resources pods (every
+     REACTOR_PODS (1,000; ``--reactor-pods``) make_resources pods (every
      20th with an initContainer) through the controllers, pumped on the
      script's thread; a cold ``audit_once`` (the ledger's cold build) whose
      statuses equal a direct capped audit (a second TorchDriver, forced
@@ -301,7 +303,7 @@ Phases (each prints one line of its numbers):
      over a full, a steady, an annotation-only and a mixed churned
      sweep (a replayed kind launches no K1 and no K2); (c) a shadow
      sweep of ``constraints[1:]`` beside the library over WHATIF_ROWS
-     (10,000) rows against the single-set sweep and the standalone
+     (6,000) rows against the single-set sweep and the standalone
      candidate, a snapshot replay and a recorded stream of 64 reviews
      replayed scalar and batched; (d) a PromotionController to deny
      over (c)'s store and graduate_fleet over 4 clusters against the
@@ -311,6 +313,21 @@ Phases (each prints one line of its numbers):
      rewritten programs, K1 and K2 on the shadow sweep and K1b, K2b and
      K3b under graduate_fleet are held against their plain versions and
      timed at their recorded inputs
+ 18. certify (``certify_phase``, run before 17 so that 17's smoke
+     processes find the small-model worlds' K1 variants in Triton's
+     disk cache): (a) GATEKEEPER_TRANSVAL=strict over the library
+     (48 lowered templates certified, one K1 launch a template's world,
+     never the plain version, each world mask equal to plain on the card
+     bit for bit; the miscompile seam on CERTIFY_MISCOMPILE refuted,
+     pinned to the scalar oracle and equal to LocalDriver's results; the
+     corpus cases replayed); (b) GATEKEEPER_FOOTPRINT=strict over the
+     library's templates (48 validated footprints, 0 violations); (c)
+     Stage 7 over the library store: the bounded certificates, the
+     precompile's launches and compiles in ``prepare_audit``, a forced
+     full sweep after it that compiles nothing and launches only warmed
+     signatures, and, under strict with the row cap below a grown
+     store's bucket, UncertifiedRetrace before any compile; the phase
+     fails past CERTIFY_BUDGET_S (90 s)
  17. resilience (``resilience_phase``): (b) the library over
      RESILIENCE_ROWS (2,000) rows on a card driver, forced full sweeps: with ``device_lost`` armed the
      first kind of the sweep's order alone reaches the card, the rest
@@ -324,9 +341,12 @@ Phases (each prints one line of its numbers):
      the card against one fresh snapshot directory: the warm process
      lowers nothing, restores the store, hits and never misses (no
      nvcc build, no Triton variant compiled from scratch) and gives the
-     cold process's verdict digest.  Each step, and the devpages
-     phase's restart (a), fails the run past its time budget
- 18. the kernels JSON line, the card line, and the final JSON line.
+     cold process's verdict digest; with GATEKEEPER_TRANSVAL=warn the
+     cold process validates 48 templates and precompiles 48 kinds, the
+     warm one reports 0 validations, compile surfaces and precompiles.
+     Each step, and the devpages phase's restart (a), fails the run
+     past its time budget
+ Then the kernels JSON line, the card line, and the final JSON line.
 Every phase but devpages and reactor sweeps with GATEKEEPER_PAGES=off:
 they measure the legacy sweep and assert its launch counts, and the
 port, like the reference, defaults to the paged route.
@@ -2878,7 +2898,7 @@ def ingress_phase(rec: dict, fns: dict, dev) -> None:
 ADMISSION_SIZES = (64, 256, 1024)
 ADMISSION_KINDS = ("K8sRequiredLabels", "K8sAllowedRepos")
 ADMISSION_C_PER_KIND = 100
-ADMISSION_SCALAR = 1024
+ADMISSION_SCALAR = 512
 ADMISSION_LIBRARY = 1024
 ADMISSION_SUBMITS = 256
 ADMISSION_THREADS = 8
@@ -3916,7 +3936,7 @@ def manager_phase(rec: dict, fns: dict, oracle: AdmissionOracle) -> None:
         k3r_calls
 
 
-REACTOR_PODS = 1_200
+REACTOR_PODS = 1_000   # past the format memo's 65,536 pairs (978 pods)
 REACTOR_SEED = 41
 REACTOR_INIT_EVERY = 20
 REACTOR_INIT = {"name": "init0", "image": "evil.io/reactor:1"}
@@ -5457,7 +5477,7 @@ def probe_phase(fns: dict) -> None:
 
 REUSE_ROWS = 2_000         # bench.py's analysis and churn_selective rows
 REUSE_CHURN = REUSE_ROWS // 100
-WHATIF_ROWS = 10_000       # bench.py's what-if row is 20,000 (PERF.md §4)
+WHATIF_ROWS = 6_000        # bench.py's what-if row is 20,000 (PERF.md §4)
 WHATIF_REVIEWS = 64        # the recorded admission stream
 GRADUATE_ROWS = 1_000      # rows of each of graduate_fleet's 4 clusters
 REUSE_TIMED = 8            # distinct programs timed a kernel family
@@ -6027,6 +6047,330 @@ def reuse_phase(rec: dict, fns: dict) -> None:
           flush=True)
 
 
+CERTIFY_BUDGET_S = 90.0         # phase 18: the phase fails past it
+CERTIFY_MISCOMPILE = "K8sBlockNodePort"   # refuted by the seeded miscompile
+CERTIFY_TIMED = 8               # distinct programs timed a K1 entry
+CERTIFY_GROW = 100              # rows past the library store's 2,048 bucket
+
+
+def first_programs(calls: list, n: int) -> list:
+    """The first recorded call of each of the first ``n`` distinct
+    programs of ``calls`` (``((program, d), out)`` pairs)."""
+    seen: dict = {}
+    for call in calls:
+        (program, _d), _out = call
+        if id(program) not in seen and len(seen) < n:
+            seen[id(program)] = call
+    return list(seen.values())
+
+
+def launch_signature(program, d: dict) -> tuple:
+    """What picks K1's launch plan and compiled variant: the program,
+    each array's name, dtype and shape in the launch's order, and its
+    pointer's 16-byte alignment."""
+    return (program.cache_key(),
+            tuple((nm, str(a.dtype), tuple(a.shape), a.data_ptr() % 16 == 0)
+                  for nm, a in d.items()))
+
+
+def certify_phase(rec: dict, fns: dict) -> None:
+    """Phase 18, the certifiers on the card, over the library (49
+    templates, 48 lowered) and the library phase's store (LIBRARY_ROWS
+    ``make_mixed(Random(0))`` rows).  (a) Stage 4 under
+    ``GATEKEEPER_TRANSVAL=strict``: a card driver installs the library;
+    every lowered template is certified (``validations_run`` 48), one K1
+    launch a template over its small-model world (K3 first for the
+    regex template), never K1's plain version, and each recorded world
+    mask equals the plain version on the same inputs on the card, bit
+    for bit; the miscompile seam on CERTIFY_MISCOMPILE refutes it, pins
+    it to the scalar oracle, and its audit results equal LocalDriver's;
+    every corpus case replays clean, and dirty against its miscompiled
+    program.  (b) Footprint strict: a card driver installs the library's
+    templates under ``GATEKEEPER_FOOTPRINT=strict``: 48 validated
+    footprints, 0 violations, the worlds' K1 launches held to plain.
+    (c) Stage 7 (``warn``) on (a)'s driver over the store: the bounded
+    certificates, ``prepare_audit`` (the precompile, one launch a
+    certified kind, then the dedup rewrites' warm) and the Triton
+    variants it compiled; a forced full sweep then compiles no variant,
+    counts no uncertified launch, and every K1 launch signature of it
+    was launched by the precompile or the warm; under ``strict`` with
+    ``GATEKEEPER_CS_MAX_ROWS`` at the store's bucket (2,048) and the
+    store grown past it, the next forced full sweep (dedup off: the
+    rewritten programs carry no certificate) raises
+    ``UncertifiedRetrace`` with the variant count unchanged.  The phase
+    fails past CERTIFY_BUDGET_S."""
+    from gatekeeper_tpu_torch.analysis import (compilesurface, footprint,
+                                               transval)
+    from gatekeeper_tpu_torch.api.templates import compile_target_rego
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.client.interface import QueryOpts
+    from gatekeeper_tpu_torch.client.local_driver import LocalDriver
+    from gatekeeper_tpu_torch.engine import executor as ex
+    from gatekeeper_tpu_torch.engine import torch_driver
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.ir.lower import lower_template
+    from gatekeeper_tpu_torch.kernels import ir_eval
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+
+    t_phase = time.perf_counter()
+    env_keys = ("GATEKEEPER_TRANSVAL", "GATEKEEPER_TRANSVAL_TEST_MISCOMPILE",
+                "GATEKEEPER_FOOTPRINT", "GATEKEEPER_COMPILE_SURFACE",
+                "GATEKEEPER_CS_MAX_ROWS", "GATEKEEPER_DEDUP")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    saved_small = torch_driver.SMALL_WORKLOAD_EVALS
+    torch_driver.SMALL_WORKLOAD_EVALS = 0
+    docs = {t["spec"]["crd"]["spec"]["names"]["kind"]: (t, c)
+            for t, c in all_docs()}
+    objs = make_mixed(random.Random(0), LIBRARY_ROWS)
+    try:
+        # ---- (a) Stage 4, strict
+        transval.failures.clear()
+        transval._memo.clear()
+        transval.validations_run = 0
+        os.environ["GATEKEEPER_TRANSVAL"] = "strict"
+        join_warms()
+        v0 = triton_variants(ir_eval)
+        reset_counts(fns)
+        with RecordK123() as r:
+            t0 = time.perf_counter()
+            drv = TorchDriver()
+            client = Backend(drv).new_client([K8sValidationTarget()])
+            for t, con in docs.values():
+                client.add_template(t)
+                client.add_constraint(con)
+            tv_s = time.perf_counter() - t0
+            counts_a = r.counts()
+            plain_a = ir_eval.eval_mask.plain_calls
+        v1 = triton_variants(ir_eval)
+        st = drv._state(TARGET)
+        lowered = sorted(k for k, c in st.templates.items()
+                         if c.vectorized is not None)
+        certified = drv.metrics.counter("transval_certified").value
+        refuted = drv.metrics.counter("transval_counterexamples").value
+        n_validations = transval.validations_run
+        if n_validations != 48 or len(lowered) != 48 \
+                or certified != 48 or refuted \
+                or drv.metrics.counter("transval_errors").value:
+            fail(f"transval: {n_validations} validations, "
+                 f"{len(lowered)} lowered, {certified} certified, "
+                 f"{refuted} refuted")
+        if counts_a["K1"] != 48 or counts_a["K3"] < 1 or plain_a:
+            fail(f"transval: the worlds launched {counts_a} (plain K1 "
+                 f"{plain_a}); one K1 a lowered template expected")
+        errs_a = check_k123(ex, r.calls, "transval worlds")
+        calls_a = first_programs(r.calls["K1"], CERTIFY_TIMED)
+        # the miscompile seam: refuted, pinned, served by the oracle
+        os.environ["GATEKEEPER_TRANSVAL_TEST_MISCOMPILE"] = CERTIFY_MISCOMPILE
+        with RecordK123() as r2:
+            t0 = time.perf_counter()
+            mdrv = TorchDriver()
+            mc = Backend(mdrv).new_client([K8sValidationTarget()])
+            mc.add_template(docs[CERTIFY_MISCOMPILE][0])
+            mc.add_constraint(docs[CERTIFY_MISCOMPILE][1])
+            mis_s = time.perf_counter() - t0
+            counts_m = r2.counts()
+        os.environ.pop("GATEKEEPER_TRANSVAL_TEST_MISCOMPILE")
+        ce = transval.failure_for(CERTIFY_MISCOMPILE)
+        if ce is None or mdrv._state(TARGET).templates[
+                CERTIFY_MISCOMPILE].vectorized is not None \
+                or mdrv.metrics.counter("transval_counterexamples").value != 1:
+            fail(f"transval: the miscompile seam on {CERTIFY_MISCOMPILE} "
+                 f"was not refuted and pinned ({ce})")
+        check_k123(ex, r2.calls, "miscompile worlds")
+        mc.add_data_batch(copy.deepcopy(objs))
+        oracle = Backend(LocalDriver()).new_client([K8sValidationTarget()])
+        oracle.add_template(docs[CERTIFY_MISCOMPILE][0])
+        oracle.add_constraint(docs[CERTIFY_MISCOMPILE][1])
+        oracle.add_data_batch(copy.deepcopy(objs))
+        pinned = sorted(norm(mdrv.query_audit(TARGET, QueryOpts())[0]))
+        want = sorted(norm(oracle.driver.query_audit(TARGET,
+                                                     QueryOpts())[0]))
+        if pinned != want or not want:
+            fail(f"transval: the pinned {CERTIFY_MISCOMPILE}'s "
+                 f"{len(pinned)} results differ from the scalar oracle's "
+                 f"{len(want)}")
+        del mdrv, mc, oracle, r2
+        corpus = transval.load_corpus(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "tests", "corpus",
+            "transval"))
+        if not corpus:
+            fail("transval: no corpus case found")
+        for name, case in corpus:
+            comp = compile_target_rego(case["kind"], case["target"],
+                                       case["rego"])
+            bad = transval.miscompile(lower_template(comp.module,
+                                                     comp.interp))
+            if transval.replay_case(case, device="cuda") is not None \
+                    or transval.replay_case(case, lowered=bad,
+                                            device="cuda") is None:
+                fail(f"transval: corpus case {name} did not replay")
+        a_s = time.perf_counter() - t_phase
+        join_warms()
+        rec["K1tv"] = {"launches": counts_a["K1"],
+                       "max_abs_err": errs_a["K1"],
+                       **k1_family(ex, ir_eval, calls_a)}
+        print(f"phase certify transval: GATEKEEPER_TRANSVAL=strict, "
+              f"{len(docs)} templates installed in {tv_s:.3f}s "
+              f"({tv_s / len(docs):.4f}s a template), {certified} "
+              f"certified of {len(lowered)} lowered, validations_run "
+              f"{n_validations}; world launches {counts_a}, "
+              f"plain K1 0, Triton variants compiled {v1 - v0}, each world "
+              f"mask == plain on the card (K1 err {errs_a['K1']}, K3 "
+              f"{errs_a['K3']}); miscompile seam on {CERTIFY_MISCOMPILE}: "
+              f"counterexample ({ce.note}), pinned, {len(pinned)} results "
+              f"== LocalDriver's, worlds {counts_m} in {mis_s:.3f}s; "
+              f"{len(corpus)} corpus case(s) replayed clean and bite; "
+              f"K1 at the worlds {k1_text(rec['K1tv'])}; step {a_s:.1f}s",
+              flush=True)
+
+        # ---- (b) footprint strict, the templates' default documents
+        t_b = time.perf_counter()
+        footprint.reset()
+        os.environ["GATEKEEPER_FOOTPRINT"] = "strict"
+        v2 = triton_variants(ir_eval)
+        reset_counts(fns)
+        with RecordK123() as r3:
+            t0 = time.perf_counter()
+            fdrv = TorchDriver()
+            fc = Backend(fdrv).new_client([K8sValidationTarget()])
+            for t, _con in docs.values():
+                fc.add_template(t)
+            fp_s = time.perf_counter() - t0
+            counts_f = r3.counts()
+            plain_f = ir_eval.eval_mask.plain_calls
+        os.environ.pop("GATEKEEPER_FOOTPRINT")
+        v3 = triton_variants(ir_eval)
+        fps = fdrv._state(TARGET).footprints
+        if len(fps) != 48 or not all(fp.validated for fp in fps.values()) \
+                or footprint.violations or plain_f \
+                or counts_f["K1"] < 48:
+            fail(f"footprint strict: {len(fps)} footprints, violations "
+                 f"{footprint.violations}, launches {counts_f}, plain "
+                 f"{plain_f}")
+        errs_f = check_k123(ex, r3.calls, "footprint worlds")
+        calls_f = first_programs(r3.calls["K1"], CERTIFY_TIMED)
+        del fdrv, fc, r3
+        join_warms()
+        rec["K1fp"] = {"launches": counts_f["K1"],
+                       "max_abs_err": errs_f["K1"],
+                       **k1_family(ex, ir_eval, calls_f)}
+        b_s = time.perf_counter() - t_b
+        print(f"phase certify footprint: GATEKEEPER_FOOTPRINT=strict, "
+              f"{len(docs)} templates in {fp_s:.3f}s, {len(fps)} "
+              f"footprints validated, 0 violations; world launches "
+              f"{counts_f}, plain K1 0, Triton variants compiled "
+              f"{v3 - v2}, each mask == plain (K1 err {errs_f['K1']}); K1 "
+              f"at the worlds {k1_text(rec['K1fp'])}; step {b_s:.1f}s",
+              flush=True)
+
+        # ---- (c) Stage 7, warn, on (a)'s driver over the store
+        t_c = time.perf_counter()
+        os.environ["GATEKEEPER_COMPILE_SURFACE"] = "warn"
+        certs = st.compilesurfaces
+        n_bounded = sum(1 for c in certs.values()
+                        if c.bounded and not c.scalar_pin)
+        client.add_data_batch(copy.deepcopy(objs))
+        # the delta warm-up a driver's first capped sweep starts compiles
+        # each kind's K5 variant on its own thread; this step counts the
+        # full variants the precompile and the sweep compile, so an idle
+        # warm-up stands in for it
+        drv.delta_warm = torch_driver.DeltaWarm()
+        join_warms()
+        v4 = triton_variants(ir_eval)
+        pc0 = compilesurface.precompiles_run
+        warm_calls: list = []
+        orig_warm = ir_eval.warm_mask
+        ir_eval.warm_mask = recording(orig_warm, warm_calls)
+        try:
+            t0 = time.perf_counter()
+            drv.prepare_audit(TARGET)
+            pc_s = time.perf_counter() - t0
+        finally:
+            ir_eval.warm_mask = orig_warm
+        n_pc = compilesurface.precompiles_run - pc0
+        v5 = triton_variants(ir_eval)
+        if n_bounded != 48 or n_pc != 48 or len(warm_calls) < n_pc:
+            fail(f"compile surface: {n_bounded} bounded certificates, "
+                 f"{n_pc} precompile launches, {len(warm_calls)} warms")
+        warmed = {launch_signature(p, d) for (p, d), _o in warm_calls}
+        reset_counts(fns)
+        with RecordK123() as r4:
+            t0 = time.perf_counter()
+            full = drv.query_audit(TARGET, QueryOpts(limit_per_constraint=CAP,
+                                                     full=True))[0]
+            full_s = time.perf_counter() - t0
+            counts_s = r4.counts()
+        join_warms()
+        v6 = triton_variants(ir_eval)
+        outside = [launch_signature(p, d)[0] for (p, d), _o in r4.calls["K1"]
+                   if launch_signature(p, d) not in warmed]
+        if None in (v5, v6) or v6 != v5 or counts_s["K1"] != 48 \
+                or drv.executor.retrace_uncertified or outside or not full:
+            fail(f"compile surface: the forced full sweep after the "
+                 f"precompile compiled {v6} - {v5} variants, launched "
+                 f"{counts_s}, {drv.executor.retrace_uncertified} "
+                 f"uncertified, {len(outside)} signature(s) not warmed")
+        del r4
+        # strict, the store grown past a row cap at its old bucket
+        os.environ["GATEKEEPER_COMPILE_SURFACE"] = "strict"
+        os.environ["GATEKEEPER_CS_MAX_ROWS"] = "2048"
+        os.environ["GATEKEEPER_DEDUP"] = "off"
+        grow = make_mixed(random.Random(1), CERTIFY_GROW)
+        for o in grow:
+            o["metadata"]["name"] += "-grown"
+        client.add_data_batch(grow)
+        n_rows = st.table.n_rows
+        v7 = triton_variants(ir_eval)
+        try:
+            drv.query_audit(TARGET, QueryOpts(limit_per_constraint=CAP,
+                                              full=True))
+            fail("compile surface: strict served a launch past the row cap")
+        except compilesurface.UncertifiedRetrace as e:
+            refusal = str(e)
+        join_warms()
+        v8 = triton_variants(ir_eval)
+        if v8 != v7 or drv.executor.retrace_uncertified != 1 \
+                or n_rows <= 2048:
+            fail(f"compile surface strict: variants {v7} -> {v8}, "
+                 f"{drv.executor.retrace_uncertified} uncertified, "
+                 f"{n_rows} rows")
+        # K1 at the precompile's inputs, against its plain version
+        calls_pc = [((p, d), ir_eval.eval_mask(p, d))
+                    for (p, d), _o in first_programs(warm_calls[:n_pc],
+                                                     CERTIFY_TIMED)]
+        errs_pc = check_k123(ex, {"K1": calls_pc, "K2": [], "K3": []},
+                             "precompile inputs")
+        rec["K1pc"] = {"launches": n_pc, "max_abs_err": errs_pc["K1"],
+                       **k1_family(ex, ir_eval, calls_pc)}
+        c_s = time.perf_counter() - t_c
+        print(f"phase certify compile surface: {n_bounded} bounded "
+              f"certificates; prepare_audit {pc_s:.3f}s: {n_pc} precompile "
+              f"launches ({len(warm_calls) - n_pc} dedup-rewrite warms), "
+              f"Triton variants compiled {v5 - v4} at the library "
+              f"geometry; forced full sweep {full_s:.3f}s, launches "
+              f"{counts_s}, 0 variants compiled, retrace_uncertified_total "
+              f"0, every K1 signature warmed; strict with "
+              f"GATEKEEPER_CS_MAX_ROWS=2048 over {n_rows} rows: "
+              f"UncertifiedRetrace ({refusal[:120]}...), variants "
+              f"unchanged ({v8}); K1 at the precompile's inputs "
+              f"{k1_text(rec['K1pc'])}; step {c_s:.1f}s", flush=True)
+        del drv, client, st, warm_calls, calls_pc
+    finally:
+        torch_driver.SMALL_WORKLOAD_EVALS = saved_small
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase certify: {phase_s:.1f}s (budget {CERTIFY_BUDGET_S:.0f}s)",
+          flush=True)
+    if phase_s > CERTIFY_BUDGET_S:
+        fail(f"certify: the phase took {phase_s:.1f}s, over its "
+             f"{CERTIFY_BUDGET_S:.0f}s")
+
+
 RESILIENCE_ROWS = LIBRARY_ROWS
 """(b) and (c) run the library over the library phase's own store size
 (2,000 ``make_mixed`` rows): at another size the healthy sweep compiles
@@ -6236,7 +6580,8 @@ def resilience_phase(rec: dict, fns: dict) -> None:
     t_c = time.perf_counter()
     snapdir = tempfile.mkdtemp(prefix="gatekeeper-smoke-")
     env = {**os.environ, "GATEKEEPER_SNAPSHOT_DIR": snapdir,
-           "GATEKEEPER_SMOKE_N": str(RESILIENCE_ROWS)}
+           "GATEKEEPER_SMOKE_N": str(RESILIENCE_ROWS),
+           "GATEKEEPER_TRANSVAL": "warn"}
     env.pop("GATEKEEPER_FAULT", None)
     try:
         cold = run_smoke(env)
@@ -6252,7 +6597,11 @@ def resilience_phase(rec: dict, fns: dict) -> None:
             or warm["verdict_digest"] != cold["verdict_digest"] \
             or cold["lowerings"] <= 0 or cold["store_restored"] \
             or min(warm["launches"].values()) <= 0 \
-            or warm["launches"] != cold["launches"]:
+            or warm["launches"] != cold["launches"] \
+            or cold["validations"] != 48 or cold["aot_precompiles"] != 48 \
+            or cold["compile_surfaces"] <= 0 \
+            or warm["validations"] or warm["compile_surfaces"] \
+            or warm["aot_precompiles"]:
         fail(f"process restart: cold {cold}, warm {warm}")
     c_s = time.perf_counter() - t_c
     print(f"phase resilience process restart: the smoke on the card "
@@ -6265,7 +6614,11 @@ def resilience_phase(rec: dict, fns: dict) -> None:
           f"{warm['serving_seconds']} (startup {warm['startup_seconds']}, "
           f"lowerings 0, store restored, restart hits "
           f"{warm['restart_persistent_cache_hits']}, misses 0, builds "
-          f"{wb}); digest {warm['verdict_digest']} equal; the sweep's "
+          f"{wb}); GATEKEEPER_TRANSVAL=warn: cold validations "
+          f"{cold['validations']}, compile_surfaces "
+          f"{cold['compile_surfaces']}, aot_precompiles "
+          f"{cold['aot_precompiles']}, warm 0 / 0 / 0; digest "
+          f"{warm['verdict_digest']} equal; the sweep's "
           f"launches {warm['launches']} in each; process walls "
           f"{cold['wall_s']:.1f}s / {warm['wall_s']:.1f}s; step {c_s:.1f}s "
           f"(budget {PROCESS_RESTART_BUDGET_S:.0f}s)", flush=True)
@@ -6318,6 +6671,11 @@ def main() -> int:
                       "phase (dedup, selective reuse, what-if, rollout, "
                       "explain_pair, the probe's --policyset, --whatif and "
                       "--rollout)")
+    only.add_argument("--certify-only", action="store_true",
+                      help="build K2, K3 and K4 and run only the certify "
+                      "phase (translation validation and footprint "
+                      "validation over the small-model worlds through K1, "
+                      "the Stage-7 precompile and retrace sentinel)")
     only.add_argument("--resilience-only", action="store_true",
                       help="build K2 and K3 and run only the resilience "
                       "phase (device loss and recovery on a card driver, "
@@ -6367,7 +6725,8 @@ def main() -> int:
                        if args.reactor_only else ("topk", "dfa")
                        if args.extdata_only or args.probe_only
                        else ("topk", "dfa", "scatter")
-                       if args.reuse_only else ("topk", "dfa")
+                       if args.reuse_only or args.certify_only
+                       else ("topk", "dfa")
                        if args.resilience_only else build.KERNELS)
     import triton
     print(f"phase build: {time.perf_counter() - t0:.3f}s wall, per library "
@@ -6384,7 +6743,8 @@ def main() -> int:
         else None if (args.k1_only or args.k2_only or args.k3_only
                       or args.k6k7_only or args.reactor_only
                       or args.extdata_only or args.probe_only
-                      or args.reuse_only or args.resilience_only) \
+                      or args.reuse_only or args.resilience_only
+                      or args.certify_only) \
         else AdmissionOracle()
     try:
         return run_phases(args, card, dev, rec, answers)
@@ -6476,6 +6836,11 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         return 0
     if args.reuse_only:
         reuse_phase(rec, fns)
+        print(card, flush=True)
+        return 0
+    if args.certify_only:
+        certify_phase(rec, fns)
+        healthy("after certify")
         print(card, flush=True)
         return 0
     if args.resilience_only:
@@ -7080,13 +7445,18 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
     reuse_phase(rec, fns)
     mark("reuse")
 
+    # ---- 18. the certifiers (before 17: its smoke processes then find
+    # the small-model worlds' K1 variants in Triton's disk cache)
+    certify_phase(rec, fns)
+    mark("certify")
+
     # ---- 17. resilience: device loss and recovery, a process restart
     resilience_phase(rec, fns)
     mark("resilience")
     print(f"phase timing: seconds a phase after the build {took}, "
           f"{sum(took.values()):.1f}s in all", flush=True)
 
-    # ---- 18. kernels line, card line, final line
+    # ---- kernels line, card line, final line
     meta = {
         "K1": ("ir_eval", "triton", "gatekeeper_tpu_torch/kernels/ir_eval.py",
                "gatekeeper_tpu/engine/veval.py:294"),
@@ -7219,6 +7589,15 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
         "K3rc": ("dfa_device_recovered", "cuda",
                  "gatekeeper_tpu_torch/csrc/dfa.cu",
                  "gatekeeper_tpu/engine/veval.py:227"),
+        "K1tv": ("ir_eval_transval_worlds", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/engine/veval.py:294"),
+        "K1fp": ("ir_eval_footprint_worlds", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/engine/veval.py:294"),
+        "K1pc": ("ir_eval_precompile", "triton",
+                 "gatekeeper_tpu_torch/kernels/ir_eval.py",
+                 "gatekeeper_tpu/engine/veval.py:294"),
     }
     kernels = []
     for key in ("K1", "K2", "K3", "K4", "K4m", "K5", "K1b", "K1bl", "K2b",
@@ -7227,7 +7606,7 @@ def run_phases(args, card: str, dev, rec: dict, answers) -> int:
                 "K4rx", "K3rx", "K1rx", "K6rx", "K1fs", "K2fs", "K3fs",
                 "K1wk", "K2wk", "K3wk", "K1ext", "K2ext", "K3ext", "K1dd",
                 "K1sh", "K2sh", "K1bg", "K2bg", "K3bg", "K4rs", "K6rs",
-                "K1rc", "K2rc", "K3rc"):
+                "K1rc", "K2rc", "K3rc", "K1tv", "K1fp", "K1pc"):
         name, route, source, replaces = meta[key]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, **rec[key]})

@@ -5,9 +5,14 @@ Stage 1 (:mod:`.vetter`) walks the parsed Rego AST; Stage 2
 (:mod:`.ir_verifier`) validates lowered device programs against their
 PrepSpec before a kernel runs them.  Both emit
 :class:`.diagnostics.Diagnostic` records; :mod:`.purity` is the
-impure-builtin gate shared with the closure compiler.  The policy-set
-and translation-validation stages of the JAX package, and most of its
-cost model, are not part of the port yet.
+impure-builtin gate shared with the closure compiler.  The later stages
+live in their own modules: translation validation (Stage 4,
+:mod:`.transval` over :mod:`.smallmodel`'s worlds, evaluated on the
+driver's device), dependency footprints (Stage 5, :mod:`.footprint`),
+partition plans (Stage 6, :mod:`.shardplan`), compile surfaces (Stage
+7, :mod:`.compilesurface`) and memory surfaces (Stage 8,
+:mod:`.memsurface`), with :mod:`.policyset` and :mod:`.costmodel` for
+the installed set.
 """
 
 from gatekeeper_tpu_torch.analysis.diagnostics import (   # noqa: F401

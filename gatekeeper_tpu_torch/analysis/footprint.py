@@ -18,21 +18,29 @@ An abstract interpreter over the lowered IR computes, per template,
 The port's fleet audit (whatif/fleet.py) stacks a kind across clusters
 only when its footprint is row-local with no external providers.
 
-Not ported yet: ``GATEKEEPER_FOOTPRINT=strict`` perturbation-validates
-every footprint over the small-model worlds (translation validation and
-the small-model enumerator are not part of the port); here it raises
-instead of quietly running as ``on``.  Footprints persist in the
-snapshot ``fp`` tier (resilience/snapshot.py), so a warm restart re-runs
-zero analyses.
+Footprints are *validated, not trusted*: under
+``GATEKEEPER_FOOTPRINT=strict`` ``validate_footprint`` reuses the
+small-model worlds (analysis/smallmodel.py) to perturb columns OUTSIDE
+the claimed read-set and asserts the device mask is bit-identical; a
+difference is a FootprintViolation and fails the template install.  The
+worlds are evaluated as translation validation evaluates them
+(``transval._device_mask``: K1 on the card, its plain version on the
+CPU).  Validated footprints persist in the snapshot ``fp`` tier
+(resilience/snapshot.py), so a warm restart re-runs zero analyses.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import hashlib
 import os
 
-from gatekeeper_tpu_torch.errors import ClientError
+import numpy as np
+
+from gatekeeper_tpu_torch.utils.log import logger
+
+log = logger("footprint")
 
 FOOTPRINT_VERSION = "fp-1"
 
@@ -44,9 +52,8 @@ _memo: dict[str, "Footprint"] = {}
 # kind -> human reason, for templates whose verdicts read other rows
 cross_row: dict[str, str] = {}
 
-# kind -> violations from the most recent strict-mode validation (strict
-# is not ported, so this stays empty; kept for the reference's surface)
-violations: dict[str, list] = {}
+# kind -> violations from the most recent strict-mode validation
+violations: dict[str, list["FootprintViolation"]] = {}
 
 # sensitivity lattice: join = most value-sensitive class wins
 _SENS_ORDER = {"existence": 0, "range": 1, "string-regex": 2, "equality": 3}
@@ -61,19 +68,24 @@ MATCH_PATHS: tuple[tuple[str, ...], ...] = (
     ("$meta",),
 )
 
-STRICT_NOT_PORTED = ("GATEKEEPER_FOOTPRINT=strict: footprint validation "
-                     "is not yet ported (it needs translation validation "
-                     "and the small-model worlds)")
+# perturbing these changes world structure (row keys, review identity),
+# not column values — never candidate perturbation targets
+_IDENTITY_PATHS: tuple[tuple[str, ...], ...] = (
+    ("apiVersion",), ("kind",),
+    ("metadata", "name"), ("metadata", "namespace"),
+)
 
 
 def mode() -> str:
-    """off | on.  ``on`` (default) runs the static analysis at install;
-    ``off`` runs nothing.  ``strict`` (perturbation validation of every
-    footprint) is not ported: asking for it raises ClientError."""
-    m = os.environ.get("GATEKEEPER_FOOTPRINT", "on").strip().lower()
-    if m == "strict":
-        raise ClientError(STRICT_NOT_PORTED)
-    return m
+    """off | on | strict.  ``on`` (default) runs the static analysis at
+    install; ``strict`` additionally perturbation-validates every
+    footprint at install and fails the install on any violation;
+    ``off`` runs nothing."""
+    return os.environ.get("GATEKEEPER_FOOTPRINT", "on").strip().lower()
+
+
+def validation_budget() -> int:
+    return int(os.environ.get("GATEKEEPER_FOOTPRINT_MODELS", "16"))
 
 
 def reset() -> None:
@@ -105,6 +117,20 @@ class ColumnRead:
         p = ".".join(self.path)
         src = "" if self.source == "object" else f" [{self.source}]"
         return f"{p}{src} ({self.sensitivity})"
+
+
+@dataclasses.dataclass(frozen=True)
+class FootprintViolation:
+    """Perturbation validation found a column OUTSIDE the claimed
+    read-set that changes the device verdict — an analysis bug."""
+
+    kind: str
+    path: tuple[str, ...]
+    note: str = ""
+
+    def format(self) -> str:
+        return (f"{self.kind}: verdict changed when perturbing "
+                f"unclaimed column {'.'.join(self.path)} ({self.note})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,31 +373,204 @@ def analyze(kind: str, lowered) -> Footprint:
 
 
 # ---------------------------------------------------------------------------
-# memoized entry point
+# perturbation validation (footprints are validated, not trusted)
 
 
-def certify(kind: str, lowered) -> Footprint:
-    """Memoized entry point the engine uses: the static analysis, keyed
-    by :func:`footprint_digest` and persisted in the snapshot ``fp``
-    tier, so a warm restart re-runs zero analyses."""
+def _leaf_paths(obj, prefix: tuple = (), depth: int = 6) -> set[tuple]:
+    out: set[tuple] = set()
+    if depth <= 0:
+        return out
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                continue
+            p = prefix + (k,)
+            sub = _leaf_paths(v, p, depth - 1)
+            out.update(sub if sub else {p})
+    elif isinstance(obj, list):
+        for v in obj:
+            sub = _leaf_paths(v, prefix + ("*",), depth - 1)
+            out.update(sub if sub else {prefix + ("*",)})
+    return out
+
+
+def _perturb(obj, path: tuple, token, delete: bool = False) -> None:
+    """Set (or delete) the value at ``path`` in place; "*" fans out
+    over list elements; missing intermediate dicts are created on the
+    set path and end the walk on the delete path."""
+    if not path:
+        return
+    head, rest = path[0], path[1:]
+    if head == "*":
+        if isinstance(obj, list):
+            if rest:
+                for el in obj:
+                    _perturb(el, rest, token, delete)
+            elif not delete:
+                for j in range(len(obj)):
+                    obj[j] = token
+        return
+    if not isinstance(obj, dict):
+        return
+    if not rest:
+        if delete:
+            obj.pop(head, None)
+        else:
+            obj[head] = token
+        return
+    nxt = obj.get(head)
+    if nxt is None:
+        if delete:
+            return
+        nxt = obj[head] = {}
+    _perturb(nxt, rest, token, delete)
+
+
+def validate_footprint(kind: str, compiled, lowered, fp: Footprint,
+                       constraints: list[dict] | None = None,
+                       budget: int | None = None,
+                       max_candidates: int = 12, device="cuda"
+                       ) -> list[FootprintViolation]:
+    """Perturb columns OUTSIDE the claimed read-set over smallmodel
+    worlds and assert the device mask is bit-identical.  Candidate
+    columns come from the model resources themselves plus synthetic
+    probe paths; identity fields are excluded (changing them changes
+    world structure, not a column value).  Every world's mask is one
+    evaluation on ``device`` (the card unless the caller names the
+    CPU)."""
+    from gatekeeper_tpu_torch.analysis import transval
+    from gatekeeper_tpu_torch.analysis.smallmodel import (derive_plan,
+                                                    enumerate_models)
+
+    cons = transval.expand_constraints(kind, constraints)
+    plan = derive_plan(lowered, cons, module=compiled.module)
+    models = enumerate_models(plan, budget or validation_budget())
+    all_res = [obj for m in models for obj in m.resources]
+    if not all_res:
+        return []
+    st, _rows, _handler = transval._world_state(all_res)
+    base_mask, _b = transval._device_mask(lowered, st, cons, device)
+
+    claimed = set(fp.object_paths()) | set(_IDENTITY_PATHS) | {("$meta",)}
+    candidates: set[tuple] = set()
+    for obj in all_res:
+        candidates.update(_leaf_paths(obj))
+    candidates.add(("metadata", "annotations", "gatekeeper-fp-probe"))
+    candidates.add(("spec", "gatekeeperFpProbe"))
+    open_paths = sorted(
+        p for p in candidates
+        if not any(paths_intersect(p, c) for c in claimed))[:max_candidates]
+
+    out: list[FootprintViolation] = []
+    for pi, path in enumerate(open_paths):
+        for variant, delete in (("mutate", False), ("delete", True)):
+            perturbed = copy.deepcopy(all_res)
+            for obj in perturbed:
+                _perturb(obj, path, f"fp-perturbed-{pi}", delete=delete)
+            st2, _r2, _h2 = transval._world_state(perturbed)
+            mask2, _b2 = transval._device_mask(lowered, st2, cons,
+                                                 device)
+            if mask2.shape != base_mask.shape \
+                    or not np.array_equal(mask2, base_mask):
+                out.append(FootprintViolation(
+                    kind=kind, path=path,
+                    note=f"{variant} over {len(models)} model world(s)"))
+                break
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fault seam + memoized entry point
+
+
+def _narrow_kinds() -> set[str]:
+    raw = os.environ.get("GATEKEEPER_FOOTPRINT_TEST_NARROW", "")
+    return {t.strip() for t in raw.split(",") if t.strip()}
+
+
+def maybe_narrowed(kind: str, fp: Footprint) -> Footprint:
+    """Fault-injection seam: deliberately drop one claimed object
+    column for the named kinds, proving end-to-end that perturbation
+    validation catches a footprint that under-claims its reads."""
+    if kind not in _narrow_kinds():
+        return fp
+    return narrow(fp)
+
+
+def narrow(fp: Footprint) -> Footprint:
+    """Drop one object column — prefer a spec-side read so the dropped
+    path survives the validator's identity/match exclusions."""
+    keep, dropped = [], None
+    for c in fp.columns:
+        if dropped is None and c.source == "object" \
+                and c.path[:1] not in (("metadata",), ("$meta",)):
+            dropped = c
+            continue
+        keep.append(c)
+    if dropped is None:
+        for c in list(keep):
+            if c.source == "object":
+                dropped = c
+                keep.remove(c)
+                break
+    if dropped is None:
+        return fp
+    # drop ALL claims of that path (an inventory-source twin would
+    # otherwise keep it out of the validator's candidate set)
+    keep = [c for c in keep if c.path != dropped.path]
+    log.warning("footprint deliberately narrowed (test seam)",
+                kind=fp.kind, dropped=".".join(dropped.path))
+    return dataclasses.replace(fp, columns=tuple(keep), validated=False)
+
+
+def certify(kind: str, compiled, lowered,
+            constraints: list[dict] | None = None,
+            device="cuda") -> Footprint:
+    """Memoized/snapshot-backed entry point the engine and probe use.
+
+    The static analysis always runs (mode "on"); under "strict" the
+    footprint is additionally perturbation-validated and any violation
+    is recorded in ``violations[kind]`` (the engine then fails the
+    install).  Validated footprints persist in the snapshot "fp" tier,
+    so a warm restart re-runs zero analyses.  Validation evaluates its
+    worlds on ``device``.  The NARROW seam bypasses both memo and
+    snapshot — a narrowed footprint must reach the
+    validator, not a cached honest one."""
     global analyses_run
     digest = footprint_digest(lowered)
-    cached = _memo.get(digest)
-    if cached is not None:
-        _publish(kind, cached)
-        return cached
-    from gatekeeper_tpu_torch.resilience import snapshot as _snap
-    hit = _snap.load_footprint(digest)     # 1-tuple or None (miss)
-    if hit is not None and isinstance(hit[0], Footprint) \
-            and hit[0].version == FOOTPRINT_VERSION:
-        _memo[digest] = hit[0]
-        _publish(kind, hit[0])
-        return hit[0]
+    seam = kind in _narrow_kinds()
+    if not seam:
+        cached = _memo.get(digest)
+        if cached is not None:
+            _publish(kind, cached)
+            return cached
+        from gatekeeper_tpu_torch.resilience import snapshot as _snap
+        hit = _snap.load_footprint(digest)     # 1-tuple or None (miss)
+        if hit is not None and isinstance(hit[0], Footprint) \
+                and hit[0].version == FOOTPRINT_VERSION:
+            _memo[digest] = hit[0]
+            _publish(kind, hit[0])
+            return hit[0]
+
     fp = analyze(kind, lowered)
     analyses_run += 1
-    violations.pop(kind, None)
-    _memo[digest] = fp
-    _snap.save_footprint(digest, fp)
+    fp = maybe_narrowed(kind, fp)
+    found: list[FootprintViolation] = []
+    if mode() == "strict":
+        found = validate_footprint(kind, compiled, lowered, fp,
+                                   constraints=constraints, device=device)
+        fp = dataclasses.replace(fp, validated=not found)
+    if found:
+        violations[kind] = found
+        for v in found:
+            log.warning("footprint violation", kind=kind,
+                        column=".".join(v.path), note=v.note)
+    else:
+        violations.pop(kind, None)
+    if not seam and not found:
+        _memo[digest] = fp
+        from gatekeeper_tpu_torch.resilience import snapshot as _snap
+        _snap.save_footprint(digest, fp)
     _publish(kind, fp)
     return fp
 
@@ -389,5 +588,5 @@ def locality_for(kind: str) -> str | None:
     return cross_row.get(kind)
 
 
-def violations_for(kind: str) -> list:
+def violations_for(kind: str) -> list[FootprintViolation]:
     return violations.get(kind, [])

@@ -22,10 +22,16 @@ the scalar-fallback pins of library/lowering_buckets.json) and
 (the whole-set report with its dedup plan), ``--whatif`` (shadow,
 replay, fleet and stream parity) and ``--rollout [--library]`` (a
 candidate promoted to ``deny`` and a fleet graduation plan), the last
-two on a ``TorchDriver`` on the same device, and ``--health`` (the
-serving posture of that device's backend supervisor).  The other
-subcommands need layers the port has not got yet and raise
-``ClientError`` naming their ROADMAP item (``UNPORTED``).
+two on a ``TorchDriver`` on the same device, ``--health`` (the
+serving posture of that device's backend supervisor), and the
+certifiers: ``--certify`` (Stage 4) and ``--footprint`` (Stage 5 with
+its perturbation validation), their worlds evaluated on the same
+device, ``--compilesurface`` (Stage 7), ``--memsurface`` (Stage 8
+against that device's memory), ``--pages`` (paged-sweep parity) and
+``--trace [--out FILE]`` (a forced full library sweep as Chrome
+trace-event JSON).  ``--shardplan`` needs the multi-card layer the port
+has not got yet and raises ``ClientError`` naming its ROADMAP item
+(``UNPORTED``).
 """
 
 from __future__ import annotations
@@ -363,10 +369,68 @@ def _scalar_fallback_pins() -> set:
 
 def _severity_rc(n_err: int, n_warn: int) -> int:
     """The analysis-subcommand exit contract, shared by --lint /
-    --policyset / --cost / --certify: 0 clean, 1 warning-severity
+    --policyset / --cost / --certify and the other certifiers: 0 clean, 1 warning-severity
     findings only, 2 any error-severity finding (or unreadable
     input)."""
     return 2 if n_err else (1 if n_warn else 0)
+
+
+def _load_work(paths: list[str], use_library: bool):
+    """The work list --certify, --footprint, --compilesurface,
+    --memsurface and --pages share:
+    ConstraintTemplate docs from yaml files plus (optionally) the
+    built-in library with one example constraint each.  Returns None
+    when any input is unreadable (the caller exits 2)."""
+    import sys
+
+    import yaml
+    work: list[tuple[str, dict, list]] = []
+    for p in paths:
+        try:
+            with open(p, encoding="utf-8") as fh:
+                loaded = list(yaml.safe_load_all(fh))
+        except (OSError, yaml.YAMLError) as e:
+            print(f"{p}: cannot load: {e}", file=sys.stderr)
+            return None
+        work.extend((p, d, []) for d in loaded
+                    if isinstance(d, dict)
+                    and d.get("kind") == "ConstraintTemplate")
+    if use_library:
+        from gatekeeper_tpu_torch.library import all_docs
+        work.extend(("<library>", tdoc, [cdoc])
+                    for tdoc, cdoc in all_docs())
+    return work
+
+
+def _compile_work(work, errs: dict):
+    """Shared per-template compile+lower loop for the analysis
+    subcommands: yields (kind, compiled, lowered-or-None,
+    example-constraints).  Parse/compile failures print a FAIL line
+    and bump ``errs["n"]``; scalar-fallback templates yield with
+    ``lowered=None`` so each subcommand can word its own pin line."""
+    import sys
+
+    from gatekeeper_tpu_torch.api.templates import compile_target_rego
+    from gatekeeper_tpu_torch.ir.lower import CannotLower, lower_template
+    for _label, tdoc, cdocs in work:
+        kind = _doc_kind(tdoc)
+        compiled = lowered = None
+        for tt in ((tdoc.get("spec") or {}).get("targets") or ()):
+            try:
+                compiled = compile_target_rego(
+                    kind, tt.get("target") or "", tt.get("rego") or "")
+                lowered = lower_template(compiled.module, compiled.interp)
+            except CannotLower:
+                lowered = None
+            except Exception as e:      # noqa: BLE001 — parse/compile
+                errs["n"] += 1
+                print(f"  FAIL {kind}: {type(e).__name__}: {e}",
+                      file=sys.stderr)
+                compiled = None
+            break
+        if compiled is None:
+            continue
+        yield kind, compiled, lowered, cdocs
 
 
 def run_lint(paths: list[str], use_library: bool = False,
@@ -858,13 +922,546 @@ def run_cost(device=None) -> int:
     return _severity_rc(0, n_over)
 
 
+def run_trace(out_path: str | None = None, device=None) -> int:
+    """``--trace [--out file]``: capture one forced-full library sweep
+    on a ``TorchDriver`` on ``device`` (the card unless ``--device
+    cpu``) under the span tracer (obs/trace.py) and emit Chrome
+    trace-event JSON (Perfetto / chrome://tracing loadable) plus the sweep's per-template device-
+    time attribution under the ``gatekeeperTrace`` metadata key (extra
+    top-level keys are explicitly allowed by the trace-event format).
+
+    Exit contract: 0 with a device-attributed trace, 1 when the sweep
+    ran scalar-only (a host-span-only trace still emits), 2 when the
+    sweep failed outright."""
+    import json as _json
+    import os as _os
+    import random
+    import sys as _sys
+    from gatekeeper_tpu_torch.client.client import Backend
+    import gatekeeper_tpu_torch.engine.torch_driver as jd_mod
+    from gatekeeper_tpu_torch.library import all_docs, make_mixed
+    from gatekeeper_tpu_torch.obs.trace import get_tracer
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+
+    n = int(_os.environ.get("GATEKEEPER_TRACE_PROBE_N", "500"))
+    tracer = get_tracer()
+    try:
+        jd = jd_mod.TorchDriver(device=device)
+        c = Backend(jd).new_client([K8sValidationTarget()])
+        for tdoc, cdoc in all_docs():
+            c.add_template(tdoc)
+            c.add_constraint(cdoc)
+        c.add_data_batch(make_mixed(random.Random(7), n))
+        saved = jd_mod.SMALL_WORKLOAD_EVALS
+        jd_mod.SMALL_WORKLOAD_EVALS = 0
+        try:
+            c.audit(limit_per_constraint=20, full=True)   # compile warm
+            tracer.reset()      # keep only the measured sweep's spans
+            c.audit(limit_per_constraint=20, full=True)
+        finally:
+            jd_mod.SMALL_WORKLOAD_EVALS = saved
+    except Exception as e:      # noqa: BLE001 — render a verdict
+        print(f"trace: sweep failed: {type(e).__name__}: {e}",
+              file=_sys.stderr)
+        return 2
+    phases = jd.last_sweep_phases or {}
+    payload = tracer.export()
+    payload["gatekeeperTrace"] = {
+        "workload_rows": n,
+        "device_s": phases.get("device_s"),
+        "phases": {k: v for k, v in phases.items() if k != "attribution"},
+        "attribution": phases.get("attribution"),
+    }
+    text = _json.dumps(payload, sort_keys=True)
+    if out_path:
+        with open(out_path, "w") as f:
+            f.write(text)
+    else:
+        print(text)
+    att = phases.get("attribution")
+    n_templates = len((att or {}).get("templates", []))
+    print(f"trace: {len(payload['traceEvents'])} events, "
+          f"{n_templates} attributed template(s), "
+          f"device_s={phases.get('device_s')}"
+          + (f" -> {out_path}" if out_path else ""), file=_sys.stderr)
+    if att is None:
+        print("trace: WARNING scalar-only sweep — no device attribution",
+              file=_sys.stderr)
+        return 1
+    return 0
+
+
+def run_certify(paths: list[str], use_library: bool = False,
+                device=None) -> int:
+    """``--certify``: Stage-4 translation validation
+    (analysis/transval.py) over template files and/or the built-in
+    library.  Each device-lowered template is checked against the
+    interpreter on its bounded small-model universe, its worlds
+    evaluated on ``device`` (K1 on the card unless ``--device cpu``:
+    K1's plain version); scalar-fallback
+    templates are reported as pinned (there is no device program to
+    certify).  Exit contract (:func:`_severity_rc`): 2 on any
+    counterexample or unloadable input, 1 if every lowered template
+    certified but some universe was truncated by the model budget,
+    0 fully certified.
+
+    GATEKEEPER_TRANSVAL_CORPUS=<dir> additionally serializes every
+    counterexample found into the regression corpus directory
+    (tests/corpus/transval/ replays them first in the parity suite)."""
+    import os as _os
+    import sys
+    import time as _time
+
+    from gatekeeper_tpu_torch.analysis import transval
+    from gatekeeper_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    work = _load_work(paths, use_library)
+    if work is None:
+        return 2
+    corpus_dir = _os.environ.get("GATEKEEPER_TRANSVAL_CORPUS")
+    t0 = _time.perf_counter()
+    errs = {"n": 0}
+    n_cert = n_pin = n_ce = n_trunc = models = 0
+    for kind, compiled, lowered, cdocs in _compile_work(work, errs):
+        if lowered is None:
+            n_pin += 1
+            print(f"  pin  {kind}: scalar fallback (no device program)")
+            continue
+        lowered = transval.maybe_miscompiled(kind, lowered)
+        try:
+            result = transval.validate_template(
+                kind, compiled, lowered=lowered,
+                constraints=cdocs or None, device=device)
+        except transval.DeviceEvalFailed:
+            raise                       # a kernel error ends the run
+        except Exception as e:          # noqa: BLE001
+            errs["n"] += 1
+            print(f"  FAIL {kind}: validator error: {e}", file=sys.stderr)
+            continue
+        if isinstance(result, transval.Certificate):
+            n_cert += 1
+            models += result.models_checked
+            n_trunc += 1 if result.truncated else 0
+            excused = result.excused_f32 + result.excused_mixed
+            print(f"  ok   {kind}: certified "
+                  f"({result.models_checked} models, fp={result.fp_models}"
+                  + (f", excused={excused}" if excused else "") + ")")
+        else:
+            n_ce += 1
+            print(f"  FAIL {kind}: counterexample ({result.note}) "
+                  f"expected={result.expected} actual={result.actual}",
+                  file=sys.stderr)
+            if corpus_dir:
+                print(f"       saved: "
+                      f"{transval.save_counterexample(corpus_dir, result)}")
+    wall = _time.perf_counter() - t0
+    print(f"certify: {len(work)} template(s), {n_cert} certified, "
+          f"{n_pin} pinned, {n_ce} counterexample(s), "
+          f"{models} models in {wall:.1f}s")
+    return _severity_rc(n_ce + errs["n"], n_trunc)
+
+
+def run_footprint(paths: list[str], use_library: bool = False,
+                  device=None) -> int:
+    """``--footprint``: Stage-5 dependency analysis
+    (analysis/footprint.py) over template files and/or the built-in
+    library.  For each device-lowered template, print the column
+    read-set with sensitivity classes, external-provider reads, and
+    the row-locality verdict, then perturbation-validate the footprint
+    against smallmodel worlds evaluated on ``device`` (K1 on the card
+    unless ``--device cpu``); scalar-fallback templates are reported
+    as pinned (no device program, so the whole kind invalidates on any
+    change).  Exit contract (:func:`_severity_rc`): 2 on any footprint
+    violation or unloadable input, 1 when every footprint validated
+    but some template is cross-row (shard_map ineligible, selective
+    invalidation disabled for it), 0 fully row-local and validated."""
+    import sys
+    import time as _time
+
+    from gatekeeper_tpu_torch.analysis import footprint, transval
+    from gatekeeper_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)
+    work = _load_work(paths, use_library)
+    if work is None:
+        return 2
+    t0 = _time.perf_counter()
+    errs = {"n": 0}
+    n_ok = n_pin = n_cross = n_viol = 0
+    for kind, compiled, lowered, cdocs in _compile_work(work, errs):
+        if lowered is None:
+            n_pin += 1
+            print(f"  pin  {kind}: scalar fallback (whole-kind "
+                  "invalidation, shard_map ineligible)")
+            continue
+        try:
+            fp = footprint.analyze(kind, lowered)
+            fp = footprint.maybe_narrowed(kind, fp)
+            found = footprint.validate_footprint(
+                kind, compiled, lowered, fp, constraints=cdocs or None,
+                device=device)
+        except transval.DeviceEvalFailed:
+            raise                       # a kernel error ends the run
+        except Exception as e:          # noqa: BLE001
+            errs["n"] += 1
+            print(f"  FAIL {kind}: analyzer error: {e}", file=sys.stderr)
+            continue
+        verdict = "row-local" if fp.row_local else "CROSS-ROW"
+        tag = "ok  " if fp.row_local else "warn"
+        print(f"  {tag} {kind}: {verdict}, "
+              f"{len(fp.columns)} column(s)"
+              + (f", providers={','.join(fp.providers)}"
+                 if fp.providers else ""))
+        for col in fp.columns:
+            print(f"         reads {col.format()}")
+        if not fp.row_local:
+            n_cross += 1
+            for reason in fp.cross_row_reasons:
+                print(f"         cross-row: {reason}")
+        else:
+            n_ok += 1
+        for v in found:
+            n_viol += 1
+            print(f"  FAIL {v.format()}", file=sys.stderr)
+    wall = _time.perf_counter() - t0
+    print(f"footprint: {len(work)} template(s), {n_ok} row-local, "
+          f"{n_cross} cross-row, {n_pin} pinned, "
+          f"{n_viol} violation(s) in {wall:.1f}s")
+    return _severity_rc(n_viol + errs["n"], n_cross)
+
+
+def run_compilesurface(paths: list[str], use_library: bool = False) -> int:
+    """``--compilesurface``: Stage-7 compile-surface certification
+    (analysis/compilesurface.py) over template files and/or the
+    built-in library.  For each device-lowered template, statically
+    enumerate every padded shape signature its device programs can be
+    launched with (the pad-geometry ladders of ir/prep.py under the
+    deployment caps) and print the certified signature count per
+    padded axis; a template whose surface is input-unbounded under the
+    caps is an error-severity finding (an attacker-controlled compile
+    storm), and scalar-fallback templates are reported as pinned (no
+    device program, nothing to certify).  Exit contract
+    (:func:`_severity_rc`): 2 on any unbounded surface or unloadable
+    input, 1 when every device surface is bounded but some template is
+    pinned, 0 fully certified."""
+    import sys
+    import time as _time
+
+    from gatekeeper_tpu_torch.analysis import compilesurface
+
+    work = _load_work(paths, use_library)
+    if work is None:
+        return 2
+    t0 = _time.perf_counter()
+    errs = {"n": 0}
+    n_cert = n_unbounded = n_pin = 0
+    total_sigs = 0
+    for kind, compiled, lowered, cdocs in _compile_work(work, errs):
+        if lowered is None:
+            n_pin += 1
+            print(f"  pin  {kind}: scalar fallback (no device program, "
+                  "nothing to certify)")
+            continue
+        try:
+            cert = compilesurface.analyze(kind, lowered)
+        except Exception as e:          # noqa: BLE001
+            errs["n"] += 1
+            print(f"  FAIL {kind}: analyzer error: {e}", file=sys.stderr)
+            continue
+        if cert.bounded:
+            n_cert += 1
+            total_sigs += cert.n_signatures
+            axes = ", ".join(f"{cls}[{lo}..{cap}]:{n}"
+                             for cls, lo, cap, n in cert.axes)
+            print(f"  ok   {kind}: {cert.n_signatures} signature(s), "
+                  f"{cert.delta_rungs} delta rung(s)")
+            print(f"         axes: {axes or '(static only)'}")
+        else:
+            n_unbounded += 1
+            print(f"  FAIL {kind}: compile_surface_unbounded — "
+                  f"{cert.reason}", file=sys.stderr)
+    wall = _time.perf_counter() - t0
+    print(f"compilesurface: {len(work)} template(s), {n_cert} certified, "
+          f"{n_unbounded} unbounded, {n_pin} pinned, "
+          f"{total_sigs} total signature(s) in {wall:.1f}s")
+    return _severity_rc(n_unbounded + errs["n"], n_pin)
+
+
+def run_memsurface(paths: list[str], use_library: bool = False,
+                   device=None) -> int:
+    """``--memsurface``: Stage-8 memory-surface certification
+    (analysis/memsurface.py) over template files and/or the built-in
+    library.  For each device-lowered template, print the certified
+    worst-signature peak and resident footprint against the installed
+    device-memory budget (``GATEKEEPER_HBM_BUDGET_BYTES``, else the
+    memory of ``device``: the card unless ``--device cpu``, which takes
+    an H100's 80 GB); a peak past the budget is an error-severity
+    ``hbm_budget_exceeded`` finding, and scalar-fallback templates are
+    reported as pinned (no device program, zero device bytes).
+
+    Claimed certificates are validated, not trusted: the probe builds
+    the real Bindings for each template at a small world
+    (``GATEKEEPER_MS_PROBE_N``, default 64 resources) and checks
+    per-array that the certificate's claim at the exact built shapes
+    dominates the bytes actually materialized — a certificate that
+    under-claims any array (the ``GATEKEEPER_MEMSURFACE_TEST_UNDER``
+    seam seeds one deliberately) is an error-severity
+    ``memsurface_underclaim`` finding.  Exit contract
+    (:func:`_severity_rc`): 2 on any budget violation, under-claim, or
+    unloadable input, 1 when some template is pinned, 0 fully
+    certified within budget."""
+    import os as _os
+    import random
+    import sys
+    import time as _time
+
+    import numpy as np
+
+    from gatekeeper_tpu_torch.analysis import memsurface
+    from gatekeeper_tpu_torch.analysis.transval import _world_state
+    from gatekeeper_tpu_torch.ir.prep import build_bindings
+    from gatekeeper_tpu_torch.library import make_mixed
+
+    work = _load_work(paths, use_library)
+    if work is None:
+        return 2
+    t0 = _time.perf_counter()
+    errs = {"n": 0}
+    n_cert = n_over = n_pin = n_under = 0
+    probe_n = int(_os.environ.get("GATEKEEPER_MS_PROBE_N", "64"))
+    st, _rows, _handler = _world_state(make_mixed(random.Random(13),
+                                                  probe_n))
+    if device is not None and str(device) != "cpu":
+        from gatekeeper_tpu_torch.utils.device import resolve_device
+        device = resolve_device(device)
+    budget = memsurface.budget_bytes(device)
+    certs: dict = {}
+    # build_bindings packs value+presence (".v"/".p") and constraint-set
+    # (".B"/".bitmap") companions under one modeled base name
+    suffixes = (".v", ".p", ".B", ".bitmap")
+    for kind, compiled, lowered, cdocs in _compile_work(work, errs):
+        if lowered is None:
+            n_pin += 1
+            certs[kind] = memsurface.scalar_surface(kind)
+            print(f"  pin  {kind}: scalar fallback (host-evaluated, "
+                  "no device bytes to certify)")
+            continue
+        try:
+            cert = memsurface.analyze(kind, lowered)
+        except Exception as e:          # noqa: BLE001
+            errs["n"] += 1
+            print(f"  FAIL {kind}: analyzer error: {e}", file=sys.stderr)
+            continue
+        certs[kind] = cert
+        # ---- validate: claimed bytes must dominate the built arrays
+        under: list[str] = []
+        try:
+            bindings = build_bindings(lowered.spec, st.table, cdocs)
+        except Exception as e:          # noqa: BLE001
+            errs["n"] += 1
+            print(f"  FAIL {kind}: bindings build error: {e}",
+                  file=sys.stderr)
+            continue
+        model_item: dict[str, int] = {}
+        for name, _dcls, itemsize in cert.bindings:
+            model_item[name] = max(model_item.get(name, 0), itemsize)
+        grouped: dict[str, list] = {}
+        for aname, arr in bindings.arrays.items():
+            mname = aname
+            if mname not in model_item:
+                for suf in suffixes:
+                    base = aname[:-len(suf)] if aname.endswith(suf) else None
+                    if base and base in model_item:
+                        mname = base
+                        break
+            grouped.setdefault(mname, []).append(arr)
+        for mname, arrs in sorted(grouped.items()):
+            built = sum(int(a.nbytes) for a in arrs)
+            if mname not in model_item:
+                under.append(f"{mname} unmodeled ({built} B built)")
+                continue
+            claimed = model_item[mname] * max(
+                int(np.prod(a.shape)) for a in arrs)
+            if claimed < built:
+                under.append(f"{mname} claims {claimed} B < "
+                             f"{built} B built")
+        if under:
+            n_under += 1
+            print(f"  FAIL {kind}: memsurface_underclaim — "
+                  + "; ".join(under[:3]), file=sys.stderr)
+            continue
+        peak = cert.peak_bytes()
+        dims = {"c": bindings.c_pad, "r": bindings.r_pad}
+        resident = cert.resident_bytes(
+            dims, shapes={k: a.shape for k, a in bindings.arrays.items()})
+        reason = memsurface.budget_reason(cert, device)
+        if reason is not None:
+            n_over += 1
+            print(f"  FAIL {kind}: {reason}", file=sys.stderr)
+            continue
+        n_cert += 1
+        print(f"  ok   {kind}: peak {peak / (1 << 20):.1f} MiB @ worst "
+              f"signature, {resident / (1 << 20):.2f} MiB resident "
+              f"@ n={probe_n}")
+    set_bytes = memsurface.policy_set_bytes(certs=certs)
+    wall = _time.perf_counter() - t0
+    print(f"memsurface: {len(certs)} template(s), {n_cert} certified, "
+          f"{n_over} over budget, {n_under} under-claimed, {n_pin} "
+          f"pinned; policy set {set_bytes / (1 << 30):.2f} GiB of "
+          f"{budget / (1 << 30):.0f} GiB budget in {wall:.1f}s")
+    return _severity_rc(n_over + n_under + errs["n"], n_pin)
+
+
+def run_pages(paths: list[str], use_library: bool = False,
+              device=None) -> int:
+    """``--pages``: self-validate the continuous-enforcement paged
+    sweep (enforce/) over template files and/or the built-in library,
+    on ``TorchDriver``s on ``device`` (the card unless ``--device
+    cpu``).  Two identically-churned clients run side by side — ``GATEKEEPER_PAGES=on`` vs the legacy full path — and every
+    sweep's verdicts must match bit-identically while the paged client
+    maintains its VerdictLedger by per-page deltas.  Prints the page
+    geometry (rows/page, page count, occupancy), per-sweep dirty work
+    (pages evaluated vs total, evaluations saved, delta events), the
+    ledger size, and per-kind eligibility with fallback reasons.  Exit
+    contract (:func:`_severity_rc`): 2 on any parity break or
+    unreadable input, 1 when parity held but some kind fell back to
+    the full-kind path (cross-row / scalar-pin — delta maintenance
+    disabled for it), 0 all kinds paged with parity."""
+    import copy
+    import os as _os
+    import random
+    import sys
+    import time as _time
+
+    from gatekeeper_tpu_torch.client.client import Backend
+    from gatekeeper_tpu_torch.engine.torch_driver import TorchDriver
+    from gatekeeper_tpu_torch.library import make_mixed
+    from gatekeeper_tpu_torch.target.k8s import K8sValidationTarget
+    from gatekeeper_tpu_torch.whatif import normalize_results
+
+    work = _load_work(paths, use_library)
+    if work is None:
+        return 2
+    if not work:
+        print("pages: no ConstraintTemplate docs "
+              "(pass template yaml or --library)", file=sys.stderr)
+        return 2
+
+    n = int(_os.environ.get("GATEKEEPER_PAGES_PROBE_N", "300"))
+    objs = make_mixed(random.Random(7), n)
+
+    def _build():
+        driver = TorchDriver(device=device)
+        handler = K8sValidationTarget()
+        client = Backend(driver).new_client([handler])
+        for _label, tdoc, cdocs in work:
+            client.add_template(tdoc)
+            for c in cdocs:
+                client.add_constraint(c)
+        client.add_data_batch(copy.deepcopy(objs))
+        return driver, handler, client
+
+    prev = _os.environ.get("GATEKEEPER_PAGES")
+
+    def _sweep(client, pages: bool):
+        _os.environ["GATEKEEPER_PAGES"] = "on" if pages else "off"
+        try:
+            return normalize_results(
+                client.audit(limit_per_constraint=20).results())
+        finally:
+            if prev is None:
+                _os.environ.pop("GATEKEEPER_PAGES", None)
+            else:
+                _os.environ["GATEKEEPER_PAGES"] = prev
+
+    # churn batches built once from the seed objects, applied
+    # identically to both clients: metadata noise (invisible to most
+    # footprints — the paged sweep should skip almost everything),
+    # then an image edit that actually flips verdicts
+    rng = random.Random(11)
+    churn_n = max(n // 100, 1)
+    batches = []
+    b = []
+    for o in rng.sample(objs, min(churn_n, len(objs))):
+        o = copy.deepcopy(o)
+        o.setdefault("metadata", {}).setdefault(
+            "annotations", {})["probe/pages"] = "noise-1"
+        b.append(o)
+    batches.append(b)
+    pods = [o for o in objs
+            if isinstance((o.get("spec") or {}).get("containers"), list)
+            and (o.get("spec") or {}).get("containers")]
+    b = []
+    for o in rng.sample(pods, min(churn_n, len(pods))):
+        o = copy.deepcopy(o)
+        o["spec"]["containers"][0]["image"] = "evil.io/pages-probe:1"
+        b.append(o)
+    if b:
+        batches.append(b)
+
+    t0 = _time.perf_counter()
+    jd_p, h_p, cl_p = _build()
+    _jd_o, _h_o, cl_o = _build()
+    n_err = 0
+    for i, batch in enumerate([None] + batches):
+        if batch:
+            cl_p.add_data_batch(copy.deepcopy(batch))
+            cl_o.add_data_batch(copy.deepcopy(batch))
+        got = _sweep(cl_p, True)
+        want = _sweep(cl_o, False)
+        pg = (jd_p.last_sweep_phases or {}).get("pages", {})
+        ok = got == want
+        n_err += 0 if ok else 1
+        label = ("cold build" if i == 0
+                 else f"churn {i} ({len(batch)} upsert(s))")
+        print(f"  {'ok  ' if ok else 'FAIL'} sweep {i}: {label} — "
+              f"{len(got)} verdict(s), "
+              f"{pg.get('pages_evaluated', 0)}/{pg.get('n_pages', 0)} "
+              f"page(s) evaluated, "
+              f"{pg.get('evaluations_saved', 0)} evaluation(s) saved, "
+              f"{pg.get('events', 0)} delta event(s)")
+
+    st = jd_p._state(h_p.name)
+    table = st.table
+    n_warn = 0
+    from gatekeeper_tpu_torch.enforce.devpages import devpages_mode
+    dv_on = devpages_mode()
+    dv_report = jd_p.devpages_report(h_p.name)
+    for kind in sorted(st.templates):
+        reason = jd_p._pages_ineligible(st, kind, st.templates[kind])
+        dv_reason = dv_report.get(kind, "unknown")
+        resid = ("device-resident" if dv_reason is None
+                 else f"host ({dv_reason})")
+        if reason is None:
+            print(f"  ok   {kind}: paged (delta-maintained, {resid})")
+        else:
+            n_warn += 1
+            print(f"  warn {kind}: full-kind fallback — {reason} "
+                  f"[{resid}]")
+    if dv_on:
+        dv = (jd_p.last_sweep_phases or {}).get("devpages", {})
+        n_dev = sum(1 for r in dv_report.values() if r is None)
+        print(f"  devpages: {n_dev}/{len(dv_report)} kind(s) "
+              f"device-eligible; last sweep "
+              f"{dv.get('kinds_device', 0)} on device, "
+              f"{dv.get('h2d_bytes', 0)} H2D byte(s), "
+              f"{dv.get('scatter_rows', 0)} scattered row(s), "
+              f"{dv.get('delta_events', 0)} device delta event(s), "
+              f"{dv.get('direct_clears', 0)} direct clear(s)")
+    led = st.ledger
+    occ = table.n_rows / max(1, table.n_pages * table.page_rows)
+    wall = _time.perf_counter() - t0
+    print(f"pages: page_rows={table.page_rows} pages={table.n_pages} "
+          f"rows={table.n_rows} occupancy={occ:.0%}; "
+          f"ledger {led.total_violations() if led else 0} violation(s) "
+          f"seq={led.seq if led else 0}; "
+          f"{len(st.templates) - n_warn}/{len(st.templates)} kind(s) "
+          f"paged; {n_err} parity failure(s) in {wall:.1f}s")
+    return _severity_rc(n_err, n_warn)
+
+
 UNPORTED = {
-    "--footprint": "ROADMAP A8, the footprint validator's worlds",
-    "--certify": "ROADMAP A8, translation validation",
-    "--trace": "ROADMAP A8",
-    "--pages": "ROADMAP A8",
-    "--compilesurface": "ROADMAP A8, the compile-surface certifier",
-    "--memsurface": "ROADMAP A8",
     "--shardplan": "ROADMAP A10, the simulated mesh",
 }
 """The reference's subcommands the port has not got, each with the item
@@ -939,8 +1536,8 @@ def _refuse(flag: str):
 
 def _run_subcommand(argv: list[str], device=None) -> int | None:
     """One dispatcher for every analysis subcommand: flag matching,
-    ``--library``/``--strict`` extraction and positional (yaml path)
-    splitting live here; the shared 0/1/2 exit contract is
+    ``--library``/``--strict``/``--out`` extraction and positional (yaml
+    path) splitting live here; the shared 0/1/2 exit contract is
     :func:`_severity_rc` inside each runner.  Returns None when no
     analysis flag is present (the caller falls through to the engine
     probe)."""
@@ -950,6 +1547,11 @@ def _run_subcommand(argv: list[str], device=None) -> int | None:
     use_library = "--library" in argv
     strict = "--strict" in argv
     pos = [a for a in argv if a not in ("--library", "--strict")]
+    out = None
+    if "--out" in pos:
+        i = pos.index("--out")
+        out = pos[i + 1] if i + 1 < len(pos) else None
+        del pos[i:i + 2]
     table = (
         ("--health", lambda rest: run_health(device)),
         ("--whatif", lambda rest: run_whatif(device)),
@@ -957,6 +1559,17 @@ def _run_subcommand(argv: list[str], device=None) -> int | None:
                                                device=device)),
         ("--policyset", lambda rest: run_policyset()),
         ("--cost", lambda rest: run_cost(device)),
+        ("--trace", lambda rest: run_trace(out, device)),
+        ("--certify", lambda rest: run_certify(
+            rest, use_library=use_library, device=device)),
+        ("--footprint", lambda rest: run_footprint(
+            rest, use_library=use_library, device=device)),
+        ("--compilesurface", lambda rest: run_compilesurface(
+            rest, use_library=use_library)),
+        ("--memsurface", lambda rest: run_memsurface(
+            rest, use_library=use_library, device=device)),
+        ("--pages", lambda rest: run_pages(
+            rest, use_library=use_library, device=device)),
         ("--lint", lambda rest: run_lint(
             rest, use_library=use_library, strict=strict)),
     )
@@ -990,10 +1603,11 @@ def main(argv=None) -> int:
     ``--lint <template.yaml>... [--library] [--strict]`` runs the
     static-analysis pass, ``--cost`` the cost model against a measured
     sweep, ``--policyset`` the whole-set report, ``--whatif`` and
-    ``--rollout`` the what-if and promotion self-checks; analysis
-    subcommands share one exit contract: 0
-    clean, 1 warnings only, 2 any error-severity finding or unreadable
-    input.
+    ``--rollout`` the what-if and promotion self-checks, ``--certify``,
+    ``--footprint``, ``--compilesurface``, ``--memsurface``, ``--pages``
+    and ``--trace`` the certifiers and tracers; analysis subcommands
+    share one exit contract: 0 clean, 1 warnings only, 2 any
+    error-severity finding or unreadable input.
 
     The verdict line names the device that served the [torch]
     scenarios, or ``unavailable`` when the driver could not be built

@@ -14,14 +14,12 @@ longer compiles still tears down — the reference returns after the
 CreateCRD error and would leak the finalizer forever; here deletion
 proceeds with the CRD identity derived from the template kind alone.
 
-Trimmed for the port: ``GATEKEEPER_TRANSVAL=strict`` raises (no Stage
-4, ROADMAP A8).  Footprint and shardplan statuses read
-the port's own ``analysis/footprint.py`` and ``analysis/shardplan.py``.
+Translation-validation, footprint and shardplan statuses read the
+port's own ``analysis/transval.py``, ``analysis/footprint.py`` and
+``analysis/shardplan.py``.
 """
 
 from __future__ import annotations
-
-import os
 
 from gatekeeper_tpu_torch.api.config import GVK
 from gatekeeper_tpu_torch.client.client import Client
@@ -78,16 +76,7 @@ def crd_delete(cluster, name: str) -> None:
 
 
 CONSTRAINT_GROUP = "constraints.gatekeeper.sh"
-TRANSVAL_NOT_PORTED = ("GATEKEEPER_TRANSVAL=strict: translation validation "
-                       "(Stage 4) is not yet ported to gatekeeper_tpu_torch "
-                       "(ROADMAP A8)")
 FINALIZER = "constrainttemplate.finalizers.gatekeeper.sh"
-
-
-def transval_mode() -> str:
-    """GATEKEEPER_TRANSVAL as the reference reads it
-    (analysis/transval.py ``mode``): ``off`` by default."""
-    return os.environ.get("GATEKEEPER_TRANSVAL", "off").strip().lower()
 
 
 def make_constraint_gvk(kind: str) -> GVK:
@@ -343,12 +332,20 @@ class ReconcileConstraintTemplate(Reconciler):
         operator sees *why* the device path is off.  Unlike VetError
         this does not reject — the scalar oracle serves the template
         with reference semantics."""
-        # the port has no Stage 4 yet (analysis/transval.py, ROADMAP
-        # A8): the default "off" records nothing, as the reference's
-        # does; "strict" would need counterexamples nothing produces,
-        # so it raises instead of passing silently
-        if transval_mode() == "strict":
-            raise ClientError(TRANSVAL_NOT_PORTED)
+        from gatekeeper_tpu_torch.analysis import transval
+        if transval.mode() != "strict":
+            return
+        ce = transval.failure_for(_template_kind(instance))
+        if ce is None:
+            return
+        status = get_ha_status(instance)
+        status.setdefault("errors", []).append(
+            {"code": "translation_unvalidated",
+             "message": (f"lowered program failed translation validation "
+                         f"({ce.note}; oracle={ce.expected} "
+                         f"device={ce.actual}); pinned to the scalar "
+                         "fallback")})
+        set_ha_status(instance, status)
 
     def _footprint_status(self, instance: dict) -> None:
         """Stage-5 surface (analysis/footprint.py): templates whose

@@ -589,6 +589,16 @@ class ProgramExecutor:
         self.compiles = 0
         self.cache_hits = 0
         self._devdelta_keys: set = set()
+        # Stage-7 retrace sentinel (analysis/compilesurface.py): the
+        # driver's ``_surface_guard``, asked at the first launch of each
+        # signature (program, mode, the arrays' names, dtypes and
+        # shapes, devpages delta width) before anything compiles;
+        # ``retrace_uncertified`` counts the signatures it found outside
+        # the certificate
+        self.surface_guard = None
+        self.retrace_uncertified = 0
+        self._launched: set = set()
+        self._sig_lock = threading.Lock()
 
     def reset_for_recovery(self, bindings_list) -> None:
         """Forget the device arrays and stored violation masks this
@@ -787,11 +797,56 @@ class ProgramExecutor:
         self._arrays(bindings, None, None)
 
     # ------------------------------------------------------------------
+    # the Stage-7 sentinel
+
+    def _guard_miss(self, mode: str, program: Program, arrays: dict,
+                    delta_k: int | None = None) -> None:
+        """Stage-7 sentinel, called before every launch of ``program``
+        over ``arrays`` (``<dfa>.devtab`` verdict tables, derived from
+        the bindings, are left out of the signature).  The first launch
+        of a signature asks ``surface_guard``: warn mode counts and
+        records (the driver's guard does both) and lets the launch go
+        on and compile its variant; strict mode refuses it with
+        ``UncertifiedRetrace`` before K3 or K1 runs or anything
+        compiles, and the signature stays unlaunched, so every later
+        attempt is refused too.  A later launch of a launched signature
+        asks nothing."""
+        arrays = {nm: a for nm, a in arrays.items()
+                  if not nm.endswith(".devtab")}
+        key = (mode, program.cache_key(), delta_k,
+               tuple((nm, str(arrays[nm].dtype), tuple(arrays[nm].shape))
+                     for nm in sorted(arrays)))
+        with self._sig_lock:
+            if key in self._launched:
+                return
+        guard = self.surface_guard
+        ok = True
+        if guard is not None:
+            try:
+                ok = guard(program, arrays, delta_k)
+            except Exception:   # noqa: BLE001 — the sentinel must never
+                ok = True       # take a legitimate launch down
+        if not ok:
+            with self._sig_lock:
+                self.retrace_uncertified += 1
+            from gatekeeper_tpu_torch.analysis import compilesurface as _cs
+            if _cs.mode() == "strict":
+                shapes = {nm: tuple(int(d) for d in arrays[nm].shape)
+                          for nm in sorted(arrays)}
+                raise _cs.UncertifiedRetrace(
+                    f"launch signature outside the certified compile "
+                    f"surface (strict mode refuses the retrace): "
+                    f"shapes={shapes}, delta_k={delta_k}")
+        with self._sig_lock:
+            self._launched.add(key)
+
+    # ------------------------------------------------------------------
     # evaluation
 
     def _full_mask(self, program: Program, arrays: dict) -> torch.Tensor:
         """[C, R] bool mask: K3 for every regex table, then K1 (CUDA) —
         or their plain versions on the CPU."""
+        self._guard_miss("mask", program, arrays)
         self.mask_evals += 1
         d = _with_dfa_tables(program, arrays, _dfa.dfa_table)
         return _ir_eval.eval_mask(program, d)
@@ -802,6 +857,7 @@ class ProgramExecutor:
         """The stored mask with ``rows`` re-evaluated: K3 over the whole
         string table (as the reference's delta program does), then K5 —
         or their plain versions on the CPU."""
+        self._guard_miss("delta", program, arrays)
         self.delta_evals += 1
         d = _with_dfa_tables(program, arrays, _dfa.dfa_table)
         return _ir_eval.delta_mask(program, d, viol_old, rows)
@@ -872,11 +928,14 @@ class ProgramExecutor:
         counterpart of the reference's ``prewarm_reduce``).  Counts
         nothing (``mask_evals``, ``eval_mask.launches``) and stores no
         mask on ``bindings``.  Returns False, having launched nothing, on
-        the CPU."""
+        the CPU.  The signature goes through the Stage-7 sentinel first,
+        as a sweep's launch would."""
         if self.device.type != "cuda":
             return False
-        _ir_eval.warm_mask(program, self.audit_warm_arrays(
-            program, bindings, k, with_match, extra))
+        arrays = self.audit_warm_arrays(program, bindings, k, with_match,
+                                        extra)
+        self._guard_miss("mask", program, arrays)
+        _ir_eval.warm_mask(program, arrays)
         if k is not None:
             _topk.load()
         if dfa_names(program):
@@ -1043,6 +1102,7 @@ class ProgramExecutor:
         if key in self._devdelta_keys:
             self.cache_hits += 1
         else:
+            self._guard_miss("devdelta", program, arrays, delta_k=k)
             self._devdelta_keys.add(key)
             self.compiles += 1
         err = None

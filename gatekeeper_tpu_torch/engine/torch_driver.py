@@ -50,10 +50,15 @@ executor keeps the violation mask on the device: dirty rows are
 scattered into the device columns and re-evaluated into the stored mask
 (engine/executor.py "delta" plan).
 Template install runs the Stage-2 IR verifier (analysis/ir_verifier.py:
-a malformed lowered program is pinned to the scalar oracle) and the
-Stage-5 footprint and Stage-6 partition-plan certifiers
-(analysis/footprint.py, analysis/shardplan.py): the paged route reads
-the first, the fleet audit (whatif/fleet.py) both; the Stage-8
+a malformed lowered program is pinned to the scalar oracle), Stage-4
+translation validation (analysis/transval.py, under
+``GATEKEEPER_TRANSVAL``: small-model worlds through K1 on this driver's
+device against the scalar oracle), the Stage-5 footprint and Stage-6
+partition-plan certifiers (analysis/footprint.py, analysis/shardplan.py):
+the paged route reads the first, the fleet audit (whatif/fleet.py) both;
+the Stage-7 compile-surface certificate (analysis/compilesurface.py)
+drives the precompile, the executor's retrace sentinel and the
+micro-batcher's rungs; the Stage-8
 memory-surface certificate (analysis/memsurface.py) gates the install
 against the device-memory budget, sizes the residency planner and orders
 a forced full sweep's kinds and the largest admission batch.
@@ -296,6 +301,11 @@ class TorchTargetState(TargetState):
         # the devpages residency planner sizes its claim from them and
         # forced full sweeps order their kinds by them
         self.memsurfaces: dict[str, object] = {}
+        # Stage-7 compile-surface certificates (analysis/compilesurface.py):
+        # the precompile launches their kinds, the executor's sentinel
+        # checks launches against them, the micro-batcher steps down
+        # their rungs
+        self.compilesurfaces: dict[str, object] = {}
         # continuous enforcement (enforce/ledger.py): the target's
         # VerdictLedger (created on the first paged sweep), a restored
         # pagemap snapshot awaiting per-kind adoption, and the dirty-log
@@ -365,6 +375,9 @@ class TorchDriver(LocalDriver):
         super().__init__(tracing=tracing)
         self.executor = ProgramExecutor(device)
         self.device = self.executor.device
+        # Stage-7 retrace sentinel: the executor asks it at the first
+        # launch of every signature, before anything compiles
+        self.executor.surface_guard = self._surface_guard
         self.metrics = Metrics()
         # the serving posture of this driver's device (one supervisor a
         # device, resilience/supervisor.py): scalar_only reads it per
@@ -784,6 +797,10 @@ class TorchDriver(LocalDriver):
                         kind, compiled.vectorized)
                 _snap.save_template_ir(kind, target, compiled.source,
                                        compiled.vectorized)
+            # stage 4 runs on BOTH paths: the cert snapshot tier (not
+            # the IR tier) is what makes the warm restart skip it
+            if compiled.vectorized is not None:
+                compiled.vectorized = self._certify_lowered(kind, compiled)
         st = self._state(target)
         if isinstance(st, TorchTargetState):
             # stage 5 (dependency footprint), then stage 6 (partition
@@ -802,6 +819,15 @@ class TorchDriver(LocalDriver):
                 st.shardplans[kind] = sp
             else:
                 st.shardplans.pop(kind, None)
+            # stage 7 (compile surface): the finite signature set the
+            # device programs can be launched with; the cs snapshot
+            # tier keeps warm restarts at zero re-analyses.  Scalar pins
+            # get the trivial empty-surface certificate.
+            cs_cert = self._compilesurface_lowered(kind, compiled)
+            if cs_cert is not None:
+                st.compilesurfaces[kind] = cs_cert
+            else:
+                st.compilesurfaces.pop(kind, None)
             # stage 8 (memory surface): the conservative peak device
             # bytes; strict rejects an install over the budget
             ms_cert = self._memsurface_lowered(kind, compiled)
@@ -840,22 +866,40 @@ class TorchDriver(LocalDriver):
 
     def _footprint_lowered(self, kind: str, compiled: CompiledTemplate):
         """Stage-5 dependency analysis (analysis/footprint.py) behind
-        GATEKEEPER_FOOTPRINT=off|on|strict.  An analysis error must not
-        take the install down: it is counted and the kind has no
-        footprint.  ``strict`` (perturbation validation) is not ported
-        and raises ClientError here, outside the error guard, so the
-        install fails instead of carrying on without a footprint."""
-        from gatekeeper_tpu_torch.analysis import footprint
+        GATEKEEPER_FOOTPRINT=off|on|strict.  on: compute the read-set /
+        row-locality footprint; strict: additionally perturbation-
+        validate it over the small-model worlds on this driver's device
+        and FAIL the install on any violation — a violation means the
+        analysis itself is wrong.  An analysis error must not take the
+        install down: it is counted and the kind has no footprint.  An
+        error of a world's evaluation on the device (a K1 launch) is no
+        analysis error and propagates, as kernel errors do in a sweep."""
+        from gatekeeper_tpu_torch.analysis import footprint, transval
         if footprint.mode() == "off":
             return None
         try:
-            fp = footprint.certify(kind, compiled.vectorized)
+            fp = footprint.certify(kind, compiled, compiled.vectorized,
+                                   device=self.device)
+        except transval.DeviceEvalFailed as e:
+            raise e.__cause__
         except Exception as e:   # noqa: BLE001 — analysis must not take
             # template install down with it
             from gatekeeper_tpu_torch.utils.log import logger
             logger("engine.torch_driver").warning(
                 "footprint analysis errored", kind=kind, err=str(e))
             self.metrics.counter("footprint_errors").inc()
+            return None
+        bad = footprint.violations_for(kind)
+        if bad:
+            self.metrics.counter("footprint_violations").inc(len(bad))
+            if footprint.mode() == "strict":
+                from gatekeeper_tpu_torch.analysis.diagnostics import \
+                    Diagnostic
+                from gatekeeper_tpu_torch.errors import VetError
+                raise VetError([Diagnostic(code="footprint_violation",
+                                           severity="error",
+                                           message=v.format())
+                                for v in bad])
             return None
         if not fp.row_local:
             self.metrics.counter("footprint_cross_row").inc()
@@ -926,6 +970,112 @@ class TorchDriver(LocalDriver):
                                            message=f"{kind}: {reason}")])
         return cert
 
+    def _compilesurface_lowered(self, kind: str,
+                                compiled: CompiledTemplate):
+        """Stage-7 compile-surface certification
+        (analysis/compilesurface.py) behind
+        GATEKEEPER_COMPILE_SURFACE=off|warn|strict.  Like stage 6 this
+        NEVER fails an install: an unbounded (or errored) surface only
+        excludes the kind from the precompile and the retrace sentinel —
+        it keeps serving, its launches compiling what they need."""
+        from gatekeeper_tpu_torch.analysis import compilesurface
+        if compilesurface.mode() == "off":
+            return None
+        if compiled.vectorized is None:
+            return compilesurface.scalar_surface(kind)
+        try:
+            cert = compilesurface.certify(kind, compiled,
+                                          compiled.vectorized)
+        except Exception as e:   # noqa: BLE001 — analysis must not take
+            # template install down with it; no certificate just means
+            # no precompile or retrace gating for this kind
+            from gatekeeper_tpu_torch.utils.log import logger
+            logger("engine.torch_driver").warning(
+                "compile-surface analysis errored", kind=kind,
+                err=str(e))
+            self.metrics.counter("compilesurface_errors").inc()
+            return None
+        if not cert.bounded:
+            self.metrics.counter("compile_surface_unbounded").inc()
+            from gatekeeper_tpu_torch.utils.log import logger
+            logger("engine.torch_driver").warning(
+                "compile surface unbounded; kind excluded from the "
+                "precompile and retrace gating", kind=kind,
+                reason=cert.reason)
+        return cert
+
+    def _surface_guard(self, program, arrays,
+                       delta_k: int | None = None) -> bool:
+        """Executor hook at the first launch of a signature: True when
+        the signature is inside the installed certificate (or the
+        program is unguarded).  An uncertified signature is counted and
+        flight-recorded; the executor decides refusal (strict) against
+        launching and compiling it (warn)."""
+        from gatekeeper_tpu_torch.analysis import compilesurface
+        try:
+            ok = compilesurface.dispatch_certified(program, arrays,
+                                                   delta_k=delta_k)
+        except Exception:   # noqa: BLE001 — the sentinel must never
+            return True     # take a legitimate launch down
+        if ok:
+            return True
+        compilesurface.uncertified_total += 1
+        self.metrics.counter("retrace_uncertified_total").inc()
+        try:
+            from gatekeeper_tpu_torch.obs.flightrecorder import record_event
+            record_event(
+                "retrace_uncertified",
+                shapes={nm: tuple(int(d) for d in arrays[nm].shape)
+                        for nm in sorted(arrays)},
+                delta_k=delta_k, mode=compilesurface.mode())
+        except Exception:   # noqa: BLE001
+            pass
+        return False
+
+    def _certify_lowered(self, kind: str, compiled: CompiledTemplate):
+        """Stage-4 translation validation (analysis/transval.py) behind
+        GATEKEEPER_TRANSVAL=off|warn|strict, its worlds evaluated on
+        this driver's device (K1 on the card, its plain version on the
+        CPU).  strict: a counterexample pins the template to the scalar
+        oracle exactly like CannotLower (and the reconciler surfaces
+        ``translation_unvalidated``); warn: log and serve on the device
+        anyway.  Certificates are memoized in-process and through the
+        cert snapshot tier, so warm restarts run zero validations.  A
+        host-side error of the analysis is contained as in the
+        reference; an error of a world's evaluation on the device (a K1
+        launch) propagates from ``put_template``, as kernel errors do in
+        a sweep: no path answers from the plain version instead."""
+        from gatekeeper_tpu_torch.analysis import transval
+        tv_mode = transval.mode()
+        if tv_mode not in ("warn", "strict"):
+            return compiled.vectorized
+        lowered = transval.maybe_miscompiled(kind, compiled.vectorized)
+        try:
+            result = transval.certify(kind, compiled, lowered,
+                                      device=self.device)
+        except transval.DeviceEvalFailed as e:
+            raise e.__cause__
+        except Exception as e:   # noqa: BLE001 — validation must not
+            # take template install down with it; an inconclusive run
+            # certifies nothing, so strict mode still pins
+            from gatekeeper_tpu_torch.utils.log import logger
+            logger("engine.torch_driver").warning(
+                "translation validation errored", kind=kind, err=str(e))
+            self.metrics.counter("transval_errors").inc()
+            return None if tv_mode == "strict" else compiled.vectorized
+        if isinstance(result, transval.Certificate):
+            self.metrics.counter("transval_certified").inc()
+            return compiled.vectorized
+        self.metrics.counter("transval_counterexamples").inc()
+        from gatekeeper_tpu_torch.utils.log import logger
+        logger("engine.torch_driver").warning(
+            "translation validation found a counterexample",
+            kind=kind, note=result.note, expected=result.expected,
+            actual=result.actual, mode=tv_mode)
+        if tv_mode == "strict":
+            return None   # scalar pin — identical to CannotLower
+        return compiled.vectorized
+
     def memsurface_sweep_order(self, st, kinds: list[str]) -> list[str]:
         """Stage-8 consumer: the dispatch order of a forced full sweep.
         Launches are asynchronous — while kind i's kernels drain, kind
@@ -965,6 +1115,7 @@ class TorchDriver(LocalDriver):
         if isinstance(st, TorchTargetState):
             st.footprints.pop(kind, None)
             st.shardplans.pop(kind, None)
+            st.compilesurfaces.pop(kind, None)
             st.memsurfaces.pop(kind, None)
         st.bump(kind)
 
@@ -982,7 +1133,10 @@ class TorchDriver(LocalDriver):
         constraint controller) make the next sweep a full one; here the
         next sweep keeps the churn delta plan.  The new document is
         installed either way, and cached formatted results carry it
-        (:meth:`_pair_results`)."""
+        (:meth:`_pair_results`).  Under GATEKEEPER_FOOTPRINT=strict the
+        kind's footprint is re-validated against the new document first
+        (:meth:`_footprint_constraint`)."""
+        self._footprint_constraint(target, kind, constraint)
         st = self._state(target)
         old = st._frozen_constraints.get((kind, name))
         super().put_constraint(target, kind, name, constraint)
@@ -991,6 +1145,57 @@ class TorchDriver(LocalDriver):
             self.metrics.counter("constraint_status_only_puts").inc()
             return
         st.bump(kind)
+
+    def _footprint_constraint(self, target: str, kind: str,
+                              constraint: dict) -> None:
+        """Strict-mode footprint re-validation at constraint install.
+
+        The footprint claims to cover EVERY constraint of the kind, but
+        install order puts templates before constraints, so the
+        template-install validation ran against the empty default
+        parameter document — under which many templates never fire and
+        the perturbation check is vacuous.  The first real parameter
+        document is a new operating point: re-certify against it (the
+        memo/snapshot make the honest case free) and reject the
+        constraint if the claimed read-set fails.  A host-side analysis
+        error only drops the kind's footprint; a world evaluation's
+        device error propagates."""
+        from gatekeeper_tpu_torch.analysis import footprint, transval
+        if footprint.mode() != "strict":
+            return
+        st = self._state(target)
+        if not isinstance(st, TorchTargetState):
+            return
+        compiled = st.templates.get(kind)
+        if compiled is None or compiled.vectorized is None:
+            return
+        try:
+            fp = footprint.certify(kind, compiled, compiled.vectorized,
+                                   constraints=[constraint],
+                                   device=self.device)
+        except transval.DeviceEvalFailed as e:
+            raise e.__cause__
+        except Exception as e:   # noqa: BLE001 — analysis failure only
+            # disables the footprint's consumers, never the install
+            from gatekeeper_tpu_torch.utils.log import logger
+            logger("engine.torch_driver").warning(
+                "footprint re-validation errored", kind=kind, err=str(e))
+            self.metrics.counter("footprint_errors").inc()
+            st.footprints.pop(kind, None)
+            st.sweep_cache.pop(kind, None)
+            return
+        bad = footprint.violations_for(kind)
+        if bad:
+            self.metrics.counter("footprint_violations").inc(len(bad))
+            st.footprints.pop(kind, None)
+            st.sweep_cache.pop(kind, None)
+            from gatekeeper_tpu_torch.analysis.diagnostics import Diagnostic
+            from gatekeeper_tpu_torch.errors import VetError
+            raise VetError([Diagnostic(code="footprint_violation",
+                                       severity="error",
+                                       message=v.format())
+                            for v in bad])
+        st.footprints[kind] = fp
 
     @locked
     def delete_constraint(self, target: str, kind: str, name: str) -> None:
@@ -1388,15 +1593,17 @@ class TorchDriver(LocalDriver):
     @locked_read
     def prepare_audit(self, target: str) -> bool:
         """Build what a forced full sweep needs before the first one: the
-        cross-template dedup plan and, on CUDA, the full K1 variant of
-        every rewritten program over its kind's bindings, so a
-        (re)started process pays both before it declares itself ready.
-        Returns True when a plan is ready (False: dedup off, or nothing
-        lowered).  The reference's Stage-7 AOT compile of certified
-        signatures is not ported (ROADMAP A8)."""
+        Stage-7 precompile of every certified kind at the current
+        geometry (:meth:`precompile`), the cross-template dedup plan and,
+        on CUDA, the full K1 variant of every rewritten program over its
+        kind's bindings, so a (re)started process pays all of it before
+        it declares itself ready.  Returns True when a plan is ready
+        (False: dedup off, or nothing lowered)."""
         st = self.state.get(target)
-        if not isinstance(st, TorchTargetState) or self.scalar_only \
-                or not self._dedup_on():
+        if not isinstance(st, TorchTargetState) or self.scalar_only:
+            return False
+        self._precompile(st, target)
+        if not self._dedup_on():
             return False
         with self._prep_lock:
             plan = self._audit_dedup_plan(st, target)
@@ -1409,6 +1616,153 @@ class TorchDriver(LocalDriver):
                         prog, bindings, DEFAULT_PREWARM_CAP,
                         with_match=with_match, extra=extra)
         return True
+
+    @locked_read
+    def precompile(self, target: str) -> int:
+        """Stage-7 precompile: one K1 launch over each certified kind's
+        bindings at the target's current geometry, so every audit
+        signature's variant is compiled before the first sweep (the
+        install / warm-restart seam, also reached through
+        :meth:`prepare_audit`).  Returns the number of precompile
+        launches issued — 0 on a warm restart whose geometry stamp is
+        already in the cs snapshot tier."""
+        st = self.state.get(target)
+        if st is None:
+            return 0
+        return self._precompile(st, target)
+
+    def _precompile(self, st, target: str) -> int:
+        """The reference's AOT compile of the certified audit signatures
+        (``jax_driver.py`` _precompile), through the ingest warm's
+        ``executor.prewarm_audit_exec`` and so the same Triton variant
+        cache: a kind whose variant the ingest warm already compiled
+        costs one launch.  On the CPU ``prewarm_audit_exec`` launches
+        nothing (the plain evaluator compiles nothing); the count and
+        the stamp are the same.  A binding build that fails skips its
+        kind, as in the reference; a launch's error is raised, not
+        swallowed, as the port's other warms raise theirs."""
+        from gatekeeper_tpu_torch.analysis import compilesurface
+        if compilesurface.mode() == "off" or self.scalar_only \
+                or not isinstance(st, TorchTargetState):
+            return 0
+        with self._prep_lock:
+            # element values reach the interner before any kind's
+            # bindings, as in a sweep
+            self._prefetch_axes(st)
+            for _pass in range(2):
+                entries = self._precompile_entries(st)
+                # a kind built before others interned their strings has
+                # its interner-indexed tables padded to a smaller bucket
+                # than a sweep that builds after every kind (a forced
+                # full one) pads to, and would precompile a signature no
+                # sweep launches (the reference's does): build those
+                # again over the settled interner
+                stale = [kind for kind, _dg, _p, b, _wm in entries
+                         if self._t_stale(st, b)]
+                if not stale:
+                    break
+                for kind in stale:
+                    st.bindings_cache.pop(kind, None)
+                    st.bindings_retired.pop(kind, None)
+        if not entries:
+            return 0
+        import hashlib as _hashlib
+        from gatekeeper_tpu_torch.resilience import snapshot as _snap
+        geom = sorted((kind, dg, b.c_pad, b.r_pad, wm)
+                      for kind, dg, _p, b, wm in entries)
+        stamp = _hashlib.sha256(repr(geom).encode()).hexdigest()
+        if _snap.load_compilesurface(f"aot:{target}:{stamp}") is not None:
+            # warm restart at the same certified geometry: zero
+            # precompile launches here — first launches load their
+            # variants from Triton's disk cache instead
+            return 0
+        n = 0
+        for _kind, _dg, prog, bindings, wm in entries:
+            with self._prep_lock:
+                self.executor.prewarm_audit_exec(
+                    prog, bindings, DEFAULT_PREWARM_CAP, with_match=wm)
+            compilesurface.precompiles_run += 1
+            n += 1
+        self.metrics.counter("compile_surface_precompiles").inc(n)
+        _snap.save_compilesurface(f"aot:{target}:{stamp}",
+                                  {"target": target, "n": n})
+        return n
+
+    @staticmethod
+    def _t_stale(st, bindings) -> bool:
+        """Does some interner-indexed array of ``bindings`` pad to
+        another bucket than the interner's size now gives?"""
+        from gatekeeper_tpu_torch.ir.prep import (binding_dim_classes,
+                                                  interner_bucket)
+        t_pad = interner_bucket(len(st.table.interner))
+        for nm, a in bindings.arrays.items():
+            try:
+                classes = binding_dim_classes(nm)
+            except ValueError:
+                continue
+            if any(cls == "t" and int(d) != t_pad
+                   for d, cls in zip(a.shape, classes)):
+                return True
+        return False
+
+    def _precompile_entries(self, st) -> list[tuple]:
+        """``(kind, certificate digest, program, bindings, with_match)``
+        for every kind the precompile launches: lowered, with
+        constraints, under a bounded certificate.  A kind whose bindings
+        fail to build is skipped, as in the reference: the sweep meets
+        the error itself.  Caller holds ``_prep_lock``."""
+        entries = []
+        for kind in sorted(st.templates):
+            compiled = st.templates[kind]
+            cert = st.compilesurfaces.get(kind)
+            cons = self._kind_constraints(st, kind)
+            if compiled.vectorized is None or not cons:
+                continue
+            if cert is None or not cert.bounded \
+                    or getattr(cert, "scalar_pin", False):
+                continue
+            try:
+                bindings = self._kind_bindings(st, kind, compiled, cons)
+            except Exception:   # noqa: BLE001 — a host-side build error
+                continue
+            # the sweep's gate set (_install_gates): kinds with match
+            # criteria get a __match__ binding
+            with_match = any((c.get("spec") or {}).get("match")
+                             for c in cons)
+            entries.append((kind, cert.digest, compiled.vectorized.program,
+                            bindings, with_match))
+        return entries
+
+    def certified_review_rungs(self, target: str,
+                               max_n: int | None = None
+                               ) -> list[int] | None:
+        """Batch sizes whose padded review signature is inside the
+        Stage-7 certified surface — the rungs the micro-batcher's
+        ``_fit_to_deadline`` may shrink along.  Review mini-tables pad
+        to ``bucket(B)`` (minimum 8), so the rungs are 1 plus the
+        power-of-two ladder up to the rows cap, clipped by the Stage-8
+        :meth:`memsurface_review_cap`.  None when the stage is off,
+        nothing is certified yet, or any installed template's surface is
+        unbounded (the batcher then falls back to blind halving)."""
+        from gatekeeper_tpu_torch.analysis import compilesurface
+        from gatekeeper_tpu_torch.ir import prep as _prep
+        if compilesurface.mode() == "off":
+            return None
+        st = self.state.get(target)
+        if not isinstance(st, TorchTargetState):
+            return None
+        certs = [st.compilesurfaces.get(k) for k in st.templates]
+        have = [c for c in certs if c is not None]
+        if not have or any(not c.bounded for c in have):
+            return None
+        rungs = [1] + list(_prep.bucket_ladder(
+            8, compilesurface._cap("r")))
+        if max_n is not None:
+            rungs = [r for r in rungs if r <= max_n] or [1]
+        cap = self.memsurface_review_cap(target)
+        if cap is not None:
+            rungs = [r for r in rungs if r <= cap] or [1]
+        return rungs
 
     def _rewritten_warm_items(self, st, plan) -> list[tuple]:
         """``(kind, rewritten program, bindings, with_match, shared
@@ -3179,9 +3533,8 @@ class TorchDriver(LocalDriver):
         batch pads its mini table to ``bucket(B)`` rows and dispatches
         one kind at a time, so the in-flight claim is the max (not the
         sum) over installed kinds of the peak at that row geometry.
-        None when the stage is off or nothing is certified.  (The
-        reference also clips its Stage-7 certified rungs with it; the
-        port has no Stage 7 yet, so the micro-batcher halves blindly.)"""
+        None when the stage is off or nothing is certified.
+        :meth:`certified_review_rungs` clips the Stage-7 rungs with it."""
         from gatekeeper_tpu_torch.analysis import memsurface
         from gatekeeper_tpu_torch.ir.prep import bucket, bucket_ladder
         if memsurface.mode() == "off":

@@ -18,15 +18,17 @@ Run it twice against the same ``GATEKEEPER_SNAPSHOT_DIR`` (fresh
 directory for the cold run) and the warm process must show
 ``restart_persistent_cache_hits > 0``, ``restart_persistent_cache_misses
 == 0``, ``lowerings == 0`` (no Rego re-lowering, no re-verification),
-``footprints == 0``, ``shardplans == 0``, ``memsurfaces == 0`` and
-``dfa_compiles == 0`` (every certificate and automaton restored from
-its snapshot tier), ``store_restored`` true, an identical
-``verdict_digest``, and, on the card, no ``nvcc`` build and no Triton
-variant compiled from scratch (``builds``: the build caches' hits and
-misses, utils/compile_cache.py; ``launches``: the sweep's K1, K2 and K3
-launches on the card).  ``validations``, ``compile_surfaces``
-and ``aot_precompiles`` are null: Stages 4 and 7 are not part of the
-port yet (ROADMAP A8, second half), and a 0 would claim a restored tier.
+``validations == 0``, ``footprints == 0``, ``shardplans == 0``,
+``compile_surfaces == 0``, ``memsurfaces == 0`` and ``dfa_compiles ==
+0`` (every certificate and automaton restored from its snapshot tier),
+``aot_precompiles == 0`` (the precompile's geometry stamp is in the cs
+tier), ``store_restored`` true, an identical ``verdict_digest``, and, on
+the card, no ``nvcc`` build and no Triton variant compiled from scratch
+(``builds``: the build caches' hits and misses,
+utils/compile_cache.py; ``launches``: the sweep's K1, K2 and K3
+launches on the card).  Translation validation runs in ``warn`` unless
+``GATEKEEPER_TRANSVAL`` says otherwise, its worlds on the driver's
+device.
 
 Knob: ``GATEKEEPER_SMOKE_N`` (resources, default 300).  The snapshot
 directory must not be shared across different ``GATEKEEPER_SMOKE_N``
@@ -62,6 +64,17 @@ def main(argv=None) -> int:
                     help="the driver's torch device (the card by default)")
     args = ap.parse_args(argv)
     n = int(os.environ.get("GATEKEEPER_SMOKE_N", "300"))
+    # translation validation on by default here: the warm process must
+    # load every Certificate from the cert snapshot tier instead of
+    # re-running the small-model check ("validations" == 0 warm)
+    os.environ.setdefault("GATEKEEPER_TRANSVAL", "warn")
+    # same contract for the Stage-6 partition plans ("shardplans" == 0)
+    os.environ.setdefault("GATEKEEPER_SHARDPLAN", "warn")
+    # and for the Stage-7 compile surfaces: the warm process must load
+    # every certificate from the cs tier ("compile_surfaces" == 0) AND
+    # skip the startup precompile via the cs-tier geometry stamp
+    # ("aot_precompiles" == 0)
+    os.environ.setdefault("GATEKEEPER_COMPILE_SURFACE", "warn")
     # the Stage-8 memory surfaces: the warm process must load every
     # certificate from the ms tier ("memsurfaces" == 0)
     os.environ.setdefault("GATEKEEPER_HBM_BUDGET", "warn")
@@ -69,8 +82,9 @@ def main(argv=None) -> int:
     # imports before the clock starts: interpreter + torch import cost is
     # identical for cold and warm processes and would only dilute the
     # startup ratio
-    from gatekeeper_tpu_torch.analysis import (footprint, memsurface,
-                                               shardplan)
+    from gatekeeper_tpu_torch.analysis import (compilesurface, footprint,
+                                               memsurface, shardplan,
+                                               transval)
     from gatekeeper_tpu_torch.audit.manager import DEFAULT_VIOLATIONS_LIMIT
     from gatekeeper_tpu_torch.client.client import Backend
     from gatekeeper_tpu_torch.client.interface import QueryOpts
@@ -146,12 +160,12 @@ def main(argv=None) -> int:
         "n_rows": len(st.table),
         "n_results": len(results),
         "verdict_digest": _verdict_digest(results),
-        "validations": None,
+        "validations": transval.validations_run,
         "footprints": footprint.analyses_run,
         "shardplans": shardplan.analyses_run,
         "dfa_compiles": regex_dfa.compiles_run,
-        "compile_surfaces": None,
-        "aot_precompiles": None,
+        "compile_surfaces": compilesurface.analyses_run,
+        "aot_precompiles": compilesurface.precompiles_run,
         "memsurfaces": memsurface.analyses_run,
         "device": str(drv.device),
         "launches": launches,

@@ -17,8 +17,10 @@ on every device:
   the stage-1 vet.
 - **dedup plan** (``plan``): the whole-policy-set predicate dedup plan,
   keyed by the digest of the installed set.
-- the install-time certificates: Stage-5 footprints (``fp``), Stage-6
-  partition plans (``sp``), Stage-8 memory surfaces (``ms``), and the
+- the install-time certificates: Stage-4 translation-validation
+  certificates (``cert``), Stage-5 footprints (``fp``), Stage-6
+  partition plans (``sp``), Stage-7 compile surfaces and AOT-precompile
+  geometry stamps (``cs``), Stage-8 memory surfaces (``ms``), and the
   compiled regex DFAs (``dfa``);
 - **store snapshot** (``store``): the columnar store's rows + interned
   string table as plain data (``ResourceTable.snapshot_state()``), and
@@ -27,9 +29,6 @@ on every device:
   devpages geometry, so a restarted process adopts the verdicts
   instead of confirming every pair on the host;
 - **rollout** (``ro``): an in-flight promotion's state machine.
-
-The reference's ``cert`` (Stage 4) and ``cs`` (Stage 7) tiers come with
-the port's certifiers (ROADMAP A8, second half).
 
 Activation is explicit: snapshots read/write only when
 ``GATEKEEPER_SNAPSHOT_DIR`` is set (the manager's ``main`` sets a
@@ -90,12 +89,14 @@ VERSION = 1
 class SnapshotStats:
     _FIELDS = ("ir_hits", "ir_misses", "mod_hits", "mod_misses",
                "plan_hits", "plan_misses",
+               "cert_hits", "cert_misses",
                "store_hits", "store_misses",
                "fp_hits", "fp_misses",
                "sp_hits", "sp_misses",
                "pg_hits", "pg_misses",
                "dfa_hits", "dfa_misses",
                "ro_hits", "ro_misses",
+               "cs_hits", "cs_misses",
                "ms_hits", "ms_misses", "corrupt_discarded",
                "saves", "save_errors")
 
@@ -401,6 +402,22 @@ def save_dedup_plan(digest: str, plan) -> bool:
     return _save("plan", f"plan:{digest}", plan, "dedup plan")
 
 
+def load_cert(digest: str):
+    """Stage-4 translation-validation certificates
+    (analysis/transval.py), keyed by the certificate digest (program
+    cache_key + constraint docs + budget + validator version): a warm
+    restart re-runs zero validations."""
+    if not enabled():
+        return None
+    return _load("cert", f"cert:{digest}")
+
+
+def save_cert(digest: str, cert) -> bool:
+    if not enabled():
+        return False
+    return _save("cert", f"cert:{digest}", cert, "certificate")
+
+
 def load_footprint(digest: str):
     """Stage-5 dependency footprints, keyed by the footprint digest
     (program cache_key + prep-spec signature + analyzer version): a warm
@@ -428,6 +445,23 @@ def save_shardplan(digest: str, plan) -> bool:
     if not enabled():
         return False
     return _save("sp", f"sp:{digest}", plan, "shardplan")
+
+
+def load_compilesurface(digest: str):
+    """Stage-7 compile-surface certificates (analysis/compilesurface.py),
+    keyed by program cache_key + pad-geometry version + ladder caps, and
+    the AOT-precompile geometry stamps ``TorchDriver.precompile`` writes
+    under ``aot:`` keys: a warm restart re-runs zero surface analyses and
+    issues zero precompile launches."""
+    if not enabled():
+        return None
+    return _load("cs", f"cs:{digest}")
+
+
+def save_compilesurface(digest: str, cert) -> bool:
+    if not enabled():
+        return False
+    return _save("cs", f"cs:{digest}", cert, "compile surface")
 
 
 def load_memsurface(digest: str):
@@ -511,8 +545,8 @@ def save_rollout(name: str, payload_obj) -> bool:
 # ----------------------------------------------------------------------
 # the combined restart counter
 
-_TIERS = ("ir", "mod", "plan", "store", "fp", "sp", "pg", "dfa", "ro",
-          "ms")
+_TIERS = ("ir", "mod", "plan", "cert", "store", "fp", "sp", "pg", "dfa",
+          "ro", "cs", "ms")
 
 
 def tier_counts(s: dict) -> tuple[int, int]:

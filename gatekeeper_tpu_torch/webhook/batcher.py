@@ -23,9 +23,9 @@ entries that are already expired or withdrawn *before* device dispatch,
 then sizes the batch so the cost-model-predicted evaluation latency
 fits the tightest deadline in the batch.
 
-The Stage-7 rung ladder (``certified_rungs``) is kept: the port's
-client returns None for it (no Stage 7 yet), so deadline shrinking
-halves.
+Deadline shrinking steps down the Stage-7 certified rung ladder
+(``certified_rungs``: ``Client.certified_review_rungs``, from
+analysis/compilesurface.py), and halves when there is none.
 """
 
 from __future__ import annotations

@@ -325,8 +325,9 @@ def test_uncalibrated_predictor_has_an_opinion():
     pred = drv.predict_review_batch_seconds(TARGET_NAME, 16)
     assert pred is not None and pred > 0.0
     assert client.predict_review_seconds(16) == pred
-    # no Stage 7 in the port: the batcher halves blindly
-    assert client.certified_review_rungs(64) is None
+    # Stage 7 (analysis/compilesurface.py): deadline shrinks step down
+    # the certified rungs, 1 and the pow2 ladder from 8
+    assert client.certified_review_rungs(64) == [1, 8, 16, 32, 64]
 
 
 def test_deadline_shrink_uncalibrated():

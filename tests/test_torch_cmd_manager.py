@@ -422,7 +422,11 @@ def test_main_sets_no_snapshot_dir(monkeypatch, capsys, tmp_path):
     the port's ``main`` set none."""
     from gatekeeper_tpu_torch.cmd import manager as cmd
     monkeypatch.setenv("GATEKEEPER_TORCH_CACHE_DIR", str(tmp_path))
-    monkeypatch.delenv("GATEKEEPER_SNAPSHOT_DIR", raising=False)
+    # setenv then delenv: monkeypatch records the variable's absence, so
+    # the value ``main`` writes is removed at teardown, not leaked into
+    # the rest of the process.
+    monkeypatch.setenv("GATEKEEPER_SNAPSHOT_DIR", "")
+    monkeypatch.delenv("GATEKEEPER_SNAPSHOT_DIR")
     monkeypatch.setattr(cmd, "run_demo", lambda mgr: {"ok": True})
     assert cmd.main(["--demo", "--port", "-1"] + CPU) == 0
     assert os.environ["GATEKEEPER_SNAPSHOT_DIR"] == \

@@ -631,18 +631,47 @@ def _masked(objs: dict) -> dict:
 
 
 def test_transval_strict_is_refused(monkeypatch):
-    """GATEKEEPER_TRANSVAL=strict asks for Stage 4, which the port has
-    not got: the template reconcile raises not-yet-ported (and the pump
-    gives up loudly) instead of installing the template unvalidated."""
+    """GATEKEEPER_TRANSVAL=strict runs Stage 4 as the reference does (the
+    test keeps the name it had while the port refused the mode): the
+    template reconciles, is certified and stays on the device path with
+    no status error, and the reference's plane over the same write
+    reaches the same status."""
+    from gatekeeper_tpu.client.client import Backend as RBackend
+    from gatekeeper_tpu.cluster.fake import FakeCluster as RFakeCluster
+    from gatekeeper_tpu.controllers.constrainttemplate import \
+        TEMPLATE_GVK as RTEMPLATE
+    from gatekeeper_tpu.controllers.registry import add_to_manager as radd
+    from gatekeeper_tpu.engine.jax_driver import JaxDriver
+    from gatekeeper_tpu.target.k8s import K8sValidationTarget as RTarget
+    from gatekeeper_tpu.utils.ha_status import get_ha_status as rstatus
+    from gatekeeper_tpu_torch.analysis import transval
     monkeypatch.setenv("GATEKEEPER_TRANSVAL", "strict")
+    monkeypatch.setattr(transval, "_memo", {})
+    monkeypatch.setattr(transval, "failures", {})
+    monkeypatch.setattr(transval, "validations_run", 0)
     cluster = FakeCluster()
     cluster.register_kind(TEMPLATE_GVK, "constrainttemplates")
-    plane = add_to_manager(cluster, make_client(TorchDriver(device="cpu")))
+    driver = TorchDriver(device="cpu")
+    plane = add_to_manager(cluster, make_client(driver))
     cluster.create(template_obj())
-    with pytest.raises(RuntimeError, match="not yet ported"):
-        plane.run_until_idle()
-    assert any("GATEKEEPER_TRANSVAL=strict" in str(e)
-               for _, _, e in plane.mgr.errors)
+    plane.run_until_idle()
+    assert not plane.mgr.errors
+    ref = RFakeCluster()
+    ref.register_kind(RTEMPLATE, "constrainttemplates")
+    rplane = radd(ref, RBackend(JaxDriver()).new_client([RTarget()]))
+    ref.create(template_obj())
+    rplane.run_until_idle()
+    name = template_obj()["metadata"]["name"]
+    got = get_ha_status(cluster.get(TEMPLATE_GVK, name))
+    assert got.get("errors") == rstatus(ref.get(RTEMPLATE, name)).get(
+        "errors") is None
+    (kind, compiled), = driver.state[
+        "admission.k8s.gatekeeper.sh"].templates.items()
+    assert compiled.vectorized is not None
+    assert transval.validations_run == 1
+    # one validation; each reconcile of the template re-certifies from
+    # the memo
+    assert driver.metrics.counter("transval_certified").value >= 1
 
 
 def test_control_plane_installs_the_runtime_and_reconciles_providers():

@@ -211,19 +211,59 @@ def test_install_certifies_and_delete_drops(fresh_certifiers):
 
 
 @pytest.mark.parametrize("env,value", [
-    ("GATEKEEPER_FOOTPRINT", "strict"),
     ("GATEKEEPER_SHARDPLAN", "strict"),
 ])
 def test_strict_modes_raise_not_yet_ported(monkeypatch, fresh_certifiers,
                                            env, value):
-    """Strict validation is not ported: the install fails with the
-    not-yet-ported error instead of running as the default mode (the
-    driver's error guard must not swallow it)."""
+    """Strict partition-plan validation (the simulated mesh, ROADMAP
+    A10) is not ported: the install fails with the not-yet-ported error
+    instead of running as the default mode (the driver's error guard
+    must not swallow it)."""
     monkeypatch.setenv(env, value)
     drv = _cpu()
     client = Backend(drv).new_client([K8sValidationTarget()])
     with pytest.raises(ClientError, match="not yet ported"):
         client.add_template(tall_docs()[0][0])
+
+
+def test_footprint_strict_validates_and_stacks_as_default(monkeypatch,
+                                                          fresh_certifiers):
+    """GATEKEEPER_FOOTPRINT=strict perturbation-validates every library
+    footprint at install (ported with the small-model worlds), with the
+    reference's row-locality verdicts; the fleet audit then stacks the
+    same kinds, with the same digests, as under the default mode."""
+    from gatekeeper_tpu_torch.whatif import fleet_audit, make_cluster
+    docs = tall_docs()
+    templates = [t for t, _c in docs]
+    constraints = [c for _t, c in docs]
+
+    def run():
+        footprint.reset()
+        shardplan.reset()
+        clusters = [make_cluster(f"c{i}", templates, constraints,
+                                 objs=make_mixed(random.Random(40 + i), 30),
+                                 driver_factory=_cpu) for i in range(2)]
+        return clusters, fleet_audit(clusters, 20)
+
+    base_clusters, base = run()
+    monkeypatch.setenv("GATEKEEPER_FOOTPRINT", "strict")
+    clusters, rep = run()
+    fps = clusters[0].client.driver._state(TARGET).footprints
+    assert fps and all(fp.validated for fp in fps.values())
+    assert not footprint.violations
+    want = {}
+    for tdoc, _c in jall_docs():
+        kind = tdoc["spec"]["crd"]["spec"]["names"]["kind"]
+        tt = tdoc["spec"]["targets"][0]
+        try:
+            jc = jcompile(kind, tt["target"], tt["rego"])
+            low = jlower(jc.module, jc.interp)
+        except JCannotLower:
+            continue
+        want[kind] = jfootprint.analyze(kind, low).row_local
+    assert {k: fp.row_local for k, fp in fps.items()} == want
+    assert rep.kinds_stacked == base.kinds_stacked
+    assert rep.digests == base.digests
 
 
 def test_analysis_error_is_counted_and_kind_replicates(monkeypatch,

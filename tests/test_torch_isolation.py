@@ -52,6 +52,12 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "gatekeeper_tpu_torch.kernels.residency",
                 "gatekeeper_tpu_torch.analysis.ir_verifier",
                 "gatekeeper_tpu_torch.analysis.memsurface",
+                "gatekeeper_tpu_torch.analysis.smallmodel",
+                "gatekeeper_tpu_torch.analysis.transval",
+                "gatekeeper_tpu_torch.analysis.footprint",
+                "gatekeeper_tpu_torch.analysis.compilesurface",
+                "gatekeeper_tpu_torch.resilience.snapshot",
+                "gatekeeper_tpu_torch.resilience.smoke",
                 "gatekeeper_tpu_torch.enforce.ledger",
                 "gatekeeper_tpu_torch.enforce.devpages",
                 "gatekeeper_tpu_torch.obs.flightrecorder",

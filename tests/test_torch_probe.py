@@ -7,8 +7,11 @@ device asked for and names it in its verdict, ``--builtins`` lists the
 reference's registry, the exit codes of ``--lint`` (clean, error,
 warnings, ``--strict`` with the scalar-fallback pins, unreadable input)
 equal the reference's on the same files, ``--cost`` runs a measured
-forced full sweep, and each subcommand that needs a layer the port has
-not got raises ClientError naming its ROADMAP item."""
+forced full sweep, the certifiers (``--certify``, ``--footprint``,
+``--compilesurface``, ``--memsurface``, ``--pages``) and ``--trace``
+exit as the reference's do, clean and with a seeded failure, and
+``--shardplan``, which needs a layer the port has not got, raises
+ClientError naming its ROADMAP item."""
 
 import json
 import pytest
@@ -204,14 +207,101 @@ def test_cost_runs_a_measured_sweep(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag, item", [
-    ("--footprint", "A8"), ("--certify", "A8"),
-    ("--trace", "A8"), ("--pages", "A8"),
-    ("--compilesurface", "A8"), ("--memsurface", "A8"),
     ("--shardplan", "A10"),
 ])
 def test_unported_subcommands_raise_naming_their_item(flag, item):
     with pytest.raises(ClientError, match=f"not yet ported.*ROADMAP {item}"):
         probe.main([flag, "--device", "cpu"])
+
+
+def _strip_times(out: str) -> list[str]:
+    """Output lines without their wall-clock tails (`` in 1.2s``)."""
+    import re
+    return [re.sub(r" in [0-9.]+s$", "", ln) for ln in out.splitlines()]
+
+
+# (flag, the seeded failure's environment or argv, the lines that must
+# equal the reference's: "all", or a prefix every compared line has)
+CERTIFIER_CASES = {
+    "--certify": ({"GATEKEEPER_TRANSVAL_TEST_MISCOMPILE":
+                   "K8sReplicaLimits"}, "all"),
+    "--footprint": ({"GATEKEEPER_FOOTPRINT_TEST_NARROW": "K8sAllowedRepos"},
+                    "all"),
+    "--compilesurface": ({"GATEKEEPER_CS_TEST_UNBOUNDED":
+                          "K8sRequiredLabels"}, "all"),
+    "--memsurface": ({"GATEKEEPER_MEMSURFACE_TEST_UNDER":
+                      "K8sRequiredLabels"}, "  "),
+    "--pages": (["missing.yaml"], "  ok   "),
+}
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("flag", sorted(CERTIFIER_CASES))
+def test_certifier_subcommands_exit_as_the_reference(flag, seeded,
+                                                     monkeypatch, tmp_path,
+                                                     capsys):
+    """``--certify``, ``--footprint``, ``--compilesurface``,
+    ``--memsurface`` and ``--pages`` over the library on ``--device
+    cpu``: the reference's exit code clean and with a seeded failure (a
+    miscompile, a narrowed footprint, an unbounded surface, an
+    under-claimed memory surface, an unreadable file), and its report
+    lines (memsurface: the per-template lines, whose budget is the
+    card's; pages: the per-kind and per-sweep ok lines)."""
+    monkeypatch.setenv("GATEKEEPER_PAGES_PROBE_N", "100")
+    monkeypatch.setattr(torch_driver, "SMALL_WORKLOAD_EVALS", 0)
+    seed, compare = CERTIFIER_CASES[flag]
+    argv = [flag, "--library"]
+    if seeded and isinstance(seed, dict):
+        for k, v in seed.items():
+            monkeypatch.setenv(k, v)
+    elif seeded:
+        argv += [str(tmp_path / f) for f in seed]
+    rc = probe.main(argv + ["--device", "cpu"])
+    out = _strip_times(capsys.readouterr().out)
+    want = ref_probe.main(argv)
+    ref_out = _strip_times(capsys.readouterr().out)
+    assert rc == want
+    # clean: 1 where the library has a warning-severity finding (a
+    # pinned template, the cross-row kind, kinds the pages fall back on)
+    assert rc == (2 if seeded else {"--certify": 0}.get(flag, 1))
+    if compare == "all":
+        assert out == ref_out
+    else:
+        assert [ln for ln in out if ln.startswith(compare)] == \
+            [ln for ln in ref_out if ln.startswith(compare)]
+    if not seeded:
+        assert len(out) > 10
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+def test_trace_writes_chrome_json_as_the_reference(seeded, monkeypatch,
+                                                   tmp_path, capsys):
+    """``--trace --out FILE``: a forced full library sweep on the device
+    asked for, as Chrome trace-event JSON with the reference's
+    ``gatekeeperTrace`` attribution keys, rc 0; a sweep that fails gives
+    the reference's rc 2."""
+    from gatekeeper_tpu.engine.jax_driver import JaxDriver
+    monkeypatch.setenv("GATEKEEPER_TRACE_PROBE_N", "60")
+    if seeded:
+        def boom(*a, **k):
+            raise RuntimeError("sweep failed")
+        monkeypatch.setattr(TorchDriver, "query_audit", boom)
+        monkeypatch.setattr(JaxDriver, "query_audit", boom)
+    got, want = tmp_path / "port.json", tmp_path / "ref.json"
+    rc = probe.main(["--trace", "--out", str(got), "--device", "cpu"])
+    assert rc == ref_probe.main(["--trace", "--out", str(want)])
+    assert rc == (2 if seeded else 0)
+    if seeded:
+        return
+    doc, ref = json.loads(got.read_text()), json.loads(want.read_text())
+    assert set(doc) == set(ref)
+    assert set(doc["gatekeeperTrace"]) == set(ref["gatekeeperTrace"])
+    assert doc["gatekeeperTrace"]["workload_rows"] == 60
+    att = doc["gatekeeperTrace"]["attribution"]
+    assert len(att["templates"]) == \
+        len(ref["gatekeeperTrace"]["attribution"]["templates"]) == 48
+    assert any(e.get("name") == "audit.sweep" for e in doc["traceEvents"])
+    assert "48 attributed template(s)" in capsys.readouterr().err
 
 
 def test_health_reports_the_device_asked_for(capsys):

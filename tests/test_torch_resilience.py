@@ -340,6 +340,10 @@ def test_warm_restart_in_process_skips_lowering(clean_backend, monkeypatch,
                                                 tmp_path):
     monkeypatch.setenv("GATEKEEPER_SNAPSHOT_DIR", str(tmp_path))
     drv_cold, _ = _mk_client(seed=3)
+    # a cold process prepares its audit before it serves, as the smoke
+    # and the manager's start do: the Stage-7 precompile stamps its
+    # geometry in the cs tier, which the warm prepare_audit reads back
+    assert drv_cold.prepare_audit(TARGET) is True
     cold_digest = _verdict_digest(_audit(drv_cold))
     assert drv_cold.save_store_snapshot(TARGET)
 
@@ -363,7 +367,8 @@ def test_warm_restart_in_process_skips_lowering(clean_backend, monkeypatch,
     assert delta["store_hits"] == 1
     assert delta["plan_hits"] == 1
     assert delta["pg_hits"] == 1      # pagemap tier (pages default-on)
-    assert hits == 9
+    assert delta["cs_hits"] == 1      # the precompile's geometry stamp
+    assert hits == 10
     assert drv_warm.metrics.counter("template_ir_snapshot_hits").value == 3
 
     # repeat prepare_audit is satisfied from the in-memory memo, not

@@ -170,7 +170,10 @@ def test_library_programs_verify_clean_on_both():
     assert lowered >= 40
 
 
-def test_install_runs_the_verifier_on_every_lowered_program():
+def test_install_runs_the_verifier_on_every_lowered_program(monkeypatch):
+    # a snapshot directory would serve the lowered IR from its tier and
+    # skip lowering (and the verifier) on both drivers
+    monkeypatch.delenv("GATEKEEPER_SNAPSHOT_DIR", raising=False)
     for mod in (jverifier, tverifier):
         mod.reset_counters()
     for drv, backend, target, docs in (
@@ -215,6 +218,7 @@ def tampered(monkeypatch):
     monkeypatch.setattr(torch_driver, "SMALL_WORKLOAD_EVALS", 0)
     monkeypatch.setenv("GATEKEEPER_PAGES", "off")
     monkeypatch.delenv("GATEKEEPER_IR_VERIFY", raising=False)
+    monkeypatch.delenv("GATEKEEPER_SNAPSHOT_DIR", raising=False)
 
 
 def _client(drv, backend, target, docs, kinds):

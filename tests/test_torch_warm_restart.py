@@ -71,7 +71,10 @@ def test_two_process_warm_restart(tmp_path):
     assert cold["lowerings"] > 0
     assert cold["store_restored"] is False
     assert _snap_files(snapdir), "cold run wrote no snapshot entries"
-    assert cold["validations"] is None      # Stage 4: not ported yet
+    # Stages 4 and 7 (warn), cold: every lowered template validated and
+    # precompiled (two library programs share one surface digest)
+    assert cold["validations"] == cold["aot_precompiles"] == 48
+    assert cold["compile_surfaces"] == 47
 
     # the warm process reused it: no Rego re-lowering, no certificate
     # or automaton re-derived, restored store, restart hits and no
@@ -79,7 +82,8 @@ def test_two_process_warm_restart(tmp_path):
     assert warm["restart_persistent_cache_hits"] > 0
     assert warm["restart_persistent_cache_misses"] == 0
     assert warm["lowerings"] == 0
-    for key in ("footprints", "shardplans", "memsurfaces", "dfa_compiles"):
+    for key in ("footprints", "shardplans", "memsurfaces", "dfa_compiles",
+                "validations", "compile_surfaces", "aot_precompiles"):
         assert cold[key] > 0 and warm[key] == 0, key
     assert warm["store_restored"] is True
     assert warm["templates"] == cold["templates"]
